@@ -1,0 +1,93 @@
+"""Shared set-up for the port's parity tests (tests/test_torch_*.py).
+
+Builds the regression-pin workload (4 trials x 120 bins x 10 neurons x
+2 latents) from a NumPy seed and hands the same state to ``vlgp_tpu``
+and ``vlgp_tpu_torch`` as NumPy arrays, through
+``vlgp_tpu_torch.utils.convert``.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+from vlgp_tpu_torch.utils.convert import params_from_numpy, trialset_from_numpy
+
+# f64 phase parity: both packages run the exact LAPACK route and differ
+# only in the order of their sums
+RTOL64 = 1e-8
+
+
+def pin_trials(seed=7, ntrial=4, length=120):
+    """The workload of tests/test_regression_pin.py, plus the true latents."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(2, 10)) * 0.5
+    trials, zs = [], []
+    for _ in range(ntrial):
+        z = np.column_stack((np.sin(np.linspace(0, 6, length)),
+                             np.cos(np.linspace(0, 6, length))))
+        trials.append({"y": rng.poisson(np.exp(z @ a - 1.5)).astype(float),
+                       "mu": rng.normal(size=(length, 2)) * 0.1})
+        zs.append(z)
+    return trials, a, np.concatenate(zs)
+
+
+def to_np(obj) -> dict:
+    """A vlgp_tpu pytree dataclass (Params, TrialSet) as a dict of arrays."""
+    return {f.name: (None if getattr(obj, f.name) is None else np.asarray(getattr(obj, f.name)))
+            for f in dataclasses.fields(obj)}
+
+
+def port_params(jparams):
+    arrays = to_np(jparams)
+    static = {k: arrays.pop(k) for k in ("gp_noise", "dt", "rank", "likelihood_kind")}
+    static = {k: (v.item() if isinstance(v, np.ndarray) else v) for k, v in static.items()}
+    return params_from_numpy(arrays, **static)
+
+
+def port_data(jdata):
+    return trialset_from_numpy(to_np(jdata))
+
+
+def port_config(jconfig):
+    from vlgp_tpu_torch.config import Config
+
+    return Config(**dataclasses.asdict(jconfig))
+
+
+def np_of(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def assert_close(port, ref, rtol=RTOL64, atol=0.0, err_msg=""):
+    np.testing.assert_allclose(np_of(port), np.asarray(ref), rtol=rtol, atol=atol,
+                               err_msg=err_msg)
+
+
+def r2_aligned(mu, zt):
+    X = np.column_stack([mu, np.ones(len(mu))])
+    beta, *_ = np.linalg.lstsq(X, zt, rcond=None)
+    return float(1 - np.sum((X @ beta - zt) ** 2) / np.sum((zt - zt.mean(0)) ** 2))
+
+
+def pin_state(dtype="float64", **config_kw):
+    """The pin workload prepared as tests/test_regression_pin.py:_setup
+    does, in both packages: (jax (seg, params, G, config), port (...))."""
+    import jax.numpy as jnp
+
+    from vlgp_tpu.config import default_config, make_params
+    from vlgp_tpu.data import cut_trials, pack_trials
+    from vlgp_tpu.models.gp import make_cholesky
+    from vlgp_tpu.models.vlgp import update_w
+
+    trials, a, _ = pin_trials()
+    config = default_config(dtype=dtype, **config_kw)
+    np_dtype = np.dtype(dtype)
+    params = make_params(10, 2, 1, "poisson", a=a, b=np.full((1, 10), -1.5),
+                         omega=np.full(2, 1e-2), dtype=jnp.dtype(dtype))
+    data = pack_trials(trials, 2, 1, dtype=np_dtype)
+    seg = cut_trials(data, config.window, seed=0)
+    G = make_cholesky(seg.nbin, params)
+    seg = update_w(seg, params, config)
+    port = (port_data(seg), port_params(params), torch.tensor(np.asarray(G)),
+            port_config(config))
+    return (seg, params, G, config), port

@@ -1,0 +1,279 @@
+"""Port parity for ops/spd: the exact route in float64, and the float32
+Newton-Schulz semantics of the ns_gram / ns_packed kernels' plain versions
+against the JAX package's Pallas kernels in interpret mode.
+
+The TPU kernels multiply in bf16x3 and the port in float32, so float32
+results are held to the residual contract max|(I+A)X - I| < 1e-2 on both
+sides and agree within 2e-3 of max|X|, not bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from vlgp_tpu.ops import spd as jspd
+from vlgp_tpu_torch.ops import spd as tspd
+
+from _torch_parity import assert_close, np_of
+
+torch.set_num_threads(1)
+
+TOL = 1e-2
+AGREE = 2e-3
+
+
+@pytest.fixture(autouse=True)
+def _fresh_counters():
+    tspd.reset_counters()
+    yield
+
+
+def _psd(batch, R, scale=1.0, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=batch + (R, R // 2)).astype(dtype)
+    return np.einsum("...rk,...qk->...rq", G, G) * scale
+
+
+def _gram_problem(Z=2, S=5, T=12, R=8, seed=11, scale=1.0):
+    """The inputs of tests/test_spd.py:_gram_problem."""
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(Z, T, R)).astype(np.float32) * 0.5
+    w = (rng.uniform(size=(Z, S, T)) * scale).astype(np.float32)
+    A = np.einsum("ztr,zst,ztq->zsrq", G, w, G)
+    X_ref = np.linalg.inv(A + np.eye(R, dtype=np.float32))
+    return G, w, X_ref
+
+
+def _resid(A, X):
+    A, X = np.asarray(A, np.float64), np.asarray(X, np.float64)
+    eye = np.eye(A.shape[-1])
+    return np.abs((A + eye) @ X - eye).max()
+
+
+def _agree(port, ref, scale):
+    err = np.abs(np_of(port) - np.asarray(ref)).max()
+    assert err <= AGREE * scale, (err, scale)
+
+
+def _gram_A(G, w):
+    return np.einsum("ztr,zst,ztq->zsrq", G.astype(np.float64), w.astype(np.float64),
+                     G.astype(np.float64))
+
+
+@pytest.fixture(scope="module")
+def jax_cold():
+    """The Pallas kernel's cold route (interpret mode) on the default
+    problem: (G, w, X_ref, X, v)."""
+    G, w, X_ref = _gram_problem()
+    Xj, vj = jspd.inv_one_plus_gram(jnp.asarray(G), jnp.asarray(w), iters=16,
+                                    force="interpret", want_v=True)
+    return G, w, X_ref, np.asarray(Xj), np.asarray(vj)
+
+
+# ---------------------------------------------------------------- float64 --
+
+
+def test_exact_route_f64():
+    A = _psd((3, 4), 12, 0.5, seed=1, dtype=np.float64)
+    ref = np.asarray(jspd.inv_one_plus_psd(jnp.asarray(A)))
+    got = tspd.inv_one_plus_psd(torch.tensor(A))
+    assert_close(got, ref)
+    assert tspd.ROUTE_CALLS == {"gram": 0, "packed": 0}
+
+    G, w, _ = _gram_problem(seed=12)
+    G, w = G.astype(np.float64), w.astype(np.float64)
+    Xj, vj = jspd.inv_one_plus_gram(jnp.asarray(G), jnp.asarray(w), want_v=True)
+    Xt, vt = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w), want_v=True)
+    assert_close(Xt, np.asarray(Xj))
+    assert_close(vt, np.asarray(vj))
+    # warm starts do not change the exact route
+    Xw = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w), warm=Xt * 0)
+    assert_close(Xw, np.asarray(Xj))
+    assert tspd.ROUTE_CALLS == {"gram": 0, "packed": 0}
+
+
+def test_large_rank_f32_takes_exact_route():
+    """R > 128 is past the kernels' shared-memory limit: exact route."""
+    G, w, X_ref = _gram_problem(Z=1, S=2, T=140, R=130, seed=3, scale=0.1)
+    X = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w))
+    assert tspd.ROUTE_CALLS == {"gram": 0, "packed": 0}
+    assert np.abs(np_of(X) - X_ref).max() < 1e-4
+
+
+# ------------------------------------------- float32: ns_gram semantics --
+
+
+def test_gram_cold_matches_pallas(jax_cold):
+    G, w, X_ref, Xj, vj = jax_cold
+    Xt, vt = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w), iters=16, want_v=True)
+    assert Xt.dtype == torch.float32 and tspd.ROUTE_CALLS["gram"] == 1
+    A = _gram_A(G, w)
+    assert _resid(A, Xt) < TOL and _resid(A, Xj) < TOL
+    scale = np.abs(X_ref).max()
+    _agree(Xt, Xj, scale)
+    _agree(vt, vj, scale)
+    assert sum(tspd.FALLBACKS.values()) == 0
+
+
+def test_gram_warm_refine_matches_pallas():
+    """probe=False always refines (the H-step's first refinement)."""
+    G, w, X_ref = _gram_problem(seed=16)
+    w2 = w * 1.5  # the carried inverse is from a different system
+    Xj, vj = jspd.inv_one_plus_gram(jnp.asarray(G), jnp.asarray(w2), iters=16,
+                                    force="interpret", warm=jnp.asarray(X_ref),
+                                    warm_iters=8, probe=False, want_v=True)
+    Xt, vt = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w2), iters=16,
+                                    warm=torch.tensor(X_ref), warm_iters=8,
+                                    probe=False, want_v=True)
+    A = _gram_A(G, w2)
+    assert _resid(A, Xt) < TOL and _resid(A, np.asarray(Xj)) < TOL
+    _agree(Xt, Xj, np.abs(X_ref).max())
+    _agree(vt, vj, np.abs(X_ref).max())
+    assert sum(tspd.FALLBACKS.values()) == 0
+    # with the probe on, the drifted carry is rejected, then refined
+    tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w2), iters=16,
+                           warm=torch.tensor(X_ref), warm_iters=8)
+    assert tspd.FALLBACKS["gram_probe_reject"] == 1
+    assert tspd.FALLBACKS["gram_refine_fail"] == 0
+
+
+def test_gram_probe_accepts_carry_as_is():
+    """An exact carried inverse passes the probe unchanged, with v from it
+    (the Pallas side of this is tests/test_spd.py:181; the kernel-level
+    probe is compared with Pallas in the tail-shape test below)."""
+    G, w, X_ref = _gram_problem(seed=13)
+    warm = torch.tensor(X_ref)
+    Xt, vt = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w), iters=16,
+                                    warm=warm, warm_iters=4, want_v=True)
+    assert Xt is warm
+    v_ref = np.einsum("ztr,zsrq,ztq->zst", G, X_ref, G)
+    _agree(vt, v_ref, np.abs(X_ref).max())
+    assert sum(tspd.FALLBACKS.values()) == 0
+
+
+@pytest.mark.parametrize("bad", [50.0, np.nan])
+def test_gram_bad_warm_start_reaches_cold_route(jax_cold, bad):
+    """Garbage and NaN carries fail the probe and the refinement; the cold
+    route answers, so the result matches the Pallas cold route (the
+    Pallas side's own garbage case is tests/test_spd.py:195)."""
+    G, w, X_ref, Xj, vj = jax_cold
+    garbage = np.full_like(X_ref, bad)
+    Xt, vt = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w), iters=16,
+                                    warm=torch.tensor(garbage), warm_iters=2, want_v=True)
+    assert torch.isfinite(Xt).all() and torch.isfinite(vt).all()
+    A = _gram_A(G, w)
+    assert _resid(A, Xt) < TOL
+    _agree(Xt, Xj, np.abs(X_ref).max())
+    _agree(vt, vj, np.abs(X_ref).max())
+    assert tspd.FALLBACKS["gram_probe_reject"] == 1
+    assert tspd.FALLBACKS["gram_refine_fail"] == 1
+
+
+def test_gram_kernel_modes_and_tail_shape():
+    """Kernel-level outputs at the tail shape of tests/test_spd.py:209
+    (S one past a TPU block plus 3): cold with v, probe, and a NaN x0
+    whose residual must stay NaN."""
+    R = 8
+    _, _, per_block, _ = jspd._packed_geometry(1, R, tiles=16)
+    G, w, X_ref = _gram_problem(Z=1, S=per_block + 3, T=10, R=R, seed=15)
+    Xj, rj, vj = jspd._ns_gram_pallas(jnp.asarray(G), jnp.asarray(w), iters=16,
+                                      want_v=True, interpret=True)
+    Xt, rt, vt = tspd.ns_gram(torch.tensor(G), torch.tensor(w), iters=16, want_v=True)
+    assert float(rt) < TOL and float(rj) < TOL
+    _agree(Xt, Xj, np.abs(X_ref).max())
+    _agree(vt, vj, np.abs(X_ref).max())
+
+    x0 = Xt.contiguous()
+    _, r0j, v0j = jspd._ns_gram_pallas(jnp.asarray(G), jnp.asarray(w), iters=0,
+                                       x0=jnp.asarray(np_of(x0)), resid_only=True,
+                                       want_v=True, interpret=True)
+    X0t, r0t, v0t = tspd.ns_gram(torch.tensor(G), torch.tensor(w), iters=0, x0=x0,
+                                 resid_only=True, want_v=True)
+    assert X0t is None and float(r0t) < TOL and float(r0j) < TOL
+    _agree(v0t, v0j, np.abs(X_ref).max())
+
+    _, rnan, _ = tspd.ns_gram(torch.tensor(G), torch.tensor(w), iters=3,
+                              x0=torch.full_like(x0, float("nan")))
+    assert torch.isnan(rnan)
+
+
+# ----------------------------------------- float32: ns_packed semantics --
+
+
+def test_packed_kernel_modes_match_pallas():
+    R = 40
+    A = _psd((7,), R, 0.3, seed=9)
+    X_ref = np.linalg.inv(A + np.eye(R, dtype=np.float32))
+    scale = np.abs(X_ref).max()
+    Xj, rj = jspd._ns_packed_pallas(jnp.asarray(A), iters=16, interpret=True)
+    Xt, rt = tspd.ns_packed(torch.tensor(A), iters=16)
+    assert float(rt) < TOL and float(rj) < TOL
+    _agree(Xt, Xj, scale)
+
+    A2 = (A * 1.05).astype(np.float32)
+    Xj, rj = jspd._ns_packed_pallas(jnp.asarray(A2), iters=4, x0=jnp.asarray(X_ref),
+                                    interpret=True)
+    Xt, rt = tspd.ns_packed(torch.tensor(A2), iters=4, x0=torch.tensor(X_ref))
+    assert float(rt) < TOL and float(rj) < TOL
+    _agree(Xt, Xj, scale)
+
+    _, rj = jspd._ns_packed_pallas(jnp.asarray(A2), iters=0, x0=jnp.asarray(X_ref),
+                                   resid_only=True, interpret=True)
+    Xt, rt = tspd.ns_packed(torch.tensor(A2), iters=0, x0=torch.tensor(X_ref),
+                            resid_only=True)
+    assert Xt is None
+    assert abs(float(rt) - float(rj)) < AGREE
+
+
+def test_psd_route_warm_probe_and_fallbacks():
+    """inv_one_plus_psd on float32: probe accept, probe reject + refine,
+    garbage carry -> cold, against exact inverses."""
+    R = 16
+    A = torch.tensor(_psd((2, 3), R, 0.5, seed=2))
+    X_ref = np.linalg.inv(np_of(A).astype(np.float64) + np.eye(R))
+    X = tspd.inv_one_plus_psd(A, iters=16)
+    assert X.shape == A.shape and tspd.ROUTE_CALLS["packed"] == 1
+    assert np.abs(np_of(X) - X_ref).max() < 1e-4
+    assert torch.equal(tspd.inv_one_plus_psd(A, warm=X), X)  # probe accepts
+    X2 = tspd.inv_one_plus_psd(A * 1.02, warm=X, warm_iters=4)
+    assert np.abs(np_of(X2) - np.linalg.inv(np_of(A * 1.02).astype(np.float64)
+                                            + np.eye(R))).max() < 1e-4
+    Xg = tspd.inv_one_plus_psd(A, warm=torch.full_like(A, 100.0), warm_iters=3)
+    assert np.abs(np_of(Xg) - X_ref).max() < 1e-4
+    assert tspd.FALLBACKS["packed_probe_reject"] == 2
+    assert tspd.FALLBACKS["packed_refine_fail"] == 1
+
+
+def test_cold_escalates_then_exact_net():
+    """lambda_max ~4e4: 16 cold iterations miss the tolerance and one
+    escalation recovers (tests/test_spd.py:55); with 2 iterations the
+    escalation misses too and the exact Cholesky answers."""
+    A = torch.tensor(_psd((3,), 16, 1e3, seed=7))
+    X_ref = np.linalg.inv(np_of(A).astype(np.float64) + np.eye(16))
+    X = tspd.inv_one_plus_psd(A, iters=16)
+    assert tspd.FALLBACKS["packed_escalate"] == 1 and tspd.FALLBACKS["packed_exact"] == 0
+    assert np.abs(np_of(X) - X_ref).max() < 5e-3
+    X = tspd.inv_one_plus_psd(A, iters=2)
+    assert tspd.FALLBACKS["packed_escalate"] == 2 and tspd.FALLBACKS["packed_exact"] == 1
+    assert np.abs(np_of(X) - X_ref).max() < 5e-3
+
+    G, w, X_ref = _gram_problem(seed=17, scale=1e3)
+    X = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w), iters=1)
+    assert tspd.FALLBACKS["gram_escalate"] == 1 and tspd.FALLBACKS["gram_exact"] == 1
+    assert _resid(_gram_A(G, w), X) < TOL
+
+
+def test_cuda_wrappers_refuse_what_the_kernel_does_not_take():
+    """The kernel wrappers raise on CPU tensors (CPU tensors take the
+    plain version in ns_gram / ns_packed) and on shapes past R = 128."""
+    G, w, _ = _gram_problem()
+    with pytest.raises(ValueError, match="CUDA"):
+        tspd._ns_gram_cuda(torch.tensor(G), torch.tensor(w))
+    with pytest.raises(ValueError, match="CUDA"):
+        tspd._ns_packed_cuda(torch.tensor(_psd((2,), 8)))
+    with pytest.raises(ValueError, match="R <= 128"):
+        tspd._ns_packed_cuda(torch.zeros((1, 130, 130)))
+    with pytest.raises(ValueError, match="resid_only"):
+        tspd._ns_gram_cuda(torch.tensor(G), torch.tensor(w), resid_only=True)
+    assert tspd.KERNEL_LAUNCHES == {"ns_gram": 0, "ns_packed": 0}

@@ -1,0 +1,217 @@
+"""Public API: fit (counterpart of ``vlgp_tpu/api.py``).
+
+The reference pipeline (api.py:18-76): config -> params -> FA
+initialization -> prior factors -> w/v init -> segmentation -> VEM on
+segments -> refreshed factors -> final full-length inference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .config import Config, Params, _tensor, default_config, make_params
+from .data import TrialSet, cut_trials, pack_trials, scatter_segments, unpack_trials
+from .init import FactorModel, initialize
+from .models.driver import infer, vem
+from .models.gp import effective_rank, make_cholesky
+from .models.vlgp import update_v, update_w
+
+__all__ = ["fit", "FitResult"]
+
+
+@dataclasses.dataclass
+class FitResult:
+    """Fit output.  Also indexable like the reference result dict
+    (``result['trials']/'params'/'config'``, api.py:74-76)."""
+
+    data: TrialSet
+    params: Params
+    config: Config
+    factor_model: Optional[FactorModel]
+    G: torch.Tensor
+    runtime: dict
+    initial_params: Optional[Params] = None
+    _trials_in: Optional[Sequence[dict]] = None
+
+    @property
+    def trials(self) -> List[dict]:
+        return unpack_trials(self.data, self._trials_in)
+
+    def __getitem__(self, key):
+        if key == "trials":
+            return self.trials
+        if key == "params":
+            return self.params
+        if key == "config":
+            return self.config
+        raise KeyError(key)
+
+
+def _fill_missing_mu(data: TrialSet, trials, mu) -> TrialSet:
+    """Merge an initializer's posterior means into ``data`` per trial,
+    keeping any trial's user-supplied ``mu`` (preprocess.py:40-41)."""
+    user_mu = [("mu" in t and t["mu"] is not None) for t in trials]
+    mu = mu.to(data.mu.dtype)
+    if any(user_mu):
+        keep = torch.tensor(user_mu, device=mu.device)[:, None, None]
+        mu = torch.where(keep, data.mu, mu)
+    return data.replace(mu=mu)
+
+
+def _prepare(
+    trials: Sequence[dict],
+    n_factors: int,
+    config: Config,
+    device: torch.device,
+    *,
+    lik: Union[str, Sequence[str]] = "poisson",
+    history: int = 0,
+    a=None,
+    b=None,
+    noise=None,
+    sigma=None,
+    omega=None,
+    rank: int = 50,
+    gp_noise: float = 1e-4,
+    dt: float = 1.0,
+    factor_model: Optional[FactorModel] = None,
+) -> Tuple[TrialSet, Params, Optional[FactorModel]]:
+    """Pack trials, initialize parameters and posterior (api.py:39-54).
+    xdim = 1 + history (see ``vlgp_tpu.api._prepare``)."""
+    xdim = history + 1
+    dtype = config.tdtype
+    data = pack_trials(trials, n_factors, xdim, dtype=dtype, device=device)
+
+    need_init = a is None or b is None or noise is None
+    fm = factor_model
+    mu = None
+    if factor_model is not None:
+        mu = factor_model.transform(data.y) * data.mask[..., None]
+    elif need_init:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(config.seed)
+        fm, a0, b0, noise0, mu = initialize(data, n_factors, generator, eps=config.eps)
+        if a is None:
+            a = a0
+        if b is None:
+            b = torch.zeros((xdim, data.ydim), dtype=dtype, device=device)
+            b[0] = b0
+        if noise is None:
+            noise = noise0
+    if mu is not None:
+        data = _fill_missing_mu(data, trials, mu)
+
+    if b is not None:
+        b = _tensor(b, dtype, device)
+        if b.ndim < 2:
+            b = b.reshape(1, -1)
+        if b.shape[0] != xdim:  # allow (ydim,) bias vectors
+            full = torch.zeros((xdim, data.ydim), dtype=dtype, device=device)
+            full[0] = b.reshape(-1)
+            b = full
+
+    if omega is None and config.omega_init == "staggered" and n_factors > 1:
+        # log-uniform stagger over the smooth side of the omega box,
+        # [1.2 lo, 4 lo] (see vlgp_tpu.api._prepare for the measurements)
+        lo, hi = config.omega_bound
+        bottom = min(lo * 1.2, hi)
+        top = max(min(lo * 4, hi / 3), bottom)
+        omega = np.clip(np.logspace(np.log10(bottom), np.log10(top), n_factors), lo, hi)
+
+    params = make_params(
+        data.ydim, n_factors, xdim, lik,
+        a=a, b=b, noise=noise, sigma=sigma, omega=omega,
+        omega_bound=config.omega_bound, rank=rank, gp_noise=gp_noise, dt=dt,
+        dtype=dtype, device=device,
+    )
+    return data, params, fm
+
+
+def fit(
+    trials: Sequence[dict],
+    n_factors: int,
+    *,
+    lik: Union[str, Sequence[str]] = "poisson",
+    history: int = 0,
+    a=None,
+    b=None,
+    noise=None,
+    sigma=None,
+    omega=None,
+    rank: int = 50,
+    gp_noise: float = 1e-4,
+    dt: float = 1.0,
+    callbacks: Sequence[Callable] = (),
+    verbose: bool = False,
+    fused: bool = False,
+    block: int = 1,
+    factor_model: Optional[FactorModel] = None,
+    device=None,
+    **config_kwargs,
+) -> FitResult:
+    """Fit the vLGP model (reference entry point api.py:18-76).
+
+    trials: list of dicts with ``y`` (length, ydim); optional ``x``, ``mu``.
+    Unequal lengths are padded and masked.  ``device`` defaults to the
+    first CUDA device when one is available, else the CPU; the dtype is
+    ``Config.dtype``.  ``fused``, ``block > 1`` and ``path`` (the
+    checkpointing Saver) are not ported yet and raise.
+    """
+    if fused or block > 1:
+        raise NotImplementedError(
+            "fit(fused=True) and fit(block>1) need the fused EM step and its "
+            "CUDA-graph scan, queued in ROADMAP.md (Queue 1, item 7)")
+    config = default_config(**config_kwargs)
+    if config.path is not None:
+        raise NotImplementedError(
+            "checkpointing (path=...) needs callback.Saver and utils/io, "
+            "queued in ROADMAP.md (Queue 1, item 14)")
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+
+    data, params, fm = _prepare(
+        trials, n_factors, config, device,
+        lik=lik, history=history, a=a, b=b, noise=noise, sigma=sigma,
+        omega=omega, rank=rank, gp_noise=gp_noise, dt=dt,
+        factor_model=factor_model,
+    )
+
+    # prior factors + initial posterior weights on full trials (api.py:52-54)
+    G_full = make_cholesky(data.nbin, params)
+    data = update_w(data, params, config)
+    data = update_v(data, params, G_full, config)
+
+    # segmentation (api.py:56-58); segment factors trimmed to the effective
+    # rank of the sharpest kernel that can occur
+    segments = cut_trials(data, config.window, seed=config.seed)
+    omega_hi = max(float(params.omega.max()), config.omega_bound[1])
+    seg_rank = min(params.rank, effective_rank(segments.nbin, omega_hi, dt))
+    G_seg = make_cholesky(segments.nbin, params, rank=seg_rank)
+
+    initial_params = params
+    segments, params, G_seg, runtime = vem(
+        segments, params, G_seg, config, callbacks=callbacks, verbose=verbose,
+    )
+
+    # write the trained posterior back, refresh factors, final full
+    # inference (api.py:66-71)
+    data = scatter_segments(data, segments)
+    G_full = make_cholesky(data.nbin, params)
+    data = update_w(data, params, config)
+    data = update_v(data, params, G_full, config)
+    data = infer(data, params, G_full, config)
+
+    return FitResult(
+        data=data,
+        params=params,
+        config=config,
+        factor_model=fm,
+        G=G_full,
+        runtime=runtime,
+        initial_params=initial_params,
+        _trials_in=trials,
+    )

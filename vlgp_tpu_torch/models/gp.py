@@ -1,0 +1,287 @@
+"""GP prior layer: kernels, prior factors, hyperparameter step.
+
+Counterpart of ``vlgp_tpu/models/gp.py`` (reference ``vlgp/gp.py``).  The
+H-step is the same bounded search on log(omega) per latent: a grid scan
+plus golden-section shrinks over the pooled (T, T) posterior statistic,
+run as an Aitken-extrapolated fixed point whose posterior refresh goes
+through the E-step's fused-Gram Woodbury inverse.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..config import Config, Params
+from ..data import TrialSet
+from ..ops.ichol import ichol_gauss, ichol_gauss_batch, nystrom_gauss_batch
+from ..ops.spd import inv_one_plus_gram
+
+__all__ = [
+    "sekernel",
+    "se_kernel_grid",
+    "make_cholesky",
+    "effective_rank",
+    "gp_elbo_stats",
+    "hstep",
+]
+
+
+def sekernel(x, var, scale, jitter: float = 1e-6):
+    """Dense SE covariance, GPFA parameterization (gp.py:165-171):
+    K[i,j] = var * exp(-0.5 * ((x_i - x_j)/scale)^2) + jitter * I."""
+    x = torch.as_tensor(x)
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    x = x / scale
+    dsq = (x[:, None] - x[None, :]) ** 2
+    return var * torch.exp(-0.5 * dsq) + jitter * torch.eye(
+        x.shape[0], dtype=dsq.dtype, device=dsq.device)
+
+
+def se_kernel_grid(T: int, omega, sigmasq=1.0, gp_noise=1e-4, dt: float = 1.0,
+                   dtype=torch.float32, device="cpu"):
+    """SE kernel on a regular grid, vLGP parameterization (gp.py:46-62):
+    K = sigmasq * exp(-omega * D^2) + gp_noise * I."""
+    t = torch.arange(T, dtype=dtype, device=device) * dt
+    dsq = (t[:, None] - t[None, :]) ** 2
+    return sigmasq * torch.exp(-omega * dsq) + gp_noise * torch.eye(
+        T, dtype=dtype, device=device)
+
+
+def make_cholesky(T: int, params: Params, rank: Optional[int] = None) -> torch.Tensor:
+    """Low-rank prior factors for all latents: (zdim, T, rank), with
+    K_l ~= (sigma_l G_l)(sigma_l G_l)' (gp.py:150-162).  ``rank``
+    overrides ``params.rank`` (e.g. the trimmed segment rank)."""
+    rank = params.rank if rank is None else rank
+    rank = min(rank, T)
+    G = _se_factor(T, params.omega, rank, params.dt, params.a.dtype)
+    return G.to(params.a.dtype) * params.sigma[:, None, None]
+
+
+def _se_factor(T: int, omega, rank: int, dt, dtype):
+    """Nystrom on the float32 path when the landmark set is dense
+    (rank >= 0.6 T, the window-segment regime); exact pivoted ichol
+    otherwise (float64, full-length factors)."""
+    if dtype == torch.float32 and rank >= 0.6 * T:
+        return nystrom_gauss_batch(T, omega, rank, dt)
+    return ichol_gauss_batch(T, omega, rank, dt)
+
+
+def effective_rank(T: int, omega_hi: float, dt: float = 1.0,
+                   margin: int = 4, tol: float = 1e-7) -> int:
+    """Numerically exact truncation rank for window-T segment factors:
+    the number of non-zero columns of the float32 pivoted ichol at the
+    sharpest omega, plus ``margin``, rounded up to a multiple of 8."""
+    probe = min(T, 128)
+    G = ichol_gauss(T, torch.tensor(omega_hi, dtype=torch.float32), probe, dt)
+    colmax = G.abs().amax(dim=0)
+    nz = int((colmax > tol).sum())
+    if nz >= probe:  # probe saturated: no safe truncation, keep full rank
+        return T
+    r = min(T, -(-(nz + margin) // 8) * 8)
+    return max(8, r)
+
+
+def _golden_min(f, lo, hi, iters: int, polish: bool = False, grid: int = 0,
+                tiebreak: float = 1e-4):
+    """Fixed-iteration golden-section minimization on [lo, hi] per latent,
+    optionally preceded by a grid scan with a smooth-preferring tie-break
+    and followed by a parabolic polish (``vlgp_tpu/models/gp.py:174-281``).
+    f maps a (..., Z) tensor of arguments to objectives of the same shape."""
+    if grid >= 3:
+        frac = torch.arange(grid, dtype=lo.dtype, device=lo.device) / (grid - 1)
+        cand = lo[None] + frac[:, None] * (hi - lo)[None]  # (grid, Z)
+        fcand = f(cand)
+        # NaN candidates lose the comparison instead of poisoning it
+        bad = torch.isnan(fcand)
+        fcand = torch.where(bad, torch.inf, fcand)
+        fmin = fcand.amin(dim=0)
+        near = fcand <= fmin + tiebreak * fmin.abs()
+        best = torch.argmax(near.to(torch.int8), dim=0)  # first near-tied candidate
+        lo_idx = torch.clamp(best - 1, min=0)
+        lo_idx = torch.where(bad.gather(0, lo_idx[None])[0], best, lo_idx)
+        hi_idx = torch.clamp(best + 1, max=grid - 1)
+        hi_idx = torch.where(bad.gather(0, hi_idx[None])[0], best, hi_idx)
+        # an all-NaN column collapses onto the box edge (rejected as at-bound)
+        allbad = bad.all(dim=0)
+        lo_b = cand.gather(0, lo_idx[None])[0]
+        hi_b = cand.gather(0, hi_idx[None])[0]
+        lo, hi = torch.where(allbad, lo, lo_b), torch.where(allbad, lo, hi_b)
+    phi = 0.6180339887498949
+    c = hi - phi * (hi - lo)
+    d = lo + phi * (hi - lo)
+    fc, fd = f(c), f(d)
+    for _ in range(iters):
+        left = fc < fd
+        lo_n = torch.where(left, lo, c)
+        hi_n = torch.where(left, d, hi)
+        c_n = torch.where(left, hi_n - phi * (hi_n - lo_n), d)
+        d_n = torch.where(left, c, lo_n + phi * (hi_n - lo_n))
+        f_new = f(torch.where(left, c_n, d_n))
+        fc, fd = torch.where(left, f_new, fd), torch.where(left, fc, f_new)
+        lo, hi, c, d = lo_n, hi_n, c_n, d_n
+    mid = 0.5 * (lo + hi)
+    if not polish:
+        return mid
+    fm = f(mid)
+    # vertex of the parabola through (c, fc), (mid, fm), (d, fd)
+    num = (mid - c) ** 2 * (fm - fd) - (mid - d) ** 2 * (fm - fc)
+    den = (mid - c) * (fm - fd) - (mid - d) * (fm - fc)
+    safe = den.abs() > 1e-30
+    x_star = mid - 0.5 * torch.where(safe, num / torch.where(safe, den, 1.0), 0.0)
+    ok = safe & (x_star > lo) & (x_star < hi)
+    return torch.where(ok, x_star, mid)
+
+
+def gp_elbo_stats(log_omega, C, nseg, T: int, sigmasq, gp_noise, dt,
+                  profile_sigma: bool = False):
+    """GP-prior ELBO from the (T, T) statistic C = sum_i (mu_i mu_i' + S_i):
+    ll = -1/2 tr(K^-1 C) - nseg log|chol(K)|, one (T, T) Cholesky per
+    candidate; ``log_omega`` may carry leading batch dims.  With
+    ``profile_sigma`` the amplitude is maximized in closed form per
+    candidate, s* = clip(tr(K0^-1 C) / (nseg T), 1e-2, 1e2); returns
+    (ll*, s*).  A failed Cholesky gives NaN, as in the JAX package."""
+    om = torch.exp(log_omega)[..., None, None]
+    t = torch.arange(T, dtype=C.dtype, device=C.device) * dt
+    dsq = (t[:, None] - t[None, :]) ** 2
+    amp = 1.0 if profile_sigma else sigmasq
+    K = amp * torch.exp(-om * dsq) + gp_noise * torch.eye(T, dtype=C.dtype, device=C.device)
+    L, info = torch.linalg.cholesky_ex(K)
+    L = torch.where((info > 0)[..., None, None], torch.nan, L)
+    Cb = C.expand(K.shape)
+    half = torch.linalg.solve_triangular(L, Cb, upper=False)
+    KinvC = torch.linalg.solve_triangular(L.mT, half, upper=True)
+    logdet = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    tr = torch.diagonal(KinvC, dim1=-2, dim2=-1).sum(-1)
+    if not profile_sigma:
+        return -0.5 * tr - nseg * logdet
+    s = torch.clamp(tr / (nseg * T), 1e-2, 1e2)
+    return -0.5 * tr / s - nseg * (0.5 * T * torch.log(s) + logdet), s
+
+
+def _aitken_accept(x0, x1, x2, lo, hi, trust):
+    """Aitken/Steffensen acceptance for the H-step fixed point: accept the
+    extrapolation only on a genuine contraction, cap the jump at
+    ``trust * |x2 - x1|`` when trust > 0, clip to [lo, hi]."""
+    d1 = x1 - x0
+    d2 = x2 - x1
+    denom = d2 - d1
+    safe = denom.abs() > 1e-12
+    aitken = x2 - torch.where(safe, d2 * d2 / torch.where(safe, denom, 1.0), 0.0)
+    if trust > 0:
+        cap = trust * d2.abs()
+        aitken = x2 + torch.clamp(aitken - x2, -cap, cap)
+    contracting = (d1 * d2 > 0) & (d2.abs() < d1.abs())
+    return torch.clamp(torch.where(contracting, aitken, x2), lo, hi)
+
+
+def hstep(data: TrialSet, params: Params, config: Config,
+          rank: Optional[int] = None, xinv=None) -> Params:
+    """Hyperparameter step: per-latent bounded search on log(omega) with
+    at-bound rejection (gp.optimize, gp.py:65-97), plus the profiled sigma
+    update (``vlgp_tpu/models/gp.py:353-539``).
+
+    The pooled posterior statistic is built in factor space from the
+    E-step's Woodbury inverses X = (I + G' diag(w~) G)^{-1} with the
+    commuting identities AX = I - X and QA = P - Q, so no (S, T, T)
+    tensor is formed.  ``xinv`` (the E-step's carried inverse) warm-starts
+    the first refinement, which skips the probe.
+    """
+    if not config.Hstep:
+        return params
+
+    T = data.nbin
+    Z = params.zdim
+    dtype, device = data.mu.dtype, data.mu.device
+    rank = min(params.rank, T) if rank is None else min(rank, T)
+    lo = torch.full((Z,), math.log(config.omega_bound[0]), dtype=dtype, device=device)
+    hi = torch.full((Z,), math.log(config.omega_bound[1]), dtype=dtype, device=device)
+    # segments with at least one valid bin
+    valid = data.mask.amax(dim=1)  # (S,)
+    nseg_total = valid.sum()
+    margin = 2e-3 * (hi - lo)
+
+    mu_t = data.mu.permute(2, 0, 1)  # (Z, S, T)
+    w_t = data.w.permute(2, 0, 1) * data.mask[None]
+    Mbar = torch.einsum("zst,zsu->ztu", mu_t, mu_t)
+    sigsq = (params.sigma ** 2).reshape(Z, 1, 1)
+    eps = params.gp_noise
+    eyeT = torch.eye(T, dtype=dtype, device=device)
+    # ridge-folded weights w/(1 + eps w): the low-rank prior K = GG' + eps I
+    wt2 = (w_t / (1.0 + eps * w_t)).contiguous()
+    sum_w = torch.einsum("s,zst->zt", valid, wt2)
+
+    def F(log_om, warmX=None, warm_probe=True):
+        # one fixed-point refinement: posterior statistic at the running
+        # omega, then a bounded search over the candidate kernel
+        G_om = _se_factor(T, torch.exp(log_om), rank, params.dt, dtype)
+        G_om = G_om.to(dtype) * params.sigma[:, None, None]
+        X = inv_one_plus_gram(G_om, wt2, iters=config.ns_iters + 2, warm=warmX,
+                              warm_iters=max(config.ns_warm_iters, 8),
+                              probe=warm_probe)
+        R = X.shape[-1]
+        Zs, S = wt2.shape[0], wt2.shape[1]
+        P = wt2[..., None] * G_om[:, None]  # (Z, S, T, R): diag(w~) G
+        Q = P @ X  # (Z, S, T, R)
+        vQ = valid[None, :, None, None] * Q
+        # sum_s Q_s P_s' as one (T, S R) x (S R, T) product per latent
+        sum_QP = vQ.permute(0, 2, 1, 3).reshape(Zs, T, S * R) @ \
+            P.permute(0, 2, 1, 3).reshape(Zs, T, S * R).mT
+        sum_X = torch.einsum("s,zsrq->zrq", valid, X)
+        eyeR = torch.eye(R, dtype=dtype, device=device)
+        sum_AXA_mA = sum_X - nseg_total * eyeR  # A X A - A = X - I
+        sum_QA = torch.einsum("s,zstr->ztr", valid, P - Q)  # Q A = P - Q
+        KK = G_om @ G_om.mT
+        GM = G_om @ sum_AXA_mA
+        t_qa = sum_QA @ G_om.mT
+        SigSum = (
+            nseg_total * (KK + eps * eyeT)
+            - eps * eps * sum_w[:, :, None] * eyeT
+            - eps * (KK * sum_w[:, None, :] + sum_w[:, :, None] * KK)
+            + eps * eps * sum_QP
+            + eps * (t_qa + t_qa.mT)
+            + GM @ G_om.mT
+        )
+        C = Mbar + SigSum
+
+        def obj(log_omega):
+            if config.hyper_learn_sigma:
+                ll, _ = gp_elbo_stats(log_omega, C, nseg_total, T, sigsq,
+                                      params.gp_noise, params.dt, profile_sigma=True)
+                return -ll
+            return -gp_elbo_stats(log_omega, C, nseg_total, T, sigsq,
+                                  params.gp_noise, params.dt)
+
+        if config.hyper_grid >= 3 and config.hyper_window > 0:
+            lo_s = torch.clamp(log_om - config.hyper_window, lo, hi)
+            hi_s = torch.clamp(log_om + config.hyper_window, lo, hi)
+        else:
+            lo_s, hi_s = lo, hi
+        x_new = _golden_min(obj, lo_s, hi_s, config.hyper_iters,
+                            polish=config.hyper_polish, grid=config.hyper_grid,
+                            tiebreak=config.hyper_tiebreak)
+        return x_new, X, C
+
+    x0 = torch.log(params.omega).to(dtype)
+    x1, X1, _ = F(x0, xinv, warm_probe=False)
+    x2, X2, C2 = F(x1, X1)
+    trust = config.hyper_trust if config.hyper_refines < 3 else 0.0
+    x_star = _aitken_accept(x0, x1, x2, lo + margin, hi - margin, trust)
+    if config.hyper_refines >= 3:
+        log_omega, _, Cf = F(x_star, X2)
+    else:
+        log_omega, Cf = x_star, C2
+
+    # reject updates that sit at the search bounds (gp.py:91-92)
+    span = hi - lo
+    at_bound = ((log_omega - lo).abs() < 1e-3 * span) | ((log_omega - hi).abs() < 1e-3 * span)
+    omega = torch.where(at_bound, params.omega, torch.exp(log_omega))
+    out = params.replace(omega=omega.to(params.omega.dtype))
+    if config.hyper_learn_sigma:
+        # closed-form profile optimum of the amplitude at the accepted omega
+        _, s = gp_elbo_stats(torch.log(out.omega).to(dtype), Cf, nseg_total, T,
+                             sigsq, params.gp_noise, params.dt, profile_sigma=True)
+        out = out.replace(sigma=torch.sqrt(s).to(params.sigma.dtype))
+    return out

@@ -1,0 +1,377 @@
+"""vLGP inference engine: batched variational EM on one device.
+
+Counterpart of ``vlgp_tpu/models/vlgp.py`` (reference ``vlgp/core.py``).
+The reference's loops over trials, latents and neurons are independent
+given the sufficient statistics, so each phase is a batched tensor
+computation; the hot-loop math runs latent-major (Z, N, T).  The JAX
+package's on-device loop exits become host-synced Python loops here.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import Config, Params
+from ..data import TrialSet
+from ..ops.math import trunc_exp
+from ..ops.spd import inv_one_plus_gram, inv_one_plus_psd
+
+__all__ = [
+    "estep",
+    "mstep",
+    "update_w",
+    "update_v",
+    "constrain_loading",
+    "constrain_latent",
+    "em_norms",
+]
+
+
+def _zmajor(x):
+    """(N, T, Z) -> (Z, N, T)."""
+    return x.permute(2, 0, 1)
+
+
+def _zminor(x):
+    """(Z, N, T) -> (N, T, Z)."""
+    return x.permute(1, 2, 0).contiguous()
+
+
+def _xb(x, b):
+    """Regressor contribution (core.py:66)."""
+    return torch.einsum("stxy,xy->sty", x, b)
+
+
+def _eta(muz, a, xb):
+    """Linear predictor (S, T, Y) from latent-major mu (core.py:69)."""
+    return torch.einsum("zst,zy->sty", muz, a) + xb
+
+
+def _rates(eta, vz, a):
+    """Posterior mean of the Poisson rate exp(eta + 0.5 Var[eta]) with a
+    truncated exponent (core.py:70)."""
+    return trunc_exp(eta + torch.einsum("zst,zy->sty", vz, 0.5 * a * a))
+
+
+def _safe_noise(noise):
+    """Division-safe Gaussian noise (padded channels may carry 0)."""
+    return torch.clamp(noise, min=1e-30)
+
+
+def _residual(y, eta, r, params: Params):
+    """GLM working residual (core.py:82-83)."""
+    return torch.where(params.poisson, y - r, (y - eta) / _safe_noise(params.noise))
+
+
+def _weights(U, a):
+    """w = U @ (a.T)^2, latent-major (core.py:104)."""
+    return torch.einsum("sty,zy->zst", U, a * a)
+
+
+def _woodbury_inverse(G, wmz, iters: int = 16, warm=None, warm_iters: int = 8):
+    """X = (I + G'WG)^{-1} for every (latent, segment) pair: the Gram
+    matrices are built with an einsum and inverted by the ``ns_packed``
+    route (float32) or the exact route."""
+    GtWG = torch.einsum("ztr,zst,ztq->zsrq", G, wmz, G)
+    return inv_one_plus_psd(GtWG, iters=iters, warm=warm, warm_iters=warm_iters)
+
+
+def _woodbury_delta(G, s, muz, wmz, X):
+    """Natural-gradient E-step update by the low-rank Woodbury identity,
+    delta = u - G (I + G'WG)^{-1} G'(w u)  (core.py:85-97)."""
+    Gts = torch.einsum("ztr,zst->zsr", G, s)
+    u = torch.einsum("ztr,zsr->zst", G, Gts) - muz
+    Gwu = torch.einsum("ztr,zst->zsr", G, wmz * u)
+    M = torch.einsum("zsrq,zsq->zsr", X, Gwu)
+    return u - torch.einsum("ztr,zsr->zst", G, M)
+
+
+def _marginal_variance(G, wmz, iters: int = 16):
+    """VB marginal posterior variance v = diag(G (I + G'WG)^{-1} G')
+    (core.py:105-114, 445-471)."""
+    X = _woodbury_inverse(G, wmz, iters)
+    return torch.einsum("ztr,zsrq,ztq->zst", G, X, G)
+
+
+def estep(
+    data: TrialSet, params: Params, G: torch.Tensor, config: Config,
+    niter: Optional[int] = None,
+    xinv: Optional[torch.Tensor] = None, return_xinv: bool = False,
+):
+    """E-step: up to Eniter Newton sweeps over all segments and latents
+    (``infer_single_trial``, core.py:22-126).
+
+    ``xinv`` warm-starts the first sweep's Woodbury inverse (Z, S, R, R);
+    with ``return_xinv`` the final sweep's inverse is returned as
+    ``(data, xinv)``.  ``config.estep_tol > 0`` stops once
+    |dmu| <= estep_tol * |mu| after at least 2 sweeps (a host-synced
+    check per sweep); 0 runs the fixed count.
+    """
+    niter = config.Eniter if niter is None else niter
+    if niter < 1:
+        return (data, xinv) if return_xinv else data
+
+    y, mask = data.y, data.mask
+    xb = _xb(data.x, params.b)
+    a = params.a
+    vb = config.method == "VB"
+    maskz = mask[None]
+    poisson_U = params.poisson
+    inv_noise = 1.0 / _safe_noise(params.noise)
+
+    def sweep(muz, wz, vz, X):
+        # X is (I + G'WG)^{-1} at the carried weights wz (core.py:85-89)
+        eta = _eta(muz, a, xb)
+        r = _rates(eta, vz, a)
+        residual = _residual(y, eta, r, params) * mask[..., None]
+        s = torch.einsum("sty,zy->zst", residual, a)
+        delta = _woodbury_delta(G, s, muz, wz * maskz, X)
+        delta = torch.clamp(delta, -config.dmu_bound, config.dmu_bound) * maskz
+        muz = muz + delta
+        # refresh the weights under the updated posterior (core.py:100-104)
+        eta = _eta(muz, a, xb)
+        r = _rates(eta, vz, a)
+        U = torch.where(poisson_U, r, inv_noise)
+        wz = _weights(U, a) * maskz
+        if vb:
+            X, vz = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=X,
+                                      warm_iters=config.ns_warm_iters, want_v=True)
+            vz = vz * maskz
+        else:
+            X = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=X,
+                                  warm_iters=config.ns_warm_iters)
+        return muz, wz, vz, delta, X
+
+    muz = _zmajor(data.mu)
+    wz = _zmajor(data.w) * maskz
+    vz = _zmajor(data.v)
+    dmuz = _zmajor(data.dmu)
+    X = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=xinv,
+                          warm_iters=config.ns_warm_iters)
+    tol = config.estep_tol
+    for i in range(niter):
+        if tol > 0 and i >= 2:
+            nd = torch.sum(dmuz * dmuz)
+            nm = torch.sum(muz * muz)
+            if not bool(nd > tol * tol * nm):
+                break
+        muz, wz, vz, dmuz, X = sweep(muz, wz, vz, X)
+    out = data.replace(mu=_zminor(muz), w=_zminor(wz), v=_zminor(vz),
+                       dmu=_zminor(dmuz))
+    return (out, X) if return_xinv else out
+
+
+def update_w(data: TrialSet, params: Params, config: Config) -> TrialSet:
+    """Recompute likelihood precision weights (core.py:419-442)."""
+    muz, vz = _zmajor(data.mu), _zmajor(data.v)
+    eta = _eta(muz, params.a, _xb(data.x, params.b))
+    r = _rates(eta, vz, params.a)
+    U = torch.where(params.poisson, r, 1.0 / _safe_noise(params.noise))
+    wz = _weights(U, params.a) * data.mask[None]
+    return data.replace(w=_zminor(wz))
+
+
+def update_v(data: TrialSet, params: Params, G, config: Config) -> TrialSet:
+    """Recompute the VB marginal posterior variance (core.py:445-471)."""
+    if config.method != "VB":
+        return data
+    wz = _zmajor(data.w) * data.mask[None]
+    vz = _marginal_variance(G, wz, iters=config.ns_iters) * data.mask[None]
+    return data.replace(v=_zminor(vz))
+
+
+def _masked_var(resid, mask):
+    """Per-channel variance of masked residuals (M-step noise MLE,
+    core.py:177)."""
+    m = mask[..., None]
+    n = torch.sum(mask)
+    mean = torch.sum(resid * m, dim=(0, 1)) / n
+    return torch.sum(resid * resid * m, dim=(0, 1)) / n - mean * mean
+
+
+def _pair_stats(rm, p, q):
+    """einsum('sty,zst,kst->yzk', rm, p, q) as one (Z*K, S*T) x (S*T, Y)
+    product (the three-operand einsum would build an (S,T,Y,Z) temporary)."""
+    Z, K = p.shape[0], q.shape[0]
+    pq = (p[:, None] * q[None]).reshape(Z * K, -1)
+    out = pq @ rm.reshape(-1, rm.shape[-1])  # (Z*K, Y)
+    return out.reshape(Z, K, -1).permute(2, 0, 1)
+
+
+def mstep(data: TrialSet, params: Params, config: Config,
+          niter: Optional[int] = None) -> Params:
+    """M-step: Newton (or plain gradient) for Poisson channels, closed form
+    for Gaussian (core.py:129-249).  ``config.mstep_tol > 0`` stops once
+    |da| <= tol |a| and |db| <= tol |b| after at least 2 iterations."""
+    niter = config.Mniter if niter is None else niter
+    if niter < 1:
+        return params
+
+    y, x, mask = data.y, data.x, data.mask
+    muz, vz = _zmajor(data.mu), _zmajor(data.v)
+    m = mask[..., None]
+    maskz = mask[None]
+    mum = muz * maskz
+    vm = vz * maskz
+    eps = config.eps
+    zdim, xdim = params.zdim, params.xdim
+    Iz = torch.eye(zdim, dtype=y.dtype, device=y.device)
+    Ix = torch.eye(xdim, dtype=y.dtype, device=y.device)
+    pois = params.poisson
+    kind = params.likelihood_kind
+    need_pois = kind != "gaussian"
+    need_gauss = kind != "poisson"
+
+    if need_gauss:
+        # data-independent Gaussian normal equations (core.py:224-226)
+        xm = x * m[..., None]
+        Mg = torch.einsum("zst,kst->zk", mum, muz) + torch.diag(torch.sum(vm, dim=(1, 2)))
+        xtx = torch.einsum("stxn,stqn->nxq", xm, x)
+
+    def iteration(a, b, noise_prev):
+        xb = _xb(x, b)
+        eta = _eta(muz, a, xb)
+        noise = _masked_var(y - eta, mask)
+        ym = y * m
+
+        if need_pois:
+            r = _rates(eta, vz, a)
+            rm = r * m
+            # ---- Poisson loading update (core.py:182-200) ----
+            C1 = torch.einsum("zst,sty->zy", mum, y - r)
+            C2 = torch.einsum("zst,sty->zy", vm, r)
+            grad_a = C1 - a * C2
+            grad_b = torch.einsum("stxy,sty->xy", x, ym - rm)
+            if config.use_hessian:
+                # Hessian of -loglik w.r.t. a[:, n]:
+                # (mu + v a_n)' diag(r_n) (mu + v a_n) + diag(r_n' v)
+                E1 = _pair_stats(rm, muz, muz)
+                E2 = _pair_stats(rm, vz, muz)
+                E3 = _pair_stats(rm, vz, vz)
+                an = a.T  # (y, z)
+                nhess = (
+                    E1
+                    + an[:, :, None] * E2
+                    + an[:, None, :] * E2.transpose(1, 2)
+                    + an[:, :, None] * an[:, None, :] * E3
+                    + C2.T[:, :, None] * Iz
+                )
+                delta_a = torch.linalg.solve(nhess + eps * Iz, grad_a.T[..., None])[..., 0].T
+                # ---- Poisson regression update (core.py:205-218) ----
+                nhess_b = torch.einsum("stxy,sty,stqy->yxq", x, rm, x)
+                delta_b = torch.linalg.solve(nhess_b + eps * Ix, grad_b.T[..., None])[..., 0].T
+            else:
+                # gradient mode (core.py:196-197, 215-216)
+                delta_a = config.learning_rate * grad_a
+                delta_b = config.learning_rate * grad_b
+            delta_a = torch.clamp(delta_a, -config.da_bound, config.da_bound)
+            delta_b = torch.clamp(delta_b, -config.db_bound, config.db_bound)
+            a_pois = a + delta_a
+            b_pois = b + delta_b
+
+        if need_gauss:
+            # ---- Gaussian closed form (core.py:221-235) ----
+            rhs_a = torch.einsum("zst,sty->zy", mum, y - _xb(x, b))
+            a_gauss = torch.linalg.solve(Mg, rhs_a)
+            resid = ym - _eta(mum, a_gauss, torch.zeros_like(y))
+            rhs_b = torch.einsum("stxy,sty->yx", x, resid)
+            b_gauss = torch.linalg.solve(xtx + eps * Ix, rhs_b[..., None])[..., 0].T
+            # zero the history-filter rows, keep the bias (core.py:235)
+            b_gauss = b_gauss * (torch.arange(xdim, device=b.device) == 0)[:, None].to(b.dtype)
+
+        if not need_gauss:
+            a_new, b_new, da, db = a_pois, b_pois, delta_a, delta_b
+        elif not need_pois:
+            a_new, b_new = a_gauss, b_gauss
+            da, db = a_new - a, b_new - b
+        else:
+            a_new = torch.where(pois, a_pois, a_gauss)
+            b_new = torch.where(pois, b_pois, b_gauss)
+            da = torch.where(pois, delta_a, a_new - a)
+            db = torch.where(pois, delta_b, b_new - b)
+        if params.active is not None:
+            # inert channels stay pinned to their carried state
+            act = params.active
+            a_new = torch.where(act, a_new, a)
+            b_new = torch.where(act, b_new, b)
+            noise = torch.where(act, noise, noise_prev)
+            da = torch.where(act, da, torch.zeros_like(da))
+            db = torch.where(act, db, torch.zeros_like(db))
+        return a_new, b_new, noise, da, db
+
+    a, b, noise, da, db = params.a, params.b, params.noise, params.da, params.db
+    mtol = config.mstep_tol
+    for i in range(niter):
+        if mtol > 0 and i >= 2:
+            moving = (torch.sum(da * da) > mtol * mtol * torch.sum(a * a)) | (
+                torch.sum(db * db) > mtol * mtol * torch.sum(b * b))
+            if not bool(moving):
+                break
+        a, b, noise, da, db = iteration(a, b, noise)
+    return params.replace(a=a, b=b, noise=noise, da=da, db=db)
+
+
+def constrain_loading(data: TrialSet, params: Params, config: Config
+                      ) -> Tuple[TrialSet, Params]:
+    """Normalize the loading, compensating the latents (core.py:392-416)."""
+    c = config.constrain_loading
+    if not c or c == "none":
+        return data, params
+    a = params.a
+    if c == "svd":
+        _, _, vh = torch.linalg.svd(a, full_matrices=False)
+        us = a @ vh.T
+        mu = torch.einsum("stz,zk->stk", data.mu, us)
+        return data.replace(mu=mu), params.replace(a=vh)
+    if c == "fro":
+        s = torch.sqrt(torch.sum(a * a)) + config.eps
+        return data.replace(mu=data.mu * s), params.replace(a=a / s)
+    # row-wise vector norm with ord=c (core.py:413)
+    ord_ = float(c) if not isinstance(c, (int, float)) else c
+    if ord_ == 2:
+        s = torch.sqrt(torch.sum(a * a, dim=1)) + config.eps
+    elif ord_ == 1:
+        s = torch.sum(torch.abs(a), dim=1) + config.eps
+    else:
+        raise ValueError(f"unsupported loading constraint {c!r}")
+    return data.replace(mu=data.mu * s[None, None, :]), params.replace(a=a / s[:, None])
+
+
+def constrain_latent(data: TrialSet, params: Params, config: Config
+                     ) -> Tuple[TrialSet, Params]:
+    """Center/scale the posterior mean, compensating (b, a)
+    (core.py:366-389).  Off by default, as in the reference."""
+    c = config.constrain_latent
+    if not c or c == "none":
+        return data, params
+    m = data.mask[..., None]
+    n = torch.sum(data.mask)
+    mean = torch.sum(data.mu * m, dim=(0, 1)) / n
+    std = torch.sqrt(torch.sum((data.mu - mean) ** 2 * m, dim=(0, 1)) / n)
+    mu, a, b = data.mu, params.a, params.b
+    if c in ("location", "both"):
+        mu = (mu - mean) * m
+        b = b.clone()
+        b[0, :] += mean @ a
+    if c in ("scale", "both"):
+        mu = mu / std
+        a = a * std[:, None]
+    return data.replace(mu=mu), params.replace(a=a, b=b)
+
+
+def em_norms(data: TrialSet, params: Params) -> dict:
+    """Squared norms used by the convergence test (core.py:300-305, 350-359)."""
+    m = data.mask[..., None]
+
+    def sq(t):
+        return torch.sum(t * t)
+
+    return dict(
+        mu=sq(data.mu * m),
+        dmu=sq(data.dmu * m),
+        a=sq(params.a),
+        da=sq(params.da),
+        b=sq(params.b),
+        db=sq(params.db),
+    )
