@@ -5,21 +5,34 @@
 Phases, each of which raises on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles vlgp_tpu_torch/csrc/ns_inverse.cu with nvcc (sm_90a);
+2. build: compiles the three sources of vlgp_tpu_torch/csrc/ with nvcc
+   (sm_90a), one process each, all at once;
 3. ns_gram against its plain PyTorch version on the card, at the two
    main-path shapes (E/H-step segments and the final full-length
    inference), in the cold, warm, probe and want_v modes, plus a NaN warm
    start that must be rejected;
 4. ns_packed the same way at the update_v shape, then both kernels at
    edge shapes (R from 1 to the 128 limit, T = 1, iters = 0 with x0);
-5. a small fit (4 trials x 120 bins x 10 neurons x 2 latents) on the card
+5. sweep (the fused E-step) against its plain version at the flagship
+   E-step shape (Z5 S2000 T50 Y100 R40, exit groups of 16) cold, from a
+   real carry, from the zeros carry and with the adaptive exit, then at
+   edge shapes (R = 1, 50, 128, padded groups, a ragged mask): outputs
+   within 1e-4 and the same sweep, pass and round counts per group;
+6. spd_inverse against its plain version at B10000 R40 and R = 1, 64, 128;
+   probe_skip at B500 R50 with converged, drifted and NaN-carrying groups;
+7. a small fit (4 trials x 120 bins x 10 neurons x 2 latents) on the card
    in float32 against the same fit on the CPU in float64 (exact route);
-6. vlgp_tpu_torch.fit on the 100 trials x 1000 bins x 100 neurons x 5
-   latents workload (seed 0), with the launch counts of both kernels,
-   the fallback counters, and the lstsq-aligned recovery R^2.
+8. the main paths, each with the launch counters set to 0 just before it
+   and read just after: vlgp_tpu_torch.fit on the 100 trials x 1000 bins x
+   100 neurons x 5 latents workload (seed 0) by default and with the fused
+   E-step sweep, in turns (default, fused, fused, default), with wall and
+   E-step time, counters and the lstsq-aligned recovery R^2; spd_solve at
+   B10000 R40; inv_one_plus_psd from a drifted carry with the fused probe.
 
-Ends with one JSON line of per-kernel results and, last, one JSON line
-naming the device.  Imports nothing of JAX.
+Ends with one JSON line of per-kernel results (launches on their path, the
+worst |kernel - plain|, kernel, plain and library times, and the bound
+computed from this run's shapes and counts) and, last, one JSON line naming
+the device.  Imports nothing of JAX.
 """
 import json
 import subprocess
@@ -32,7 +45,15 @@ import torch
 RESID_TOL = 1e-2
 AGREE_TOL = 1e-4  # kernel vs plain, relative to max|X|, for lambda <= 1e2
 R2_MIN = 0.93
+R2_FUSED_GAP = 0.01  # the fused-sweep fit's R^2 against the default fit's
 EXACT_SHARE_MAX = 0.10
+CORE_SHARE_MAX = 0.10  # sweep_core fallbacks per sweep route call
+
+# NVIDIA H100 SXM peaks (data sheet, 700 W): fp32 outside the tensor cores
+# and HBM3 bandwidth; a bound is the larger of FLOPs / PEAK_FLOPS and bytes
+# / PEAK_BYTES
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 NTRIAL, LENGTH, YDIM, ZDIM = 100, 1000, 100, 5
 
@@ -52,6 +73,12 @@ def time_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(fma, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    t_ops, t_bytes = 2.0 * fma / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def realistic_factor(Z, T, R, device):
@@ -221,11 +248,13 @@ def check_ns_packed(B, R, device, gen):
     r_ill = float(((A_ill.double() + eye) @ X_ill.double() - eye).abs().amax())
     if not r_ill < RESID_TOL:
         raise AssertionError(f"ns_packed route, ill-conditioned: residual {r_ill}")
-    log(f"ns_packed B={B} R={R}: ill-conditioned (lambda ~1e4) residual (f64) {r_ill:.3g}")
+    lms = time_ms(lambda: torch.linalg.inv_ex(torch.eye(R, device=device) + A))
+    log(f"ns_packed B={B} R={R}: ill-conditioned (lambda ~1e4) residual (f64) {r_ill:.3g}; "
+        f"torch.linalg.inv_ex(I + A) {lms:.3f} ms")
     for mode, rk, err, ms, pms in rows:
         log(f"  {mode:8s} resid {rk:.3e}  |k-p| {err:.3e}  kernel {ms:8.3f} ms  "
             f"plain {pms:8.3f} ms")
-    return worst, rows
+    return worst, rows, lms
 
 
 def check_edge_shapes(device, gen):
@@ -261,6 +290,200 @@ def check_edge_shapes(device, gen):
             raise AssertionError(f"iters=0 did not write x0 back at R={R}")
     log(f"edge shapes (R = 1, 8, 100, 128; T = 1..300): max |kernel - plain| {worst:.3e}")
     return worst
+
+
+def sweep_inputs(Z, S, T, Y, R, device, gen, ragged=False):
+    """E-step operands as the fit hands them to the sweep: SE prior factors,
+    Poisson counts of smooth latents, a -2 bias, a small initial posterior
+    and the weights update_w gives it.  ``ragged`` ends a third of the
+    segments early (mask 0)."""
+    G = realistic_factor(Z, T, R, device)
+    a = torch.randn((Z, Y), generator=gen, device=device) * 0.3
+    t = torch.linspace(0, 1, T, device=device)
+    phase = torch.rand((S, 1, Z), generator=gen, device=device) * 6.283
+    freq = torch.arange(1, Z + 1, device=device, dtype=torch.float32)
+    lat = torch.sin(phase + 6.283 * freq * t[None, :, None])
+    mask = torch.ones((S, T), device=device)
+    if ragged:
+        mask[S // 3:, T // 2:] = 0.0
+    y = torch.poisson(torch.exp(lat @ a - 2.0), generator=gen) * mask[..., None]
+    xb = torch.full((S, T, Y), -2.0, device=device)
+    muz = 0.1 * torch.randn((Z, S, T), generator=gen, device=device) * mask
+    vz = torch.full((Z, S, T), 0.05, device=device) * mask
+    eta = torch.einsum("zst,zy->sty", muz, a) + xb
+    r = torch.exp(torch.clamp(eta + torch.einsum("zst,zy->sty", vz, 0.5 * a * a), max=10.0))
+    wz = torch.einsum("sty,zy->zst", r, a * a) * mask
+    noise = torch.ones(Y, device=device)
+    poisson = torch.ones(Y, dtype=torch.bool, device=device)
+    return [y, xb, mask, a, noise, poisson, G, muz, wz, vz]
+
+
+def sweep_work(args, counts, bs, vb, carry):
+    """FMAs and bytes this run's sweep needed, from its per-group counts."""
+    y, Z, T, R = args[0], args[6].shape[0], args[6].shape[1], args[6].shape[2]
+    S, Y = y.shape[0], y.shape[2]
+    sweeps, passes, rounds = (float(c) for c in counts.double().sum(0))
+    per = Z * bs  # matrices per group
+    fma = per * (passes * (T * R * R + R ** 3) + rounds * 2 * R ** 3)
+    fma += sweeps * per * (4 * T * R + R * R + (T * R * R + T * R if vb else 0))
+    fma += sweeps * bs * T * Y * 5 * Z  # both row stages: eta, arg, projections
+    nbytes = 4 * (2 * S * T * Y + S * T + 3 * Z * S * T + Z * T * R + 2 * Z * Y)
+    nbytes += 4 * (4 * Z * S * T + Z * S * R * R) + (4 * Z * S * R * R if carry else 0)
+    return fma, nbytes
+
+
+def check_sweep(device, gen, shape=(ZDIM, 2000, 50, YDIM, 40)):
+    """The sweep kernel against its plain version: the flagship E-step shape
+    in four modes, then edge shapes.  Returns (worst error, ms, plain ms,
+    bound ms, bound_by) of the mode the fit runs (real carry, adaptive)."""
+    from vlgp_tpu_torch.config import Config
+    from vlgp_tpu_torch.ops import sweep as sw
+
+    cfg = Config()
+    worst = 0.0
+
+    def run(tag, args, xinv, niter, tol, vb=True):
+        nonlocal worst
+        Z, T, R = args[6].shape
+        bs = sw._pick_bs(Z, T, args[0].shape[-1], R)
+        kw = dict(niter=niter, tol=tol, dmu_bound=cfg.dmu_bound, ns_iters=cfg.ns_iters,
+                  ns_warm_iters=cfg.ns_warm_iters, vb=vb, bs=bs)
+        k = sw._sweep_cuda(*args, xinv, **kw)
+        p = sw._sweep_plain(*args, xinv, **kw)
+        torch.cuda.synchronize()
+        rk = float(k[5].amax())
+        if not rk < RESID_TOL:
+            raise AssertionError(f"sweep {tag}: kernel residual {rk}")
+        if not torch.equal(k[6], p[6]):
+            raise AssertionError(f"sweep {tag}: counts differ, kernel {k[6].tolist()} "
+                                 f"plain {p[6].tolist()}")
+        mu_scale = float(p[0].abs().amax())
+        errs = {}
+        for i, name in enumerate(("mu", "w", "v", "dmu", "X")):
+            scale = mu_scale if name in ("mu", "dmu") else float(p[i].abs().amax())
+            err = float((k[i] - p[i]).abs().amax())
+            if not err <= AGREE_TOL * max(scale, 1e-30):
+                raise AssertionError(f"sweep {tag}: |kernel - plain| of {name} {err} > "
+                                     f"{AGREE_TOL} * {scale}")
+            worst = max(worst, err)
+            errs[name] = err
+        c = k[6].double()
+        log(f"  sweep {tag}: resid {rk:.3e}, sweeps per group {int(c[:, 0].min())}-"
+            f"{int(c[:, 0].max())}, passes {int(c[:, 1].sum())}, NS rounds "
+            f"{int(c[:, 2].sum())}; max |k-p| {max(errs.values()):.3e}")
+        return k, p, kw
+
+    Z, S, T, Y, R = shape
+    args = sweep_inputs(Z, S, T, Y, R, device, gen)
+    log(f"sweep Z={Z} S={S} T={T} Y={Y} R={R}, exit groups of "
+        f"{sw._pick_bs(Z, T, Y, R)}:")
+    k, _, _ = run("cold, 4 sweeps", args, None, 4, 0.0)
+    carry = k[4].contiguous()
+    run("zeros carry, 4 sweeps", args, torch.zeros_like(carry), 4, 0.0)
+    run("real carry, 4 sweeps", args, carry, 4, 0.0)
+    k, _, kw = run(f"real carry, tol {cfg.estep_tol}", args, carry, cfg.Eniter, cfg.estep_tol)
+    ms = time_ms(lambda: sw._sweep_cuda(*args, carry, **kw), reps=3)
+    pms = time_ms(lambda: sw._sweep_plain(*args, carry, **kw), reps=3)
+    b_ms, b_by = bound(*sweep_work(args, k[6], kw["bs"], True, True))
+    log(f"  sweep real carry, tol {cfg.estep_tol}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    cold_kw = dict(kw, niter=4, tol=0.0)
+    log(f"  sweep cold, 4 sweeps: kernel "
+        f"{time_ms(lambda: sw._sweep_cuda(*args, None, **cold_kw), reps=3):.3f} ms, plain "
+        f"{time_ms(lambda: sw._sweep_plain(*args, None, **cold_kw), reps=3):.3f} ms")
+    for shape, ragged in (((2, 37, 64, 7, 50), False), ((3, 45, 33, 11, 16), True),
+                          ((1, 30, 130, 5, 128), False), ((1, 10, 60, 3, 1), False)):
+        eargs = sweep_inputs(*shape, device, gen, ragged=ragged)
+        tag = "Z{} S{} T{} Y{} R{}".format(*shape) + (" ragged" if ragged else "")
+        k, _, _ = run(tag + ", MAP", eargs, None, 3, 0.0, vb=False)
+        run(tag + ", carry, adaptive", eargs, k[4].contiguous(), 12, 1e-3)
+    return worst, ms, pms, b_ms, b_by
+
+
+def check_spd_inverse(device, gen, B40=10000):
+    """spd_inverse kernel against its plain version (SPD, lambda in [1, ~1e2])
+    at B10000 R40 and R = 1, 64, 128; returns (worst error, ms, plain ms,
+    library ms, bound ms, bound_by) at B10000 R40."""
+    from vlgp_tpu_torch.ops import spd
+
+    def spd_batch(B, R):
+        Gm = torch.randn((B, R, R), generator=gen, device=device)
+        return (Gm @ Gm.mT * (1e2 / (4 * R)) + torch.eye(R, device=device)).contiguous()
+
+    worst = 0.0
+    for B, R in ((B40, 40), (50, 1), (200, 64), (50, 128)):
+        A = spd_batch(B, R)
+        k = spd._spd_inverse_cuda(A)
+        p = spd._spd_inverse_plain(A)
+        torch.cuda.synchronize()
+        scale = float(p.abs().amax())
+        err = float((k - p).abs().amax())
+        eye = torch.eye(R, dtype=torch.float64, device=device)
+        r64 = float((A.double() @ k.double() - eye).abs().amax())
+        if not (err <= AGREE_TOL * scale and r64 < RESID_TOL):
+            raise AssertionError(f"spd_inverse B={B} R={R}: |kernel - plain| {err} "
+                                 f"(max|X| {scale}), residual {r64}")
+        worst = max(worst, err)
+        log(f"spd_inverse B={B} R={R}: |k-p| {err:.3e}, residual (f64) {r64:.3e}")
+        if R == 40:
+            A40 = A
+    ms = time_ms(lambda: spd._spd_inverse_cuda(A40))
+    pms = time_ms(lambda: spd._spd_inverse_plain(A40))
+    lms = time_ms(lambda: torch.linalg.inv_ex(A40))
+    B, R = A40.shape[0], 40
+    # Cholesky sum_j (R-1-j)^2, substitution sum_j j R, product R^3
+    fma = B * (sum((R - 1 - j) ** 2 for j in range(R)) + R * R * (R - 1) / 2 + R ** 3)
+    b_ms, b_by = bound(fma, 2 * 4 * B * R * R)
+    log(f"  spd_inverse B={B} R={R}: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"torch.linalg.inv_ex {lms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return worst, ms, pms, lms, b_ms, b_by
+
+
+def check_probe_skip(device, gen):
+    """probe_skip kernel against its plain version at B500 R50 (groups of 24):
+    even groups carry their converged inverse, odd groups a drifted one, and
+    group 3 one NaN matrix.  Returns (worst error, ms, plain ms, library ms,
+    bound ms, bound_by)."""
+    from vlgp_tpu_torch.ops import spd
+
+    B, R, iters = ZDIM * NTRIAL, 50, 4
+    Z, N = ZDIM, NTRIAL
+    G = realistic_factor(Z, LENGTH, R, device)
+    w0 = torch.rand((Z, N, LENGTH), generator=gen, device=device)
+    w = w0 * (1e2 / lambda_max(G, w0))
+    A = torch.einsum("ztr,zst,ztq->zsrq", G, w, G).reshape(B, R, R).contiguous()
+    X = spd._ns_packed_plain(A, 16)[0]
+    per = spd._probe_skip_groups(R)
+    group = torch.arange(B, device=device) // per
+    x0 = torch.where((group % 2 == 1)[:, None, None], X * 0.97, X).contiguous()
+    x0[3 * per + 1] = float("nan")
+    k = spd._ns_packed_cuda(A, iters, x0=x0, probe_skip=True)
+    p = spd._ns_packed_plain(A, iters, x0=x0, probe_skip=True)
+    torch.cuda.synchronize()
+    kept = (group % 2 == 0)
+    if not torch.equal(k[0][kept], x0[kept]):
+        raise AssertionError("probe_skip: a converged group did not return x0 bit for bit")
+    nan_k, nan_p = torch.isnan(k[1]), torch.isnan(p[1])
+    if not (torch.equal(nan_k, nan_p) and bool(nan_k[3 * per + 1])):
+        raise AssertionError("probe_skip: NaN residuals differ from the plain version")
+    fin = ~(group == 3)
+    scale = float(p[0][fin].abs().amax())
+    err = max(float((k[0][fin] - p[0][fin]).abs().amax()),
+              float((k[1][fin] - p[1][fin]).abs().amax()))
+    if not (err <= AGREE_TOL * scale and float(k[1][fin].amax()) < RESID_TOL):
+        raise AssertionError(f"probe_skip: |kernel - plain| {err} (max|X| {scale})")
+    x0c = torch.where((group % 2 == 1)[:, None, None], X * 0.97, X).contiguous()
+    ms = time_ms(lambda: spd._ns_packed_cuda(A, iters, x0=x0c, probe_skip=True))
+    pms = time_ms(lambda: spd._ns_packed_plain(A, iters, x0=x0c, probe_skip=True))
+    eye = torch.eye(R, device=device)
+    lms = time_ms(lambda: torch.linalg.inv_ex(eye + A))
+    drifted = int((group % 2 == 1).sum())
+    fma = (B - drifted) * R ** 3 + drifted * (2 * iters + 1) * R ** 3
+    b_ms, b_by = bound(fma, 4 * (3 * B * R * R + B))
+    log(f"probe_skip B={B} R={R} groups of {per} ({drifted} drifted matrices, one NaN): "
+        f"|k-p| {err:.3e}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"torch.linalg.inv_ex(I + A) {lms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return err, ms, pms, lms, b_ms, b_by
 
 
 def make_workload():
@@ -313,11 +536,15 @@ def check_small_fit_against_cpu():
         raise AssertionError("small fit on the card disagrees with the CPU float64 fit")
 
 
-def run_fit():
+def run_fit(fused):
+    """One flagship fit with the counters set to 0 just before it; returns
+    (launches, route calls, fallbacks, wall s, E-step s, R^2)."""
     import vlgp_tpu_torch
+    from vlgp_tpu_torch.models import vlgp as tv
     from vlgp_tpu_torch.ops import spd
 
     trials, a, zt = make_workload()
+    tv._SWEEP_FUSED = fused
     spd.reset_counters()
     torch.cuda.synchronize()
     tic = time.perf_counter()
@@ -328,6 +555,7 @@ def run_fit():
     launches = dict(spd.KERNEL_LAUNCHES)
     fallbacks = dict(spd.FALLBACKS)
     calls = dict(spd.ROUTE_CALLS)
+    tv._SWEEP_FUSED = False
 
     d = result.data
     for name in ("mu", "v", "w"):
@@ -340,24 +568,82 @@ def run_fit():
         raise AssertionError(f"posterior mu has shape {tuple(d.mu.shape)}")
     r2 = r2_aligned(d.mu.cpu().numpy().reshape(-1, ZDIM), zt)
     rt = result.runtime
-    log(f"fit: {wall:.2f} s wall, {rt['it']} EM iterations "
+    e_s = sum(rt["e_elapsed"])
+    tag = "fit (fused sweep)" if fused else "fit (default)"
+    log(f"{tag}: {wall:.2f} s wall, {rt['it']} EM iterations "
         f"(converged_at {rt.get('converged_at')}), final_hstep {rt.get('final_hstep', False)}")
-    log(f"fit: E {sum(rt['e_elapsed']):.2f} s, M {sum(rt['m_elapsed']):.2f} s, "
+    log(f"{tag}: E {e_s:.3f} s, M {sum(rt['m_elapsed']):.2f} s, "
         f"H {sum(rt['h_elapsed']):.2f} s over the EM loop")
-    log(f"fit: recovery R^2 (lstsq-aligned) {r2:.4f}; reached 0.95: {r2 >= 0.95}")
-    log(f"fit: omega {result.params.omega.cpu().numpy()}, sigma {result.params.sigma.cpu().numpy()}")
-    log(f"fit: kernel launches {launches}")
-    log(f"fit: route calls {calls}")
-    log(f"fit: fallback counters {fallbacks}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"the fit never launched {name}")
+    log(f"{tag}: recovery R^2 (lstsq-aligned) {r2:.4f}; reached 0.95: {r2 >= 0.95}")
+    log(f"{tag}: kernel launches {launches}")
+    log(f"{tag}: route calls {calls}")
+    log(f"{tag}: fallback counters {fallbacks}")
     if r2 < R2_MIN:
-        raise AssertionError(f"recovery R^2 {r2:.4f} < {R2_MIN}")
+        raise AssertionError(f"{tag}: recovery R^2 {r2:.4f} < {R2_MIN}")
     if fallbacks["gram_exact"] > EXACT_SHARE_MAX * calls["gram"]:
-        raise AssertionError(f"exact-Cholesky net took {fallbacks['gram_exact']} of "
+        raise AssertionError(f"{tag}: exact-Cholesky net took {fallbacks['gram_exact']} of "
                              f"{calls['gram']} ns_gram route calls")
-    return launches
+    if fused:
+        if launches["sweep"] == 0:
+            raise AssertionError("the fused-sweep fit never launched sweep")
+        if fallbacks["sweep_core"] > CORE_SHARE_MAX * calls["sweep"]:
+            raise AssertionError(f"sweep_core took {fallbacks['sweep_core']} of "
+                                 f"{calls['sweep']} sweep route calls")
+    else:
+        for name in ("ns_gram", "ns_packed"):
+            if launches[name] == 0:
+                raise AssertionError(f"the default fit never launched {name}")
+    return launches, calls, fallbacks, wall, e_s, r2
+
+
+def run_spd_solve(device, gen, B=10000):
+    """The public spd_solve at B10000 R40, counters set to 0 just before."""
+    from vlgp_tpu_torch.ops import spd
+
+    R = 40
+    Gm = torch.randn((B, R, R), generator=gen, device=device)
+    A = Gm @ Gm.mT * (1e2 / (4 * R)) + torch.eye(R, device=device)
+    b = torch.randn((B, R), generator=gen, device=device)
+    spd.reset_counters()
+    x = spd.spd_solve(A, b)
+    torch.cuda.synchronize()
+    n = spd.KERNEL_LAUNCHES["spd_inverse"]
+    if n == 0:
+        raise AssertionError("spd_solve never launched spd_inverse")
+    err = float((A.double() @ x.double()[..., None] - b.double()[..., None]).abs().amax())
+    if not err < 1e-3 * float(b.abs().amax()):
+        raise AssertionError(f"spd_solve: residual {err}")
+    log(f"spd_solve B={B} R={R}: {n} spd_inverse launch(es), max|Ax - b| {err:.3e}")
+    return n
+
+
+def run_fused_probe(device, gen):
+    """inv_one_plus_psd from a drifted carry at the update_v shape with
+    VLGP_FUSED_PROBE's route, counters set to 0 just before."""
+    from vlgp_tpu_torch.ops import spd
+
+    B, R = ZDIM * NTRIAL, 50
+    G = realistic_factor(ZDIM, LENGTH, R, device)
+    w0 = torch.rand((ZDIM, NTRIAL, LENGTH), generator=gen, device=device)
+    w = w0 * (1e2 / lambda_max(G, w0))
+    A = torch.einsum("ztr,zst,ztq->zsrq", G, w, G).contiguous()
+    X = spd._ns_packed_plain(A.reshape(B, R, R), 16)[0].reshape(A.shape)
+    A2 = A * (1 + 0.05 * (torch.arange(NTRIAL, device=device) % 2))[None, :, None, None]
+    spd._FUSED_PROBE = True
+    spd.reset_counters()
+    Xw = spd.inv_one_plus_psd(A2, warm=X, warm_iters=4)
+    torch.cuda.synchronize()
+    n = spd.KERNEL_LAUNCHES["probe_skip"]
+    spd._FUSED_PROBE = False
+    if n == 0:
+        raise AssertionError("inv_one_plus_psd with the fused probe never launched probe_skip")
+    eye = torch.eye(R, dtype=torch.float64, device=device)
+    r64 = float(((A2.double() + eye) @ Xw.double() - eye).abs().amax())
+    if not r64 < RESID_TOL:
+        raise AssertionError(f"fused probe route: residual {r64}")
+    log(f"inv_one_plus_psd (fused probe) B={B} R={R}: {n} probe_skip launch(es), "
+        f"fallbacks {spd.FALLBACKS['packed_refine_fail']}, residual (f64) {r64:.3e}")
+    return n
 
 
 def main():
@@ -375,28 +661,64 @@ def main():
 
     tic = time.perf_counter()
     _build.load_library()
-    log(f"build: {time.perf_counter() - tic:.1f} s (nvcc {_build.BUILD_SECONDS:.1f} s)")
+    log(f"build: {time.perf_counter() - tic:.1f} s (nvcc {_build.BUILD_SECONDS:.1f} s, "
+        f"{len(_build.SOURCES)} sources in parallel)")
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    g_err_a, g_rows = check_ns_gram(ZDIM, 2000, 50, 40, device, gen)
+    Z, S, T, R = ZDIM, 2000, 50, 40
+    g_err_a, g_rows = check_ns_gram(Z, S, T, R, device, gen)
     g_err_b, _ = check_ns_gram(ZDIM, 100, 1000, 50, device, gen)
-    p_err, p_rows = check_ns_packed(ZDIM * NTRIAL, 50, device, gen)
+    B, RP = ZDIM * NTRIAL, 50
+    p_err, p_rows, p_lms = check_ns_packed(B, RP, device, gen)
     e_err = check_edge_shapes(device, gen)
+    sw_err, sw_ms, sw_pms, sw_bms, sw_by = check_sweep(device, gen)
+    si_err, si_ms, si_pms, si_lms, si_bms, si_by = check_spd_inverse(device, gen)
+    ps_err, ps_ms, ps_pms, ps_lms, ps_bms, ps_by = check_probe_skip(device, gen)
 
     check_small_fit_against_cpu()
-    launches = run_fit()
+    # the main paths, in turns: default, fused, fused, default
+    fits = [run_fit(fused) for fused in (False, True, True, False)]
+    default, fused = fits[0], fits[1]
+    gap = max(abs(f[5] - d[5]) for f in fits[1:3] for d in (fits[0], fits[3]))
+    log(f"fits: default {fits[0][3]:.2f} / {fits[3][3]:.2f} s wall, E-step "
+        f"{fits[0][4]:.3f} / {fits[3][4]:.3f} s, R^2 {fits[0][5]:.4f}; fused sweep "
+        f"{fits[1][3]:.2f} / {fits[2][3]:.2f} s wall, E-step {fits[1][4]:.3f} / "
+        f"{fits[2][4]:.3f} s, R^2 {fits[1][5]:.4f} / {fits[2][5]:.4f}; "
+        f"sweep launches {fused[0]['sweep']}, route calls {fused[1]['sweep']}, "
+        f"sweep_core {fused[2]['sweep_core']}")
+    if gap > R2_FUSED_GAP:
+        raise AssertionError(f"fused-sweep fit R^2 differs from the default fit's by {gap:.4f}")
+    n_solve = run_spd_solve(device, gen)
+    n_probe = run_fused_probe(device, gen)
 
     g_cold = next(r for r in g_rows if r[0] == "cold")
     p_cold = next(r for r in p_rows if r[0] == "cold")
+    g_bms, g_by = bound(Z * S * (T * R * R + 33 * R ** 3),
+                        4 * (Z * T * R + Z * S * T + Z * S * R * R + Z * S))
+    p_bms, p_by = bound(B * 33 * RP ** 3, 4 * (2 * B * RP * RP + B))
     kernels = [
         {"name": "ns_gram", "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
-         "replaces": "vlgp_tpu/ops/spd.py:796", "launches": launches["ns_gram"],
-         "max_abs_err": max(g_err_a, g_err_b, e_err), "ms": g_cold[3], "plain_ms": g_cold[4]},
+         "replaces": "vlgp_tpu/ops/spd.py:796", "launches": default[0]["ns_gram"],
+         "max_abs_err": max(g_err_a, g_err_b, e_err), "ms": g_cold[3], "plain_ms": g_cold[4],
+         "bound_ms": g_bms, "bound_by": g_by, "library_ms": None},
         {"name": "ns_packed", "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
-         "replaces": "vlgp_tpu/ops/spd.py:558", "launches": launches["ns_packed"],
-         "max_abs_err": max(p_err, e_err), "ms": p_cold[3], "plain_ms": p_cold[4]},
+         "replaces": "vlgp_tpu/ops/spd.py:558", "launches": default[0]["ns_packed"],
+         "max_abs_err": max(p_err, e_err), "ms": p_cold[3], "plain_ms": p_cold[4],
+         "bound_ms": p_bms, "bound_by": p_by, "library_ms": p_lms},
+        {"name": "sweep", "route": "cuda", "source": "vlgp_tpu_torch/csrc/sweep.cu",
+         "replaces": "vlgp_tpu/ops/sweep.py:368", "launches": fused[0]["sweep"],
+         "max_abs_err": sw_err, "ms": sw_ms, "plain_ms": sw_pms,
+         "bound_ms": sw_bms, "bound_by": sw_by, "library_ms": None},
+        {"name": "spd_inverse", "route": "cuda", "source": "vlgp_tpu_torch/csrc/spd_inverse.cu",
+         "replaces": "vlgp_tpu/ops/spd.py:123", "launches": n_solve,
+         "max_abs_err": si_err, "ms": si_ms, "plain_ms": si_pms,
+         "bound_ms": si_bms, "bound_by": si_by, "library_ms": si_lms},
+        {"name": "probe_skip", "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
+         "replaces": "vlgp_tpu/ops/spd.py:558", "launches": n_probe,
+         "max_abs_err": ps_err, "ms": ps_ms, "plain_ms": ps_pms,
+         "bound_ms": ps_bms, "bound_by": ps_by, "library_ms": ps_lms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,15 @@
 """The port's slice as a whole: vlgp_tpu_torch.fit against vlgp_tpu.fit on
 the regression-pin workload (4 trials x 120 bins x 10 neurons x 2 latents),
 and the pinned float64 EM trajectory through the port's make_em_step."""
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import vlgp_tpu
 import vlgp_tpu_torch
+from vlgp_tpu_torch.models import vlgp as tv
 from vlgp_tpu_torch.models.driver import make_em_step, vem
 from vlgp_tpu_torch.ops import spd as tspd
 
@@ -16,12 +19,23 @@ from test_regression_pin import PINNED, PINNED_CADENCE
 torch.set_num_threads(1)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_fit(dtype, max_iter):
+    """vlgp_tpu.fit on the pin workload, computed once per module."""
+    trials, a, _ = pin_trials()
+    return vlgp_tpu.fit(trials, 2, **_fit_kw(a, dtype, max_iter))
+
+
+def _fit_kw(a, dtype, max_iter):
+    # a, b, noise and every trial's mu are given: no random draw happens
+    return dict(a=a, b=np.full((1, 10), -1.5), noise=np.ones(10), max_iter=max_iter,
+                dtype=dtype)
+
+
 def _fit_both(dtype, max_iter=3):
     trials, a, zt = pin_trials()
-    # a, b, noise and every trial's mu are given: no random draw happens
-    kw = dict(a=a, b=np.full((1, 10), -1.5), noise=np.ones(10), max_iter=max_iter,
-              dtype=dtype)
-    return (vlgp_tpu.fit(trials, 2, **kw), vlgp_tpu_torch.fit(trials, 2, device="cpu", **kw),
+    return (_jax_fit(dtype, max_iter),
+            vlgp_tpu_torch.fit(trials, 2, device="cpu", **_fit_kw(a, dtype, max_iter)),
             zt, trials)
 
 
@@ -54,6 +68,30 @@ def test_fit_f32_quality_matches_jax():
     r2t = r2_aligned(np_of(tr.data.mu).reshape(-1, 2), zt)
     assert np.isfinite(np_of(tr.data.mu)).all()
     assert abs(r2t - r2j) < 0.01, (r2t, r2j)
+
+
+def test_fit_f32_fused_sweep_quality(monkeypatch):
+    """float32 with the fused E-step sweep (the sweep kernel's plain version
+    on the CPU): every EM iteration's E-step and the final full-length
+    inference (T = 120 is eligible here) go through ``sweep`` with no
+    fallback, and recovery stays within 0.01 of the JAX fit."""
+    monkeypatch.setattr(tv, "_SWEEP_FUSED", True)
+    tspd.reset_counters()
+    jr, tr, zt, _ = _fit_both("float32")
+    assert tspd.ROUTE_CALLS["sweep"] == tr.runtime["it"] + 1
+    assert tspd.FALLBACKS["sweep_core"] == 0
+    r2j = r2_aligned(np.asarray(jr.data.mu).reshape(-1, 2), zt)
+    r2t = r2_aligned(np_of(tr.data.mu).reshape(-1, 2), zt)
+    assert abs(r2t - r2j) < 0.01, (r2t, r2j)
+
+
+def test_fit_without_device_needs_cuda(monkeypatch):
+    """fit runs on the card unless the caller asks for the CPU: with no CUDA
+    device it raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trials, a, _ = pin_trials(ntrial=1, length=60)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vlgp_tpu_torch.fit(trials, 2, a=a)
 
 
 @pytest.mark.parametrize("cadence", [False, True])

@@ -1,6 +1,7 @@
 """Port parity for ops/spd: the exact route in float64, and the float32
-Newton-Schulz semantics of the ns_gram / ns_packed kernels' plain versions
-against the JAX package's Pallas kernels in interpret mode.
+semantics of the ns_gram / ns_packed (probe_skip included) / spd_inverse
+kernels' plain versions against the JAX package's Pallas kernels in
+interpret mode.
 
 The TPU kernels multiply in bf16x3 and the port in float32, so float32
 results are held to the residual contract max|(I+A)X - I| < 1e-2 on both
@@ -79,7 +80,7 @@ def test_exact_route_f64():
     ref = np.asarray(jspd.inv_one_plus_psd(jnp.asarray(A)))
     got = tspd.inv_one_plus_psd(torch.tensor(A))
     assert_close(got, ref)
-    assert tspd.ROUTE_CALLS == {"gram": 0, "packed": 0}
+    assert tspd.ROUTE_CALLS == {"gram": 0, "packed": 0, "sweep": 0}
 
     G, w, _ = _gram_problem(seed=12)
     G, w = G.astype(np.float64), w.astype(np.float64)
@@ -90,14 +91,14 @@ def test_exact_route_f64():
     # warm starts do not change the exact route
     Xw = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w), warm=Xt * 0)
     assert_close(Xw, np.asarray(Xj))
-    assert tspd.ROUTE_CALLS == {"gram": 0, "packed": 0}
+    assert tspd.ROUTE_CALLS == {"gram": 0, "packed": 0, "sweep": 0}
 
 
 def test_large_rank_f32_takes_exact_route():
     """R > 128 is past the kernels' shared-memory limit: exact route."""
     G, w, X_ref = _gram_problem(Z=1, S=2, T=140, R=130, seed=3, scale=0.1)
     X = tspd.inv_one_plus_gram(torch.tensor(G), torch.tensor(w))
-    assert tspd.ROUTE_CALLS == {"gram": 0, "packed": 0}
+    assert tspd.ROUTE_CALLS == {"gram": 0, "packed": 0, "sweep": 0}
     assert np.abs(np_of(X) - X_ref).max() < 1e-4
 
 
@@ -276,4 +277,145 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take():
         tspd._ns_packed_cuda(torch.zeros((1, 130, 130)))
     with pytest.raises(ValueError, match="resid_only"):
         tspd._ns_gram_cuda(torch.tensor(G), torch.tensor(w), resid_only=True)
-    assert tspd.KERNEL_LAUNCHES == {"ns_gram": 0, "ns_packed": 0}
+    A = torch.tensor(_psd((2,), 8))
+    with pytest.raises(ValueError, match="probe_skip"):
+        tspd._ns_packed_cuda(A, x0=None, probe_skip=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tspd._ns_packed_cuda(A, x0=A, probe_skip=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tspd._spd_inverse_cuda(A + torch.eye(8))
+    with pytest.raises(ValueError, match="R <= 128"):
+        tspd._spd_inverse_cuda(torch.zeros((1, 130, 130)))
+    assert set(tspd.KERNEL_LAUNCHES.values()) == {0}
+
+
+# ------------------------------------ float32: probe_skip (fused probe) --
+
+
+def _probe_skip_case(R, B, seed, scale, drift):
+    """Carries as in tests/test_spd.py:102-140: the exact inverse for every
+    group, ``drift`` (a function of the carry) applied to the second."""
+    A = _psd((B,), R, scale, seed=seed)
+    X_exact = np.linalg.inv(A + np.eye(R, dtype=np.float32)).astype(np.float32)
+    x0 = X_exact.copy()
+    per = tspd._probe_skip_groups(R)
+    x0[per:] = drift(x0[per:])
+    return A, X_exact, x0, per
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_converged", "nan_carry"])
+def test_probe_skip_matches_pallas(case):
+    """The converged group returns x0 bit for bit; the drifted group is
+    refined to within 1e-5 of max|X| of the float64 inverse (the Pallas
+    kernel's bf16x3 products land 5e-5 from it, so the two packages are held
+    to each other at AGREE); a NaN carry routes its group to the refine,
+    whose residual stays NaN."""
+    if case == "all_converged":
+        A, X_exact, x0, per = _probe_skip_case(16, 6, 10, 0.5, lambda x: x)
+        iters = 8
+    else:
+        drift = (lambda x: x * 0.5) if case == "mixed" else \
+            (lambda x: np.where(np.arange(len(x))[:, None, None] == 1, np.nan, x))
+        A, X_exact, x0, per = _probe_skip_case(40, 2 * 36, 9, 0.3, drift)
+        iters = 10
+    assert per == jspd._packed_geometry(len(A), A.shape[-1], tiles=12)[2]
+    Xj, rj = jspd._ns_packed_pallas(jnp.asarray(A), iters=iters, x0=jnp.asarray(x0),
+                                    probe_skip=True, interpret=True)
+    Xt, rt = tspd.ns_packed(torch.tensor(A), iters=iters, x0=torch.tensor(x0),
+                            probe_skip=True)
+    Xj, Xt = np.asarray(Xj), np_of(Xt)
+    np.testing.assert_array_equal(Xt[:per], x0[:per])
+    np.testing.assert_array_equal(Xj[:per], x0[:per])
+    if case == "nan_carry":
+        assert np.isnan(float(rt)) and np.isnan(float(rj))
+        return
+    assert float(rt) < TOL and float(rj) < TOL
+    if case == "mixed":
+        X64 = np.linalg.inv(A.astype(np.float64) + np.eye(A.shape[-1]))
+        err = np.abs(Xt[per:] - X64[per:]).max()
+        assert err <= 1e-5 * np.abs(X_exact).max(), err
+        _agree(Xt[per:], Xj[per:], np.abs(X_exact).max())
+    assert tspd.KERNEL_LAUNCHES["probe_skip"] == 0
+
+
+def test_psd_route_with_fused_probe(monkeypatch):
+    """inv_one_plus_psd's warm branch under VLGP_FUSED_PROBE: an accepted
+    carry comes back as is, a drifted one is refined, and garbage fails the
+    refine and lands on the cold route."""
+    monkeypatch.setattr(tspd, "_FUSED_PROBE", True)
+    R = 16
+    A = torch.tensor(_psd((2, 3), R, 0.5, seed=2))
+    X = tspd.inv_one_plus_psd(A, iters=16)
+    assert torch.equal(tspd.inv_one_plus_psd(A, warm=X), X)
+    A2 = A * 1.02
+    X2 = tspd.inv_one_plus_psd(A2, warm=X, warm_iters=4)
+    ref2 = np.linalg.inv(np_of(A2).astype(np.float64) + np.eye(R))
+    assert np.abs(np_of(X2) - ref2).max() < 1e-4
+    Xg = tspd.inv_one_plus_psd(A, warm=torch.full_like(A, 100.0), warm_iters=3)
+    assert torch.allclose(Xg, X, atol=1e-5)
+    assert tspd.FALLBACKS["packed_refine_fail"] == 1
+    assert tspd.FALLBACKS["packed_probe_reject"] == 0
+
+
+# ------------------------------------------- float32: spd_inverse / solve --
+
+
+def _spd(B, R, seed):
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(B, R, R)).astype(np.float32)
+    return (np.einsum("brk,bqk->brq", G, G) / R + np.eye(R, dtype=np.float32)).astype(np.float32)
+
+
+@pytest.mark.parametrize("R", [1, 16, 40, 64])
+def test_spd_inverse_matches_pallas(R):
+    A = _spd(5, R, seed=20 + R)
+    ref = np.asarray(jspd.spd_inverse(jnp.asarray(A), force="interpret"))
+    scale = np.abs(ref).max()
+    for force in (None, "xla", "interpret"):
+        got = tspd.spd_inverse(torch.tensor(A), force=force)
+        assert got.shape == A.shape and got.dtype == torch.float32
+        err = np.abs(np_of(got) - ref).max()
+        assert err <= 1e-4 * scale, (force, err, scale)
+    # the batch shape is kept and the kernel route never launches on the CPU
+    got = tspd.spd_inverse(torch.tensor(A.reshape(5, 1, R, R)))
+    assert got.shape == (5, 1, R, R)
+    assert tspd.KERNEL_LAUNCHES["spd_inverse"] == 0
+
+
+def test_spd_inverse_plain_follows_the_kernel():
+    """The plain version is the kernel's algorithm, not torch.linalg: a
+    negative pivot d is clamped at 1e-30, so the factor's diagonal is
+    d / sqrt(1e-30) and the "inverse" entry 1e-30 (finite), where the
+    exact route's Cholesky fails."""
+    A = np.diag(np.array([2.0, -1.0, 3.0], np.float32))[None]
+    out = np_of(tspd.spd_inverse(torch.tensor(A), force="interpret"))
+    ref = np.asarray(jspd.spd_inverse(jnp.asarray(A), force="interpret"))
+    np.testing.assert_allclose(out[0, 0, 0], 0.5, rtol=1e-6)
+    assert np.isfinite(out).all() and 0 < out[0, 1, 1] < 1e-29
+    np.testing.assert_allclose(out, ref, rtol=1e-5)
+    assert torch.isnan(tspd.spd_inverse(torch.tensor(A), force="xla")).all()
+
+
+def test_spd_solve_matches_jax():
+    A = _spd(3, 12, seed=5)
+    b = np.random.default_rng(6).normal(size=(3, 12)).astype(np.float32)
+    ref = np.asarray(jspd.spd_solve(jnp.asarray(A), jnp.asarray(b)))
+    got = tspd.spd_solve(torch.tensor(A), torch.tensor(b))
+    assert np.abs(np_of(got) - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_build_hash_covers_every_source_and_header(tmp_path, monkeypatch):
+    """An edit to any kernel source or to the shared header renames every
+    library, so a stale build is never loaded."""
+    from vlgp_tpu_torch.ops import _build
+
+    for src in _build.CSRC.glob("*.cu*"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    digests = {_build._digest()}
+    assert {f"{n}.cu" for n in _build.SOURCES} <= {p.name for p in tmp_path.iterdir()}
+    for name in sorted(p.name for p in tmp_path.iterdir()):
+        with open(tmp_path / name, "a") as f:
+            f.write("\n// edited\n")
+        digests.add(_build._digest())
+    assert len(digests) == 1 + len(list(tmp_path.iterdir()))

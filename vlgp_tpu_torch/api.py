@@ -156,8 +156,8 @@ def fit(
 
     trials: list of dicts with ``y`` (length, ydim); optional ``x``, ``mu``.
     Unequal lengths are padded and masked.  ``device`` defaults to the
-    first CUDA device when one is available, else the CPU; the dtype is
-    ``Config.dtype``.  ``fused``, ``block > 1`` and ``path`` (the
+    current CUDA device and raises when there is none: pass ``device="cpu"``
+    to fit on the CPU.  The dtype is ``Config.dtype``.  ``fused``, ``block > 1`` and ``path`` (the
     checkpointing Saver) are not ported yet and raise.
     """
     if fused or block > 1:
@@ -170,7 +170,10 @@ def fit(
             "checkpointing (path=...) needs callback.Saver and utils/io, "
             "queued in ROADMAP.md (Queue 1, item 14)")
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("vlgp_tpu_torch.fit runs on a CUDA device by default and "
+                               "none is available; pass device='cpu' to fit on the CPU")
+        device = "cuda"
     device = torch.device(device)
 
     data, params, fm = _prepare(

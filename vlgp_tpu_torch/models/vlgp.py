@@ -8,6 +8,7 @@ package's on-device loop exits become host-synced Python loops here.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -15,7 +16,15 @@ import torch
 from ..config import Config, Params
 from ..data import TrialSet
 from ..ops.math import trunc_exp
-from ..ops.spd import inv_one_plus_gram, inv_one_plus_psd
+from ..ops.spd import FALLBACKS, _converged, inv_one_plus_gram, inv_one_plus_psd
+from ..ops.sweep import sweep as fused_sweep
+from ..ops.sweep import sweep_fused_eligible
+
+# Fused E-step sweep (ops/sweep.py): every Newton sweep of the E-step in one
+# launch per call, the Woodbury inverses never leaving the kernel between
+# sweeps.  VLGP_SWEEP_FUSED=1 enables it (vlgp_tpu/models/vlgp.py:51); the
+# per-sweep composition is the default.
+_SWEEP_FUSED = os.environ.get("VLGP_SWEEP_FUSED", "0") == "1"
 
 __all__ = [
     "estep",
@@ -106,7 +115,9 @@ def estep(
     with ``return_xinv`` the final sweep's inverse is returned as
     ``(data, xinv)``.  ``config.estep_tol > 0`` stops once
     |dmu| <= estep_tol * |mu| after at least 2 sweeps (a host-synced
-    check per sweep); 0 runs the fixed count.
+    check per sweep); 0 runs the fixed count.  With ``_SWEEP_FUSED`` an
+    eligible call runs every sweep in one ``ops.sweep.sweep`` call, whose
+    groups of segments exit on their own norms.
     """
     niter = config.Eniter if niter is None else niter
     if niter < 1:
@@ -143,20 +154,41 @@ def estep(
                                   warm_iters=config.ns_warm_iters)
         return muz, wz, vz, delta, X
 
-    muz = _zmajor(data.mu)
-    wz = _zmajor(data.w) * maskz
-    vz = _zmajor(data.v)
-    dmuz = _zmajor(data.dmu)
-    X = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=xinv,
-                          warm_iters=config.ns_warm_iters)
-    tol = config.estep_tol
-    for i in range(niter):
-        if tol > 0 and i >= 2:
-            nd = torch.sum(dmuz * dmuz)
-            nm = torch.sum(muz * muz)
-            if not bool(nd > tol * tol * nm):
-                break
-        muz, wz, vz, dmuz, X = sweep(muz, wz, vz, X)
+    def core():
+        """Per-sweep composition: one fused Gram + Newton-Schulz route call
+        per sweep, the (Z, S, R, R) inverse carried between them."""
+        muz = _zmajor(data.mu)
+        wz = _zmajor(data.w) * maskz
+        vz = _zmajor(data.v)
+        dmuz = _zmajor(data.dmu)
+        X = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=xinv,
+                              warm_iters=config.ns_warm_iters)
+        tol = config.estep_tol
+        for i in range(niter):
+            if tol > 0 and i >= 2:
+                nd = torch.sum(dmuz * dmuz)
+                nm = torch.sum(muz * muz)
+                if not bool(nd > tol * tol * nm):
+                    break
+            muz, wz, vz, dmuz, X = sweep(muz, wz, vz, X)
+        return muz, wz, vz, dmuz, X
+
+    if _SWEEP_FUSED and sweep_fused_eligible(data, params, G):
+        # the whole E-step in one launch (ops/sweep.py), with ``core`` as the
+        # net when any group's inverse misses its residual contract
+        # (vlgp_tpu/models/vlgp.py:262-290); a host-synced branch
+        *fused, resid, _ = fused_sweep(
+            y, xb, mask, a, params.noise, params.poisson, G,
+            _zmajor(data.mu), _zmajor(data.w), _zmajor(data.v), xinv,
+            niter=niter, tol=config.estep_tol, dmu_bound=config.dmu_bound,
+            ns_iters=config.ns_iters, ns_warm_iters=config.ns_warm_iters, vb=vb)
+        if _converged(resid.amax()):
+            muz, wz, vz, dmuz, X = fused
+        else:
+            FALLBACKS["sweep_core"] += 1
+            muz, wz, vz, dmuz, X = core()
+    else:
+        muz, wz, vz, dmuz, X = core()
     out = data.replace(mu=_zminor(muz), w=_zminor(wz), v=_zminor(vz),
                        dmu=_zminor(dmuz))
     return (out, X) if return_xinv else out

@@ -1,10 +1,13 @@
-"""Build and load the CUDA kernels of ``csrc/ns_inverse.cu``.
+"""Build and load the CUDA kernels of ``csrc/``.
 
-The source is compiled at first use with ``nvcc`` for ``sm_90a`` (Hopper)
-into a shared library with a plain C interface, loaded with ``ctypes``.
-The library lands in ``vlgp_tpu_torch/_build/`` under a name that carries
-a hash of the source, so an edited source is rebuilt and a stale library
-is never loaded.
+Each source ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for
+``sm_90a`` (Hopper) into its own shared library with a plain C interface,
+loaded with ``ctypes``; the sources share ``csrc/ns_common.cuh``.  All
+missing libraries are built together, one ``nvcc`` process per source
+started at once.  A library lands in ``vlgp_tpu_torch/_build/`` under a
+name that carries a hash of every source and header in ``csrc/`` and of
+the flags, so an edited file is rebuilt and a stale library is never
+loaded.
 """
 from __future__ import annotations
 
@@ -17,17 +20,34 @@ import subprocess
 import threading
 import time
 
-__all__ = ["build", "load_library", "BUILD_SECONDS"]
+__all__ = ["build", "load_library", "BUILD_SECONDS", "SOURCES"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "ns_inverse.cu"
+CSRC = _PKG / "csrc"
+SOURCES = ("ns_inverse", "sweep", "spd_inverse")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# exported C functions of each library: (argument types, result type)
+_SIGNATURES = {
+    "ns_inverse": {
+        "ns_gram": ([_p] * 6 + [_i] * 8 + [_p], _i),
+        "ns_packed": ([_p] * 4 + [_i] * 5 + [_p], _i),
+        "ns_packed_probe_skip": ([_p] * 4 + [_i] * 4 + [_p], _i),
+    },
+    "sweep": {
+        "vlgp_sweep": ([_p] * 16 + [_i] * 8 + [_f, _f] + [_i] * 4 + [_p], _i),
+    },
+    "spd_inverse": {
+        "spd_inverse": ([_p, _p, _i, _i, _p], _i),
+    },
+}
+
 _lock = threading.Lock()
-_lib = None
-# wall seconds spent in nvcc by this process (0.0 when the library was cached)
+_libs: dict = {}
+# wall seconds spent in nvcc by this process (0.0 when the libraries were cached)
 BUILD_SECONDS = 0.0
 
 
@@ -42,40 +62,63 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels unless a library for this exact source exists;
-    returns the library's path."""
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str, digest: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build() -> dict:
+    """Compile every source whose library for the current sources does not
+    exist, all at once; returns {name: library path}."""
     global BUILD_SECONDS
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libns_inverse_{digest}.so"
-    if lib_path.exists():
-        return lib_path
+    digest = _digest()
+    paths = {name: _lib_path(name, digest) for name in SOURCES}
+    todo = [name for name, path in paths.items() if not path.exists()]
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
     tic = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
+    procs = {}
+    for name in todo:
+        tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, paths[name])  # atomic: a concurrent loader never sees half a file
     BUILD_SECONDS += time.perf_counter() - tic
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
-    return lib_path
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
-    global _lib
+def load_library(name: str = "ns_inverse") -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<name>.cu`` once per
+    process; the first call builds every missing library."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ns_gram.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-        lib.ns_gram.restype = i
-        lib.ns_packed.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.ns_packed.restype = i
-        lib.ns_error_string.argtypes = [i]
-        lib.ns_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+        if name not in _libs:
+            for lib_name, path in build().items():
+                if lib_name in _libs:
+                    continue
+                lib = ctypes.CDLL(str(path))
+                for fn, (argtypes, restype) in _SIGNATURES[lib_name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = restype
+                lib.ns_error_string.argtypes = [_i]
+                lib.ns_error_string.restype = ctypes.c_char_p
+                _libs[lib_name] = lib
+        return _libs[name]

@@ -1,18 +1,23 @@
 """Batched (I + A)^{-1} for small PSD systems: the E-step's hot op.
 
-Counterpart of ``vlgp_tpu/ops/spd.py``.  Two hand-written CUDA kernels
-(``csrc/ns_inverse.cu``) carry the float32 path:
+Counterpart of ``vlgp_tpu/ops/spd.py``.  Hand-written CUDA kernels carry
+the float32 path:
 
   * ``ns_gram``   replaces ``_ns_gram_pallas``: builds A = G_z' diag(w_zs) G_z
     per (latent, segment) in shared memory, runs Newton-Schulz
     X <- X (2I - (I+A) X), and optionally emits v = diag(G X G').
   * ``ns_packed`` replaces ``_ns_packed_pallas``: the same Newton-Schulz on
-    a given A (B, R, R).
+    a given A (B, R, R); with ``probe_skip`` its fused probe + refine mode
+    (``VLGP_FUSED_PROBE=1``), decided per group of matrices.
+  * ``spd_inverse`` replaces ``_spd_inverse_pallas``: Cholesky by rank-1
+    updates, L^-1 by forward substitution, then L^-T L^-1.
 
-Each kernel has a plain PyTorch version beside it (``_ns_gram_plain``,
-``_ns_packed_plain``) with the same starts, iterations, residual and v.
-The dispatchers ``ns_gram`` / ``ns_packed`` run the plain version only for
-tensors on the CPU; a CUDA tensor launches the kernel or raises.
+The first two live in ``csrc/ns_inverse.cu``, the third in
+``csrc/spd_inverse.cu``.  Each kernel has a plain PyTorch version beside it
+(``_ns_gram_plain``, ``_ns_packed_plain``, ``_spd_inverse_plain``) with the
+same arithmetic.  The dispatchers ``ns_gram`` / ``ns_packed`` and the
+kernel route of ``spd_inverse`` run the plain version only for tensors on
+the CPU; a CUDA tensor launches the kernel or raises.
 
 Routing mirrors the JAX package's eligibility: float32 with R <= 128 takes
 the Newton-Schulz route; float64, and R > 128, take the exact Cholesky
@@ -25,11 +30,13 @@ fires and ``KERNEL_LAUNCHES`` every kernel launch, as plain integers.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
 
 __all__ = ["inv_one_plus_psd", "inv_one_plus_gram", "ns_gram", "ns_packed",
+           "spd_inverse", "spd_solve",
            "KERNEL_LAUNCHES", "FALLBACKS", "ROUTE_CALLS", "reset_counters"]
 
 # Convergence threshold on max|(I+A)X - I| for Newton-Schulz results; also
@@ -37,14 +44,26 @@ __all__ = ["inv_one_plus_psd", "inv_one_plus_gram", "ns_gram", "ns_packed",
 _RESID_TOL = 1e-2
 # largest R the kernels take (three R x R float32 blocks in shared memory)
 _R_MAX = 128
+# largest R of spd_inverse's automatic kernel route (vlgp_tpu/ops/spd.py:_LANE)
+_LANE = 64
 
-KERNEL_LAUNCHES = {"ns_gram": 0, "ns_packed": 0}
-ROUTE_CALLS = {"gram": 0, "packed": 0}
+# Warm-start probe architecture of the Newton-Schulz route: "0" (default) =
+# probe launch + host-synced check + refine launch; "1" = the fused
+# probe_skip kernel, one launch that refines only the groups whose carry
+# drifted (vlgp_tpu/ops/spd.py:68-73).
+_FUSED_PROBE = os.environ.get("VLGP_FUSED_PROBE", "0") == "1"
+
+# Launch, route and fallback counters of every kernel of the port, the
+# fused E-step sweep's (ops/sweep.py) included.
+KERNEL_LAUNCHES = {"ns_gram": 0, "ns_packed": 0, "probe_skip": 0,
+                   "spd_inverse": 0, "sweep": 0}
+ROUTE_CALLS = {"gram": 0, "packed": 0, "sweep": 0}
 FALLBACKS = {
     "gram_probe_reject": 0, "gram_refine_fail": 0,
     "gram_escalate": 0, "gram_exact": 0,
     "packed_probe_reject": 0, "packed_refine_fail": 0,
     "packed_escalate": 0, "packed_exact": 0,
+    "sweep_core": 0,
 }
 
 
@@ -72,7 +91,7 @@ def _spd_inverse_exact(M: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Plain versions of the two kernels
+# Plain versions of the kernels
 # ---------------------------------------------------------------------------
 
 
@@ -97,12 +116,42 @@ def _ns_core(M, iters: int, x0: Optional[torch.Tensor], resid_only: bool):
     return X, resid
 
 
-def _ns_packed_plain(A, iters: int = 16, x0=None, resid_only: bool = False):
+def _probe_skip_groups(R: int) -> int:
+    """Matrices per ``probe_skip`` group: the TPU kernel's grid block,
+    ``per_block`` of ``vlgp_tpu/ops/spd.py:_packed_geometry(B, R, tiles=12)``
+    (24 at R = 50, 36 at R = 40)."""
+    return 12 * max(1, 128 // R)
+
+
+def _ns_packed_plain(A, iters: int = 16, x0=None, resid_only: bool = False,
+                     probe_skip: bool = False):
     """Plain version of the ``ns_packed`` kernel: A (B, R, R) ->
-    (X or None, per-matrix residual (B,))."""
-    M = A + _eye(A.shape[-1], A)
-    X, resid = _ns_core(M, iters, x0, resid_only)
-    return (None if resid_only else X), resid
+    (X or None, per-matrix residual (B,)).
+
+    ``probe_skip`` (needs x0): per group of ``_probe_skip_groups`` matrices,
+    a group whose worst x0 residual is below tolerance returns x0 and those
+    residuals; any other group (NaN included) takes the probe product as its
+    first half-step, X1 = x0 (2I - M x0), then ``iters - 1`` more rounds
+    (``vlgp_tpu/ops/spd.py:492-519``)."""
+    R = A.shape[-1]
+    M = A + _eye(R, A)
+    if not probe_skip:
+        X, resid = _ns_core(M, iters, x0, resid_only)
+        return (None if resid_only else X), resid
+    if x0 is None or resid_only:
+        raise ValueError("probe_skip needs x0 and writes X")
+    eye = _eye(R, M)
+    MX0 = M @ x0
+    r0 = (MX0 - eye).abs().amax(dim=(-2, -1))
+    B, per = A.shape[0], _probe_skip_groups(R)
+    ngroup = -(-B // per)
+    worst = torch.nn.functional.pad(r0, (0, ngroup * per - B)).reshape(ngroup, per).amax(1)
+    keep = (worst < _RESID_TOL).repeat_interleave(per)[:B]
+    X = x0 @ (2.0 * eye - MX0)
+    for _ in range(max(iters - 1, 0)):
+        X = X @ (2.0 * eye - M @ X)
+    resid = (M @ X - eye).abs().amax(dim=(-2, -1))
+    return torch.where(keep[:, None, None], x0, X), torch.where(keep, r0, resid)
 
 
 def _ns_gram_plain(G, w, iters: int = 16, x0=None, resid_only: bool = False,
@@ -119,6 +168,30 @@ def _ns_gram_plain(G, w, iters: int = 16, x0=None, resid_only: bool = False,
     X = X.reshape(Z, S, R, R)
     v = torch.einsum("ztr,zsrq,ztq->zst", G, X, G) if want_v else None
     return (None if resid_only else X), resid, v
+
+
+def _spd_inverse_plain(A):
+    """Plain version of the ``spd_inverse`` kernel, the TPU kernel's
+    algorithm step by step (``vlgp_tpu/ops/spd.py:76-119``): Cholesky by
+    masked rank-1 updates with the pivot clamped at 1e-30, L^-1 by forward
+    substitution, then L^-T L^-1.  A (B, R, R) -> A^{-1}."""
+    R = A.shape[-1]
+    idx = torch.arange(R, device=A.device)
+    L = A.clone()
+    for j in range(R):
+        cj = L[:, :, j].clone()
+        dj = cj[:, j]
+        inv_piv = torch.rsqrt(torch.clamp(dj, min=1e-30))
+        cjb = cj * inv_piv[:, None] * (idx > j)
+        L = L - cjb[:, :, None] * cjb[:, None, :]
+        L[:, :, j] = cjb + (idx == j) * (dj * inv_piv)[:, None]
+    L = torch.tril(L)
+    Linv = torch.zeros_like(L)
+    for j in range(R):
+        lrow = L[:, j, :]
+        acc = torch.einsum("bk,bkq->bq", lrow * (idx < j), Linv)
+        Linv[:, j, :] = ((idx == j).to(A.dtype) - acc) / lrow[:, j, None]
+    return Linv.mT @ Linv
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +220,10 @@ def _raise_on(rc: int, lib, name: str) -> None:
         raise RuntimeError(f"{name} kernel failed to launch: CUDA error {rc} ({msg})")
 
 
-def _ns_packed_cuda(A, iters: int = 16, x0=None, resid_only: bool = False):
-    """Launch the ``ns_packed`` kernel: one thread block per matrix."""
+def _ns_packed_cuda(A, iters: int = 16, x0=None, resid_only: bool = False,
+                    probe_skip: bool = False):
+    """Launch the ``ns_packed`` kernel (one thread block per matrix), or with
+    ``probe_skip`` the ``ns_packed_probe_skip`` kernel (one block per group)."""
     from ._build import load_library
 
     B, R, _ = A.shape
@@ -158,6 +233,8 @@ def _ns_packed_cuda(A, iters: int = 16, x0=None, resid_only: bool = False):
         raise ValueError("iters must be >= 0")
     if resid_only and x0 is None:
         raise ValueError("resid_only needs x0")
+    if probe_skip and (x0 is None or resid_only):
+        raise ValueError("probe_skip needs x0 and writes X")
     _check_cuda("A", A, (B, R, R))
     if x0 is not None:
         _check_cuda("x0", x0, (B, R, R))
@@ -167,15 +244,39 @@ def _ns_packed_cuda(A, iters: int = 16, x0=None, resid_only: bool = False):
     resid = torch.empty((B,), dtype=torch.float32, device=A.device)
     if B == 0:
         return X, resid
-    lib = load_library()
+    lib = load_library("ns_inverse")
+    with torch.cuda.device(A.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(A.device).cuda_stream)
+        if probe_skip:
+            rc = lib.ns_packed_probe_skip(_ptr(A), _ptr(x0), _ptr(X), _ptr(resid), B, R,
+                                          _probe_skip_groups(R), iters, stream)
+        else:
+            rc = lib.ns_packed(_ptr(A), _ptr(x0), _ptr(X), _ptr(resid), B, R, iters,
+                               int(x0 is not None), int(resid_only), stream)
+    name = "probe_skip" if probe_skip else "ns_packed"
+    _raise_on(rc, lib, name)
+    KERNEL_LAUNCHES[name] += 1
+    return X, resid
+
+
+def _spd_inverse_cuda(A):
+    """Launch the ``spd_inverse`` kernel: one thread block per matrix."""
+    from ._build import load_library
+
+    B, R, _ = A.shape
+    if not 1 <= R <= _R_MAX:
+        raise ValueError(f"spd_inverse takes 1 <= R <= {_R_MAX}, got R={R}")
+    _check_cuda("A", A, (B, R, R))
+    out = torch.empty_like(A)
+    if B == 0:
+        return out
+    lib = load_library("spd_inverse")
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = lib.ns_packed(_ptr(A), _ptr(x0), _ptr(X), _ptr(resid), B, R, iters,
-                           int(x0 is not None), int(resid_only),
-                           ctypes.c_void_p(stream))
-    _raise_on(rc, lib, "ns_packed")
-    KERNEL_LAUNCHES["ns_packed"] += 1
-    return X, resid
+        rc = lib.spd_inverse(_ptr(A), _ptr(out), B, R, ctypes.c_void_p(stream))
+    _raise_on(rc, lib, "spd_inverse")
+    KERNEL_LAUNCHES["spd_inverse"] += 1
+    return out
 
 
 def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
@@ -202,7 +303,7 @@ def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
     v = torch.empty((Z, S, T), dtype=G.dtype, device=G.device) if want_v else None
     if Z * S == 0:
         return X, resid, v
-    lib = load_library()
+    lib = load_library("ns_inverse")
     with torch.cuda.device(G.device):
         stream = torch.cuda.current_stream(G.device).cuda_stream
         rc = lib.ns_gram(_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid), _ptr(v),
@@ -213,16 +314,17 @@ def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
     return X, resid, v
 
 
-def ns_packed(A, iters: int = 16, x0=None, resid_only: bool = False):
+def ns_packed(A, iters: int = 16, x0=None, resid_only: bool = False,
+              probe_skip: bool = False):
     """Newton-Schulz (I + A)^{-1} for A (B, R, R): (X or None, max residual).
 
-    The residual max propagates NaN.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel.
+    ``probe_skip`` (with x0) keeps the carry of every group that passes its
+    probe and refines the others (see ``_ns_packed_plain``).  The residual
+    max propagates NaN.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel.
     """
-    if A.is_cuda:
-        X, resid = _ns_packed_cuda(A, iters, x0, resid_only)
-    else:
-        X, resid = _ns_packed_plain(A, iters, x0, resid_only)
+    fn = _ns_packed_cuda if A.is_cuda else _ns_packed_plain
+    X, resid = fn(A, iters, x0, resid_only, probe_skip)
     return X, resid.amax() if resid.numel() else resid.new_zeros(())
 
 
@@ -313,6 +415,16 @@ def _ns_auto(A, iters, force, warm, warm_iters, probe=True):
 
     if not probe:
         return refine()
+    if _FUSED_PROBE:
+        # one launch: groups whose carry passes the probe keep it, the
+        # others are refined (vlgp_tpu/ops/spd.py:316-328)
+        Xw, resid = ns_packed(flat, warm_iters, x0=x0w, probe_skip=True)
+
+        def fused_failed():
+            FALLBACKS["packed_refine_fail"] += 1
+            return cold()
+
+        return _checked(Xw.reshape(shape), resid, fused_failed)
     _, resid0 = ns_packed(flat, 0, x0=x0w, resid_only=True)
     if _converged(resid0):
         return x0w.reshape(shape)
@@ -397,3 +509,36 @@ def _gram_auto(G, w, iters, warm, warm_iters, probe, want_v):
         return pack(warm, v0)
     FALLBACKS["gram_probe_reject"] += 1
     return refine()
+
+
+# ---------------------------------------------------------------------------
+# Batched SPD inverse (vlgp_tpu/ops/spd.py:363-390)
+# ---------------------------------------------------------------------------
+
+
+def spd_inverse(A, force: Optional[str] = None):
+    """Batched inverse of SPD matrices A (..., R, R).
+
+    ``force``: None picks the kernel route for float32 with R <= 64 (the
+    ``spd_inverse`` kernel on CUDA, its plain version on the CPU) and the
+    exact Cholesky route otherwise; ``"pallas"`` takes the kernel route at
+    any R the kernel takes (R <= 128 on CUDA); ``"xla"`` the exact route;
+    ``"interpret"`` the plain version on any device (the names of the JAX
+    package's options).
+    """
+    R = A.shape[-1]
+    flat = A.reshape(-1, R, R).contiguous()
+    if force == "interpret":
+        out = _spd_inverse_plain(flat)
+    elif force == "pallas" or (force is None and A.dtype == torch.float32 and R <= _LANE):
+        out = _spd_inverse_cuda(flat) if flat.is_cuda else _spd_inverse_plain(flat)
+    elif force in (None, "xla"):
+        out = _spd_inverse_exact(flat)
+    else:
+        raise ValueError(f"unknown force {force!r}")
+    return out.reshape(A.shape)
+
+
+def spd_solve(A, b):
+    """Solve A x = b for SPD A (..., R, R) and b (..., R)."""
+    return torch.einsum("...rq,...q->...r", spd_inverse(A), b)
