@@ -1,0 +1,110 @@
+"""Time the CUDA kernels of one checkout of vlgp_tpu_torch on the card, so
+that two trees can be compared in turns within one machine:
+
+    python3 tools/torch_kernel_ab.py [ROOT]    # ROOT: a checkout (default: this one)
+
+Builds ROOT's ``csrc/`` and prints one JSON line with the card's name and
+power limit and, per case, [median, min, max] ms over 10 calls, each
+between its own pair of CUDA events (``chip_smoke.time_ms``): ``ns_gram`` at
+the E-step shape (Z5 S2000 T50 R40) cold 16, warm 4 + v and probe + v;
+``ns_packed`` cold 16 and ``probe_skip`` (odd groups drifted, 4 rounds) at
+B500 R50, and ``torch.linalg.inv_ex(I + A)`` on the same A; ``spd_inverse``
+at B10000 R40; ``sweep`` at the flagship E-step shape (Z5 S2000 T50 Y100
+R40) from a real carry with the adaptive exit, with its summed sweep, pass
+and round counts, timed per call and also as the mean of 3 back-to-back
+calls between one pair of events (how chip_smoke.py once timed it).  The
+inputs are made from seed 0 with ``chip_smoke.py``'s helpers.  Needs a
+CUDA device.
+"""
+import importlib.util
+import json
+import pathlib
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parents[1]
+ROOT = pathlib.Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else HERE
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch_kernel_ab.py needs a CUDA device")
+    from vlgp_tpu_torch.ops import _build, spd
+
+    if not pathlib.Path(spd.__file__).resolve().is_relative_to(ROOT):
+        raise RuntimeError(f"imported {spd.__file__}, not the checkout at {ROOT}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load_library()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    out = {"root": str(ROOT), "card": smi.splitlines()[0]}
+
+    Z, S, T, R = cs.ZDIM, 2000, 50, 40
+    G = cs.realistic_factor(Z, T, R, device)
+    w0 = torch.rand((Z, S, T), generator=gen, device=device)
+    w = (w0 * (1e2 / cs.lambda_max(G, w0))).contiguous()
+    w_warm = (w * (1 + 0.02 * torch.rand(w.shape, generator=gen, device=device))).contiguous()
+    X = spd._ns_gram_plain(G, w, 16)[0].contiguous()
+    out["ns_gram cold 16"] = cs.time_ms(lambda: spd._ns_gram_cuda(G, w, 16))
+    out["ns_gram warm 4 + v"] = cs.time_ms(
+        lambda: spd._ns_gram_cuda(G, w_warm, 4, x0=X, want_v=True))
+    out["ns_gram probe + v"] = cs.time_ms(
+        lambda: spd._ns_gram_cuda(G, w, 0, x0=X, resid_only=True, want_v=True))
+
+    B, RP, N = cs.ZDIM * cs.NTRIAL, 50, cs.NTRIAL
+    G = cs.realistic_factor(Z, cs.LENGTH, RP, device)
+    w0 = torch.rand((Z, N, cs.LENGTH), generator=gen, device=device)
+    w = w0 * (1e2 / cs.lambda_max(G, w0))
+    A = torch.einsum("ztr,zst,ztq->zsrq", G, w, G).reshape(B, RP, RP).contiguous()
+    X = spd._ns_packed_plain(A, 16)[0]
+    group = torch.arange(B, device=device) // spd._probe_skip_groups(RP)
+    x0 = torch.where((group % 2 == 1)[:, None, None], X * 0.97, X).contiguous()
+    eye = torch.eye(RP, device=device)
+    out["ns_packed cold 16"] = cs.time_ms(lambda: spd._ns_packed_cuda(A, 16))
+    out["probe_skip"] = cs.time_ms(lambda: spd._ns_packed_cuda(A, 4, x0=x0, probe_skip=True))
+    out["inv_ex(I + A)"] = cs.time_ms(lambda: torch.linalg.inv_ex(eye + A))
+
+    Gm = torch.randn((10000, 40, 40), generator=gen, device=device)
+    A40 = (Gm @ Gm.mT * (1e2 / 160) + torch.eye(40, device=device)).contiguous()
+    out["spd_inverse"] = cs.time_ms(lambda: spd._spd_inverse_cuda(A40))
+    out.update(time_sweep(device, gen))
+    print(json.dumps(out))
+
+
+def time_sweep(device, gen):
+    from vlgp_tpu_torch.config import Config
+    from vlgp_tpu_torch.ops import sweep as sw
+
+    cfg = Config()
+    args = cs.sweep_inputs(cs.ZDIM, 2000, 50, cs.YDIM, 40, device, gen)
+    kw = dict(niter=cfg.Eniter, tol=cfg.estep_tol, dmu_bound=cfg.dmu_bound,
+              ns_iters=cfg.ns_iters, ns_warm_iters=cfg.ns_warm_iters, vb=True,
+              bs=sw._pick_bs(cs.ZDIM, 50, cs.YDIM, 40))
+    carry = sw._sweep_cuda(*args, None, **dict(kw, niter=4, tol=0.0))[4].contiguous()
+    run = lambda: sw._sweep_cuda(*args, carry, **kw)
+    counts = run()[6].double().sum(0).tolist()
+    per_call = cs.time_ms(run)
+    run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return {"sweep counts (sweeps, passes, rounds)": counts, "sweep": per_call,
+            "sweep, mean of 3 back-to-back": start.elapsed_time(end) / 3}
+
+
+if __name__ == "__main__":
+    main()

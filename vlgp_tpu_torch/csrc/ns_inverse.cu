@@ -1,6 +1,6 @@
 // Newton-Schulz inverses X = (I + A)^{-1} of small SPD systems, for Hopper.
 //
-// Three entry points share the Newton-Schulz routines of ns_common.cuh:
+// Three entry points share the register-tiled routines of ns_common.cuh:
 //
 //   ns_gram    replaces vlgp_tpu/ops/spd.py:_ns_gram_pallas (kernel body
 //              _make_ns_gram_kernel).  Per (latent z, segment s) it builds
@@ -14,41 +14,63 @@
 //              _make_ns_packed_kernel): the same iteration on a given
 //              A (B, R, R).
 //   ns_packed_probe_skip  replaces the probe_skip mode of the same Pallas
-//              kernel (vlgp_tpu/ops/spd.py:492-519): one block per group of
+//              kernel (vlgp_tpu/ops/spd.py:492-519): per group of
 //              `per_block` matrices (the TPU kernel's grid block,
-//              _packed_geometry(tiles=12)) measures the carried x0 of every
-//              matrix of the group; a group whose worst residual is below
-//              1e-2 returns x0 bit for bit, any other group (NaN included)
-//              is refined from x0.
+//              _packed_geometry(tiles=12)), a group whose worst x0 residual
+//              is below 1e-2 returns x0 bit for bit, any other group (NaN
+//              included) is refined from x0.
 //
 // Modes (ns_gram, ns_packed): cold start at c I with c = 2 / (1 + max
 // row-sum of |I+A|); warm start at x0 (iters = 0 is legal); probe
 // (resid_only): one product measures x0's residual, no X is written, and
 // ns_gram emits v from x0.
 //
-// Design.  One thread block of NT threads per matrix (per group for
-// probe_skip).  The block keeps M = I + A, X and one R x R scratch in
-// dynamic shared memory (R <= 128: 3 * 64 KB plus the streamed G chunk,
-// 213 KB of the 227 KB a block may use on an H100).  Each thread owns
-// ceil(R^2 / NT) entries of every product and accumulates them in
-// registers, so a product needs no fourth buffer.  Every multiply is a full
-// float32 FMA: no TF32 and no bf16 (the TPU's bf16 products made the
-// iteration miss its 1e-2 tolerance, vlgp_tpu/ops/spd.py:54-65).  The TPU
-// kernels' block-diagonal packing of 128 // R matrices into one 128 x 128
-// tile is a trick for the TPU's matrix unit and is dropped.
+// Design.  One thread block per matrix, of nb^2 threads rounded up to a
+// warp, nb = ceil(R / 4): 128 threads at R = 40, 192 at R = 50, 1024 at
+// R = 128.  Each thread owns a 4 x 4 tile of every product in 16 registers
+// (ns_common.cuh, "Register-tiled routines").  The block keeps M = I + A
+// transposed, X by rows and X transposed in dynamic shared memory, each
+// padded to 4 nb rows of stride ld = padded_ld(R) (44 floats at R = 40,
+// 132 at R = 128), with the pad zero.  A product P Q reads row k of P's
+// transpose and row k of Q as one 16-byte word each per 16 FMAs, which is
+// why M and X are kept transposed: M X reads Mt and X, X (2I - M X) reads
+// Xt and the T that overwrote X, and the new X is stored both ways.  The
+// Gram build and v = diag(G X G') use the same tiles on the streamed G
+// chunk.  At R = 128 ns_gram's three matrices, G chunk and partial sums of
+// v take 223,488 bytes of the 232,448 a block may use.  Every multiply is
+// a full float32 FMA: no TF32 and no
+// bf16 (the TPU's bf16 products made the iteration miss its 1e-2
+// tolerance, vlgp_tpu/ops/spd.py:54-65), and each entry sums over k in
+// the same order as before the tiling.  The TPU kernels' block-diagonal
+// packing of 128 // R matrices into one 128 x 128 tile is a trick for the
+// TPU's matrix unit and is dropped.
 //
 // What bounds it on this card: at the main-path shapes (R = 40, 10,000
-// matrices) each Newton-Schulz step is 2 R^3 FMAs per matrix whose operands
-// come from shared memory, two loads per FMA: the kernel is bound by
-// shared-memory bandwidth, not by device memory (X is read and written
-// once per call).  Register tiling or wgmma would lift that bound; both
-// are later work.  probe_skip runs one block per group (21 blocks at
-// B = 500, R = 50), so it fills a sixth of the card; it keeps the TPU
-// kernel's grouping because the skip decision is made per group.
+// matrices) each Newton-Schulz round is 2 R^3 FMAs per matrix with operands
+// in shared memory; X is read and written once per call, so device memory
+// is far from the bound.  At two 16-byte loads per 16 FMAs the products
+// are no longer capped by shared-memory bandwidth (mm_regs read two 4-byte
+// words per FMA, which capped it near 1/8 of the FP32 rate); what is left
+// is the FMA instruction rate, the idle lanes of a block (100 tiles on 128
+// threads at R = 40), the four barriers per round, and the stores of each
+// tile (T by rows, the new X by rows and by columns).  On an H100 (700 W)
+// ns_gram's 16 cold rounds at R = 40 ran at 36% of the FP32 bound, with
+// 59-64 registers per thread, the 64 that __launch_bounds__(1024) allows
+// (8 bytes of ns_gram spilled).
+//
+// probe_skip takes two launches of one block per matrix, in stream order:
+// the probe (ns_packed_kernel in probe mode) writes every x0's residual to
+// r0 in device memory; then each block of the refine reads its group's
+// residuals and either copies x0 or refines.  The skip decision needs every
+// residual of the group before any matrix of it is refined, and the second
+// launch gives that ordering for free.  A thread-block cluster per group
+// could not: a group is 24 matrices at R = 50, more than the 16 blocks a
+// cluster may hold.
 //
 // The residual reduction propagates NaN (fmaxf would drop it), so a NaN X
-// can never pass the caller's `isfinite(resid) && resid < tol` check.
-// Each entry point returns cudaGetLastError() of its launch.
+// can never pass the caller's `isfinite(resid) && resid < tol` check.  No
+// atomics: repeated runs give the same bits.  Each entry point returns
+// cudaGetLastError() of its launches.
 
 #include "ns_common.cuh"
 
@@ -56,163 +78,155 @@ namespace {
 
 using namespace vlgp;
 
-constexpr int NT = 256;         // threads per block
-constexpr int NWARP = NT / 32;
+constexpr int NT_MAX = 1024;    // threads of a block at R = 128
 
-// Solve in shared memory: M = I + A is complete on entry.  Initializes X
-// (cold or from x0b), iterates unless `resid_only`, writes the residual of
-// the final X to *resid_out and X to Xout (when not null).
-template <int E>
-__device__ void ns_solve(const float* M, float* X, float* Tm, float* red,
+// Shared-memory layout of a block: Mt, X, Xt (4 nb x ld each), then the
+// kernel's extra space.
+struct Layout {
+  int nb, ld, n;  // tiles per side, row stride, floats per matrix
+  __host__ __device__ explicit Layout(int R)
+      : nb(tiles_per_side(R)), ld(padded_ld(R)), n(4 * tiles_per_side(R) * padded_ld(R)) {}
+};
+
+__device__ void zero_shared(float* p, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = 0.f;
+}
+
+// Solve in shared memory: Mt = (I + A)^T is complete on entry and X, Xt
+// are zero.  Initializes X (cold or from x0b), iterates unless
+// `resid_only`, writes the residual of the final X to *resid_out and X to
+// Xout (when not null).
+__device__ void ns_solve(const float* Mt, float* X, float* Xt, float* red,
                          const float* x0b, float* Xout, float* resid_out,
-                         int R, int iters, int resid_only) {
+                         int R, int ld, int iters, int resid_only) {
   const int RR = R * R;
   const int tid = threadIdx.x;
   if (x0b != nullptr) {
-    for (int i = tid; i < RR; i += NT) X[i] = x0b[i];
+    for (int i = tid; i < RR; i += blockDim.x) {
+      const int r = i / R, q = i - r * R;
+      X[r * ld + q] = x0b[i];
+      if (!resid_only) Xt[q * ld + r] = x0b[i];
+    }
   } else {
-    ns_cold_start<NT>(M, X, R, red);
+    ns_cold_start_tiled(Mt, X, Xt, R, ld, red);
   }
   __syncthreads();
-  if (!resid_only) ns_iterate<NT, E>(M, X, Tm, R, iters);
-  const float res = ns_residual<NT, E>(M, X, R, red);
+  if (!resid_only) ns_iterate_tiled(Mt, X, Xt, R, ld, iters);
+  const float res = ns_residual_tiled(Mt, X, R, ld, red);
   if (tid == 0) *resid_out = res;
   if (Xout != nullptr && !resid_only) {
-    for (int i = tid; i < RR; i += NT) Xout[i] = X[i];
+    for (int i = tid; i < RR; i += blockDim.x) {
+      const int r = i / R;
+      Xout[i] = X[r * ld + i - r * R];
+    }
   }
 }
 
-template <int E>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT_MAX)
 ns_gram_kernel(const float* __restrict__ G, const float* __restrict__ w,
                const float* __restrict__ x0, float* __restrict__ Xo,
                float* __restrict__ resid, float* __restrict__ v,
                int S, int T, int R, int iters, int resid_only, int want_v) {
-  extern __shared__ float sm[];
+  extern __shared__ float4 sm4[];
+  const Layout L(R);
+  float* Mt = reinterpret_cast<float*>(sm4);
+  float* X = Mt + L.n;
+  float* Xt = X + L.n;
+  float* Gc = Xt + L.n;            // TC x 4 nb chunk of G_z (4 nb x TC for v)
+  float* wc = Gc + TC * 4 * L.nb;  // TC weights
+  float* part = wc + TC;           // nb x TC partial sums of v
+  float* red = part + TC * L.nb;   // one float per warp
   const int RR = R * R;
-  float* M = sm;
-  float* X = M + RR;
-  float* Tm = X + RR;
-  float* Gc = Tm + RR;   // TC x R chunk of G_z
-  float* wc = Gc + TC * R;  // TC weights
-  float* red = wc + TC;     // NWARP floats
   const int b = blockIdx.x;  // b = z * S + s
   const int z = b / S;
   const float* Gz = G + (size_t)z * T * R;
 
-  gram_build<NT, E>(Gz, w + (size_t)b * T, T, R, M, Gc, wc);
-  ns_solve<E>(M, X, Tm, red, x0 ? x0 + (size_t)b * RR : nullptr,
-              Xo ? Xo + (size_t)b * RR : nullptr, resid + b, R, iters, resid_only);
+  zero_shared(Mt, 3 * L.n);
+  gram_build_tiled(Gz, w + (size_t)b * T, T, R, L.ld, Mt, Gc, wc);
+  ns_solve(Mt, X, Xt, red, x0 ? x0 + (size_t)b * RR : nullptr,
+           Xo ? Xo + (size_t)b * RR : nullptr, resid + b, R, L.ld, iters, resid_only);
   // v_t = G_t X G_t' from the X this block holds (x0 in probe mode)
-  if (want_v) marginal_v<NT>(Gz, X, T, R, Gc, v + (size_t)b * T, nullptr);
+  if (want_v) marginal_v_tiled(Gz, X, T, R, L.ld, Gc, part, v + (size_t)b * T);
 }
 
-__device__ void load_packed(const float* Ab, float* M, int R) {
-  for (int i = threadIdx.x; i < R * R; i += NT) M[i] = Ab[i] + (i / R == i % R ? 1.f : 0.f);
+// Mt = (I + A)^T from A by rows; the caller synchronises after.
+__device__ void load_packed(const float* Ab, float* Mt, int R, int ld) {
+  for (int i = threadIdx.x; i < R * R; i += blockDim.x) {
+    const int r = i / R, k = i - r * R;
+    Mt[k * ld + r] = Ab[i] + (r == k ? 1.f : 0.f);
+  }
 }
 
-template <int E>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT_MAX)
 ns_packed_kernel(const float* __restrict__ A, const float* __restrict__ x0,
                  float* __restrict__ Xo, float* __restrict__ resid,
                  int R, int iters, int resid_only) {
-  extern __shared__ float sm[];
+  extern __shared__ float4 sm4[];
+  const Layout L(R);
+  float* Mt = reinterpret_cast<float*>(sm4);
+  float* X = Mt + L.n;
+  float* Xt = X + L.n;
+  float* red = Xt + L.n;
   const int RR = R * R;
-  float* M = sm;
-  float* X = M + RR;
-  float* Tm = X + RR;
-  float* red = Tm + RR;
   const int b = blockIdx.x;
-  load_packed(A + (size_t)b * RR, M, R);
+  zero_shared(Mt, 3 * L.n);
   __syncthreads();
-  ns_solve<E>(M, X, Tm, red, x0 ? x0 + (size_t)b * RR : nullptr,
-              Xo ? Xo + (size_t)b * RR : nullptr, resid + b, R, iters, resid_only);
+  load_packed(A + (size_t)b * RR, Mt, R, L.ld);
+  __syncthreads();
+  ns_solve(Mt, X, Xt, red, x0 ? x0 + (size_t)b * RR : nullptr,
+           Xo ? Xo + (size_t)b * RR : nullptr, resid + b, R, L.ld, iters, resid_only);
 }
 
-// One block per group of `per_block` matrices.  Pass 1 measures every
-// x0's residual (resid[m] = that residual).  A converged group copies x0
-// to X; a drifted one runs max(iters, 1) rounds from x0 per matrix: the
-// TPU kernel's probe product reused as the first half-step, X1 =
-// x0 (2I - M x0), then iters - 1 rounds, is the same arithmetic.  The
-// probe products are recomputed instead of kept: 24 R x R products do not
-// fit in shared memory at R = 50.
-template <int E>
-__global__ void __launch_bounds__(NT)
-ns_packed_probe_skip_kernel(const float* __restrict__ A, const float* __restrict__ x0,
-                            float* __restrict__ Xo, float* __restrict__ resid,
-                            int B, int R, int per_block, int iters) {
-  extern __shared__ float sm[];
+// Pass 2 of probe_skip, one block per matrix m; pass 1 (ns_packed_kernel in
+// probe mode) left every x0's residual in r0.  The block takes the
+// NaN-propagating max of r0 over its group, m / per_block (the last group
+// may be ragged).  A converged group copies x0[m] to X[m] bit for bit and
+// keeps r0[m]; a drifted one (NaN included) runs max(iters, 1) rounds from
+// x0[m]: the TPU kernel's probe product reused as the first half-step,
+// X1 = x0 (2I - M x0), then iters - 1 rounds, is the same arithmetic.
+__global__ void __launch_bounds__(NT_MAX)
+ns_probe_skip_refine_kernel(const float* __restrict__ A, const float* __restrict__ x0,
+                            const float* __restrict__ r0, float* __restrict__ Xo,
+                            float* __restrict__ resid, int B, int R, int per_block,
+                            int iters) {
   const int RR = R * R;
-  float* M = sm;
-  float* X = M + RR;
-  float* Tm = X + RR;
-  float* red = Tm + RR;
-  const int m0 = blockIdx.x * per_block;
-  const int m1 = min(B, m0 + per_block);
+  const int m = blockIdx.x;
+  const int g0 = m / per_block * per_block, g1 = min(B, g0 + per_block);
   float worst = 0.f;
-  for (int m = m0; m < m1; ++m) {
-    __syncthreads();  // the previous matrix is consumed
-    load_packed(A + (size_t)m * RR, M, R);
-    for (int i = threadIdx.x; i < RR; i += NT) X[i] = x0[(size_t)m * RR + i];
-    __syncthreads();
-    const float r = ns_residual<NT, E>(M, X, R, red);
-    worst = nanmax(worst, r);
-    if (threadIdx.x == 0) resid[m] = r;
-  }
+  for (int i = g0; i < g1; ++i) worst = nanmax(worst, r0[i]);
   if (worst < RESID_TOL) {  // block-uniform; a NaN residual refines
-    for (size_t i = threadIdx.x + (size_t)m0 * RR; i < (size_t)m1 * RR; i += NT) Xo[i] = x0[i];
+    for (int i = threadIdx.x; i < RR; i += blockDim.x)
+      Xo[(size_t)m * RR + i] = x0[(size_t)m * RR + i];
+    if (threadIdx.x == 0) resid[m] = r0[m];
     return;
   }
-  for (int m = m0; m < m1; ++m) {
-    __syncthreads();
-    load_packed(A + (size_t)m * RR, M, R);
-    __syncthreads();
-    ns_solve<E>(M, X, Tm, red, x0 + (size_t)m * RR, Xo + (size_t)m * RR, resid + m,
-                R, iters > 1 ? iters : 1, 0);
-  }
+  extern __shared__ float4 sm4[];
+  const Layout L(R);
+  float* Mt = reinterpret_cast<float*>(sm4);
+  float* X = Mt + L.n;
+  float* Xt = X + L.n;
+  float* red = Xt + L.n;
+  zero_shared(Mt, 3 * L.n);
+  __syncthreads();
+  load_packed(A + (size_t)m * RR, Mt, R, L.ld);
+  __syncthreads();
+  ns_solve(Mt, X, Xt, red, x0 + (size_t)m * RR, Xo + (size_t)m * RR, resid + m,
+           R, L.ld, iters > 1 ? iters : 1, 0);
 }
 
-template <int E>
-cudaError_t launch_gram(const float* G, const float* w, const float* x0, float* X,
-                        float* resid, float* v, int Z, int S, int T, int R,
-                        int iters, int resid_only, int want_v, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (3 * R * R + TC * R + TC + NWARP);
-  cudaError_t err = cudaFuncSetAttribute(
-      ns_gram_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  ns_gram_kernel<E><<<Z * S, NT, smem, st>>>(G, w, x0, X, resid, v, S, T, R, iters,
-                                             resid_only, want_v);
-  return cudaGetLastError();
+// Bytes of shared memory of a packed block (Mt, X, Xt, one float per warp).
+size_t packed_smem(int R) {
+  return sizeof(float) * (3 * Layout(R).n + tiled_threads(R) / 32);
 }
 
-template <int E>
 cudaError_t launch_packed(const float* A, const float* x0, float* X, float* resid,
                           int B, int R, int iters, int resid_only, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (3 * R * R + NWARP);
+  const size_t smem = packed_smem(R);
   cudaError_t err = cudaFuncSetAttribute(
-      ns_packed_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ns_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  ns_packed_kernel<E><<<B, NT, smem, st>>>(A, x0, X, resid, R, iters, resid_only);
+  ns_packed_kernel<<<B, tiled_threads(R), smem, st>>>(A, x0, X, resid, R, iters, resid_only);
   return cudaGetLastError();
-}
-
-template <int E>
-cudaError_t launch_probe_skip(const float* A, const float* x0, float* X, float* resid,
-                              int B, int R, int per_block, int iters, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (3 * R * R + NWARP);
-  cudaError_t err = cudaFuncSetAttribute(
-      ns_packed_probe_skip_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int groups = (B + per_block - 1) / per_block;
-  ns_packed_probe_skip_kernel<E><<<groups, NT, smem, st>>>(A, x0, X, resid, B, R,
-                                                           per_block, iters);
-  return cudaGetLastError();
-}
-
-// entries per thread, rounded up to a compiled register-array size
-int entries(int R) {
-  const int e = (R * R + NT - 1) / NT;
-  return e <= 8 ? 8 : e <= 16 ? 16 : e <= 32 ? 32 : 64;
 }
 
 }  // namespace
@@ -230,13 +244,15 @@ int ns_gram(const float* G, const float* w, const float* x0, float* X, float* re
     return (int)cudaErrorInvalidValue;
   if (!use_x0) x0 = nullptr;
   if (resid_only) X = nullptr;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (entries(R)) {
-    case 8:  return (int)launch_gram<8>(G, w, x0, X, resid, v, Z, S, T, R, iters, resid_only, want_v, st);
-    case 16: return (int)launch_gram<16>(G, w, x0, X, resid, v, Z, S, T, R, iters, resid_only, want_v, st);
-    case 32: return (int)launch_gram<32>(G, w, x0, X, resid, v, Z, S, T, R, iters, resid_only, want_v, st);
-    default: return (int)launch_gram<64>(G, w, x0, X, resid, v, Z, S, T, R, iters, resid_only, want_v, st);
-  }
+  const Layout L(R);
+  const int nt = tiled_threads(R);
+  const size_t smem = sizeof(float) * (3 * L.n + TC * 5 * L.nb + TC + nt / 32);
+  cudaError_t err = cudaFuncSetAttribute(
+      ns_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ns_gram_kernel<<<Z * S, nt, smem, (cudaStream_t)stream>>>(G, w, x0, X, resid, v, S, T, R,
+                                                            iters, resid_only, want_v);
+  return (int)cudaGetLastError();
 }
 
 // A (B,R,R), x0 (B,R,R) or null; X (B,R,R) or null in probe mode; resid (B,).
@@ -247,29 +263,27 @@ int ns_packed(const float* A, const float* x0, float* X, float* resid, int B, in
     return (int)cudaErrorInvalidValue;
   if (!use_x0) x0 = nullptr;
   if (resid_only) X = nullptr;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (entries(R)) {
-    case 8:  return (int)launch_packed<8>(A, x0, X, resid, B, R, iters, resid_only, st);
-    case 16: return (int)launch_packed<16>(A, x0, X, resid, B, R, iters, resid_only, st);
-    case 32: return (int)launch_packed<32>(A, x0, X, resid, B, R, iters, resid_only, st);
-    default: return (int)launch_packed<64>(A, x0, X, resid, B, R, iters, resid_only, st);
-  }
+  return (int)launch_packed(A, x0, X, resid, B, R, iters, resid_only, (cudaStream_t)stream);
 }
 
 // A, x0, X (B,R,R); resid (B,): per matrix, x0's residual in a converged
-// group and the refined residual in a drifted one.
-int ns_packed_probe_skip(const float* A, const float* x0, float* X, float* resid, int B,
-                         int R, int per_block, int iters, void* stream) {
+// group and the refined residual in a drifted one; r0 (B,) scratch.  Two
+// launches on `stream`: the probe writes r0, then the refine reads it.
+int ns_packed_probe_skip(const float* A, const float* x0, float* X, float* resid, float* r0,
+                         int B, int R, int per_block, int iters, void* stream) {
   if (R < 1 || R > RMAX || B < 1 || per_block < 1 || iters < 0 || x0 == nullptr ||
-      X == nullptr)
+      X == nullptr || r0 == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (entries(R)) {
-    case 8:  return (int)launch_probe_skip<8>(A, x0, X, resid, B, R, per_block, iters, st);
-    case 16: return (int)launch_probe_skip<16>(A, x0, X, resid, B, R, per_block, iters, st);
-    case 32: return (int)launch_probe_skip<32>(A, x0, X, resid, B, R, per_block, iters, st);
-    default: return (int)launch_probe_skip<64>(A, x0, X, resid, B, R, per_block, iters, st);
-  }
+  cudaError_t err = launch_packed(A, x0, nullptr, r0, B, R, 0, 1, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = packed_smem(R);
+  err = cudaFuncSetAttribute(ns_probe_skip_refine_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ns_probe_skip_refine_kernel<<<B, tiled_threads(R), smem, st>>>(A, x0, r0, X, resid, B, R,
+                                                                 per_block, iters);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

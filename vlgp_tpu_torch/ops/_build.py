@@ -35,7 +35,7 @@ _SIGNATURES = {
     "ns_inverse": {
         "ns_gram": ([_p] * 6 + [_i] * 8 + [_p], _i),
         "ns_packed": ([_p] * 4 + [_i] * 5 + [_p], _i),
-        "ns_packed_probe_skip": ([_p] * 4 + [_i] * 4 + [_p], _i),
+        "ns_packed_probe_skip": ([_p] * 5 + [_i] * 4 + [_p], _i),
     },
     "sweep": {
         "vlgp_sweep": ([_p] * 16 + [_i] * 8 + [_f, _f] + [_i] * 4 + [_p], _i),

@@ -223,7 +223,8 @@ def _raise_on(rc: int, lib, name: str) -> None:
 def _ns_packed_cuda(A, iters: int = 16, x0=None, resid_only: bool = False,
                     probe_skip: bool = False):
     """Launch the ``ns_packed`` kernel (one thread block per matrix), or with
-    ``probe_skip`` the ``ns_packed_probe_skip`` kernel (one block per group)."""
+    ``probe_skip`` the ``ns_packed_probe_skip`` pair (a probe and a refine
+    launch, one block per matrix each; counted as one launch)."""
     from ._build import load_library
 
     B, R, _ = A.shape
@@ -248,8 +249,11 @@ def _ns_packed_cuda(A, iters: int = 16, x0=None, resid_only: bool = False,
     with torch.cuda.device(A.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(A.device).cuda_stream)
         if probe_skip:
-            rc = lib.ns_packed_probe_skip(_ptr(A), _ptr(x0), _ptr(X), _ptr(resid), B, R,
-                                          _probe_skip_groups(R), iters, stream)
+            # one call, two launches on this stream: the probe writes every
+            # x0's residual to r0, the refine reads its group's
+            r0 = torch.empty((B,), dtype=torch.float32, device=A.device)
+            rc = lib.ns_packed_probe_skip(_ptr(A), _ptr(x0), _ptr(X), _ptr(resid), _ptr(r0),
+                                          B, R, _probe_skip_groups(R), iters, stream)
         else:
             rc = lib.ns_packed(_ptr(A), _ptr(x0), _ptr(X), _ptr(resid), B, R, iters,
                                int(x0 is not None), int(resid_only), stream)
