@@ -16,9 +16,12 @@ Phases, each of which raises on failure:
    T off the 32-row chunk; iters = 0 with x0);
 5. sweep (the fused E-step) against its plain version at the flagship
    E-step shape (Z5 S2000 T50 Y100 R40, exit groups of 16) cold, from a
-   real carry, from the zeros carry and with the adaptive exit, then at
-   edge shapes (R = 1, 50, 128, padded groups, a ragged mask): outputs
-   within 1e-4 and the same sweep, pass and round counts per group;
+   real carry, from the zeros carry and with the adaptive exit (the mode
+   the fit runs, timed on input draws 0, 1 and 2 with their total and
+   slowest-group passes), then at edge shapes (R = 1, 50, 128, padded
+   groups, a ragged mask): outputs within 1e-4 and the same sweep, pass and
+   round counts per group; each call logs its cooperative grid (blocks,
+   blocks per SM) and its grid syncs;
 6. spd_inverse against its plain version at B10000 R40 and R = 1, 64, 128;
    probe_skip at B500 R50 (a ragged last group) with converged, drifted
    and NaN-carrying groups, all groups converged, all drifted, and at R17
@@ -375,8 +378,10 @@ def sweep_work(args, counts, bs, vb, carry):
 
 def check_sweep(device, gen, shape=(ZDIM, 2000, 50, YDIM, 40)):
     """The sweep kernel against its plain version: the flagship E-step shape
-    in four modes, then edge shapes.  Returns (worst error, ms, plain ms,
-    bound ms, bound_by) of the mode the fit runs (real carry, adaptive)."""
+    in four modes, the mode the fit runs (real carry, adaptive) also on input
+    draws 1 and 2, then edge shapes; each call with its cooperative grid and
+    grid syncs.  Returns (worst error, ms, plain ms, bound ms, bound_by) of
+    the mode the fit runs on draw 0."""
     from vlgp_tpu_torch.config import Config
     from vlgp_tpu_torch.ops import sweep as sw
 
@@ -389,7 +394,8 @@ def check_sweep(device, gen, shape=(ZDIM, 2000, 50, YDIM, 40)):
         bs = sw._pick_bs(Z, T, args[0].shape[-1], R)
         kw = dict(niter=niter, tol=tol, dmu_bound=cfg.dmu_bound, ns_iters=cfg.ns_iters,
                   ns_warm_iters=cfg.ns_warm_iters, vb=vb, bs=bs)
-        k = sw._sweep_cuda(*args, xinv, **kw)
+        grid = {}
+        k = sw._sweep_cuda(*args, xinv, **kw, grid=grid)
         p = sw._sweep_plain(*args, xinv, **kw)
         torch.cuda.synchronize()
         rk = float(k[5].amax())
@@ -409,30 +415,44 @@ def check_sweep(device, gen, shape=(ZDIM, 2000, 50, YDIM, 40)):
             worst = max(worst, err)
             errs[name] = err
         c = k[6].double()
+        grid = {name: int(t) for name, t in grid.items()}
         log(f"  sweep {tag}: resid {rk:.3e}, sweeps per group {int(c[:, 0].min())}-"
             f"{int(c[:, 0].max())}, passes {int(c[:, 1].sum())} (slowest group "
             f"{int(c[:, 1].max())}), NS rounds {int(c[:, 2].sum())} (slowest group "
-            f"{int(c[:, 2].max())}); max |k-p| {max(errs.values()):.3e}")
+            f"{int(c[:, 2].max())}); max |k-p| {max(errs.values()):.3e}; grid "
+            f"{grid['blocks']} blocks ({grid['blocks_per_sm']} per SM), "
+            f"{grid['syncs']} grid syncs")
         return k, p, kw
 
+    # the flagship E-step on three input draws: the time should follow the
+    # draw's total passes, not its slowest group's
     Z, S, T, Y, R = shape
-    args = sweep_inputs(Z, S, T, Y, R, device, gen)
-    log(f"sweep Z={Z} S={S} T={T} Y={Y} R={R}, exit groups of "
-        f"{sw._pick_bs(Z, T, Y, R)}:")
-    k, _, _ = run("cold, 4 sweeps", args, None, 4, 0.0)
-    carry = k[4].contiguous()
-    run("zeros carry, 4 sweeps", args, torch.zeros_like(carry), 4, 0.0)
-    run("real carry, 4 sweeps", args, carry, 4, 0.0)
-    k, _, kw = run(f"real carry, tol {cfg.estep_tol}", args, carry, cfg.Eniter, cfg.estep_tol)
-    ms = time_ms(lambda: sw._sweep_cuda(*args, carry, **kw))
-    pms = time_ms(lambda: sw._sweep_plain(*args, carry, **kw))
-    b_ms, b_by = bound(*sweep_work(args, k[6], kw["bs"], True, True))
-    log(f"  sweep real carry, tol {cfg.estep_tol}: kernel {fmt_ms(ms)}, plain {fmt_ms(pms)}, "
-        f"bound {b_ms:.4f} ms ({b_by})")
-    cold_kw = dict(kw, niter=4, tol=0.0)
-    log(f"  sweep cold, 4 sweeps: kernel "
-        f"{fmt_ms(time_ms(lambda: sw._sweep_cuda(*args, None, **cold_kw)))}, plain "
-        f"{fmt_ms(time_ms(lambda: sw._sweep_plain(*args, None, **cold_kw)))}")
+    draws = []
+    for seed in (0, 1, 2):
+        args = sweep_inputs(Z, S, T, Y, R, device, gen.manual_seed(seed))
+        log(f"sweep Z={Z} S={S} T={T} Y={Y} R={R}, exit groups of "
+            f"{sw._pick_bs(Z, T, Y, R)}, input draw {seed}:")
+        k, _, _ = run("cold, 4 sweeps", args, None, 4, 0.0)
+        carry = k[4].contiguous()
+        if seed == 0:
+            run("zeros carry, 4 sweeps", args, torch.zeros_like(carry), 4, 0.0)
+            run("real carry, 4 sweeps", args, carry, 4, 0.0)
+        k, _, kw = run(f"real carry, tol {cfg.estep_tol}", args, carry, cfg.Eniter,
+                       cfg.estep_tol)
+        ms = time_ms(lambda: sw._sweep_cuda(*args, carry, **kw))
+        pms = time_ms(lambda: sw._sweep_plain(*args, carry, **kw))
+        b_ms, b_by = bound(*sweep_work(args, k[6], kw["bs"], True, True))
+        passes = k[6][:, 1]
+        log(f"  sweep real carry, tol {cfg.estep_tol}, draw {seed}: kernel {fmt_ms(ms)}, "
+            f"plain {fmt_ms(pms)}, bound {b_ms:.4f} ms ({b_by}); passes {int(passes.sum())}, "
+            f"slowest group {int(passes.max())}")
+        draws.append((ms, pms, b_ms, b_by))
+        if seed == 0:
+            cold_kw = dict(kw, niter=4, tol=0.0)
+            log(f"  sweep cold, 4 sweeps: kernel "
+                f"{fmt_ms(time_ms(lambda: sw._sweep_cuda(*args, None, **cold_kw)))}, plain "
+                f"{fmt_ms(time_ms(lambda: sw._sweep_plain(*args, None, **cold_kw)))}")
+    ms, pms, b_ms, b_by = draws[0]
     for shape, ragged in (((2, 37, 64, 7, 50), False), ((3, 45, 33, 11, 16), True),
                           ((1, 30, 130, 5, 128), False), ((1, 10, 60, 3, 1), False)):
         eargs = sweep_inputs(*shape, device, gen, ragged=ragged)

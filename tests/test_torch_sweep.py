@@ -7,6 +7,8 @@ agree to the Newton-Schulz floor of tests/test_sweep_fused.py:69 (2e-4 of
 max|mu| for mu and dmu, 2e-4 of each tensor's max for w, v and X), not bit
 for bit.  Exit groups match, so both take the same trip counts.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -203,16 +205,112 @@ def test_sweep_cuda_wrapper_refuses_cpu_tensors():
     assert tspd.KERNEL_LAUNCHES["sweep"] == 0
 
 
-def test_python_geometry_matches_the_kernel_source():
-    """The eligibility gate's shared-memory count uses the kernel's block
-    size and G chunk; both are read back from the CUDA sources."""
-    import re
+def _c_expr(src, pattern):
+    """A C integer expression of the CUDA sources as Python (`/` on ints
+    truncates)."""
+    return re.search(pattern, src).group(1).replace("/", "//")
 
+
+def test_python_geometry_matches_the_kernel_source():
+    """The eligibility gate's shared-memory count and block size are the
+    kernel's: the expressions of ``csrc/sweep.cu`` (region, bit sets,
+    launch) and ``csrc/ns_common.cuh`` (tiles, stride, threads), read back
+    from the sources and evaluated here, at every width and group count."""
     from vlgp_tpu_torch.ops import _build
 
     sweep_cu = (_build.CSRC / "sweep.cu").read_text()
     common = (_build.CSRC / "ns_common.cuh").read_text()
-    nt = int(re.search(r"constexpr int NT = (\d+);", sweep_cu).group(1))
     tc = int(re.search(r"constexpr int TC = (\d+);", common).group(1))
-    assert (tsw._NWARP, tsw._TC) == (nt // 32, tc)
-    assert tsw._sweep_smem_bytes(100, 40) == 4 * (3 * 1600 + tc * 40 + tc + nt // 32)
+    tiles = _c_expr(common, r"int tiles_per_side\(int R\) \{ return (.+?); \}")
+    ld = _c_expr(common, r"int padded_ld\(int R\) \{ return (.+?); \}")
+    threads = _c_expr(common, r"const int nb = tiles_per_side\(R\);\s*return (.+?);")
+    ns = _c_expr(sweep_cu, r"const int ns = (.+?);")
+    seg = _c_expr(sweep_cu, r"const int seg = (.+?);")
+    stride = _c_expr(sweep_cu, r"int row_stride\(int Y\) \{ return (.+?); \}")
+    smem = _c_expr(sweep_cu, r"const size_t smem = sizeof\(float\) \* (.+?);")
+    assert "return ns > seg ? ns : seg;" in sweep_cu
+    assert "const int nt = tiled_threads(R);" in sweep_cu
+    assert re.search(r"cudaLaunchCooperativeKernel\([^;]*blocks, nt, args, smem", sweep_cu)
+    stats = re.search(r"enum Stat \{([^}]*)\}", sweep_cu).group(1).split(",")
+    assert [x.strip().lower() for x in stats] == list(tsw._STATS) + ["stats"]
+    tiles_per_side = lambda R: eval(tiles, {"R": R})  # noqa: E731
+    padded_ld = lambda R: eval(ld, {"R": R, "tiles_per_side": tiles_per_side})  # noqa: E731
+    assert tsw._TC == tc
+    for R in (1, 3, 16, 17, 40, 50, 100, 127, 128):
+        nb = tiles_per_side(R)
+        nt = eval(threads, {"nb": nb})
+        assert tsw._threads(R) == nt
+        for Z, T, Y in ((1, 1, 1), (2, 16, 6), (5, 50, 100), (5, 50, 1001), (12, 300, 40)):
+            env = dict(Z=Z, T=T, Y=Y, R=R, nb=nb, nwarp=nt // 32, TC=tc, padded_ld=padded_ld,
+                       row_stride=lambda Y: eval(stride, {"Y": Y}))
+            region = max(eval(ns, env), eval(seg, env))
+            for S, bs in ((64, 64), (2000, 16), (4096, 8), (96, 32)):
+                got = eval(smem, dict(Z=Z, T=T, S=S, bs=bs, Y=Y, R=R,
+                                      region_floats=lambda Z, T, Y, R: region))
+                assert tsw._sweep_smem_bytes(Z, T, Y, R, S // bs) == 4 * got, (Z, T, Y, R, S)
+    # the wrapper's scratch holds the shapes ``SweepArgs`` declares
+    for Z, S, bs in ((1, 4, 4), (5, 2000, 16), (3, 96, 32)):
+        sc = tsw._scratch(Z, S, S // bs, "cpu")
+        for name in ("rmat", "npart", "rlast"):
+            dims = re.search(rf"float\* {name};\s*// \(([^)]*)\)", sweep_cu).group(1)
+            want = np.prod([eval(d.replace("/", "//"), {"S": S, "Z": Z, "bs": bs})
+                            for d in dims.split(",")])
+            assert sc[name].numel() == want and sc[name].dtype == torch.float32, name
+
+
+def test_sweep_geometry_at_the_edge_widths():
+    """Shared memory and eligibility at R = 1, 40 and 128, and at a Y whose
+    row, not the Newton-Schulz buffers, sets the shared memory."""
+    from types import SimpleNamespace
+
+    # the flagship (Z5 T50 Y100 R40): 128 threads, ns_gram's 6916 floats,
+    # 125 groups in 4 words each
+    assert tsw._threads(40) == 128
+    assert tsw._sweep_smem_bytes(5, 50, 100, 40, 125) == 4 * (6916 + 8) == 27696
+    # Y = 600 at R = 40: the segment stage's vectors, a, a2 and a row each of
+    # xb and y (604 floats: 151 16-byte words)
+    assert tsw._sweep_smem_bytes(5, 50, 600, 40, 125) == 4 * (1050 + 600 + 6000 + 2 * 604 + 8)
+    # R = 1: one warp; the Newton-Schulz buffers take 241 floats, a and rows of Y = 300 more
+    assert tsw._threads(1) == 32
+    assert tsw._sweep_smem_bytes(1, 1, 7, 1) == 4 * (241 + 2)
+    assert tsw._sweep_smem_bytes(1, 1, 300, 1) == 4 * (5 + 3 + 600 + 2 * 300 + 2)
+    # R = 128: 1024 threads and ns_gram's 223,488 bytes, under the 232,448 limit
+    assert tsw._threads(128) == 1024
+    assert tsw._sweep_smem_bytes(1, 4, 100, 128, 33) == 4 * (55872 + 4) <= tsw._SMEM_MAX
+    # at R = 128 a, a2 and the rows of Y = 15000 would not fit
+    big = tsw._sweep_smem_bytes(1, 1, 15000, 128)
+    assert big == 4 * (5 + 384 + 30000 + 2 * 15004 + 2) > tsw._SMEM_MAX
+
+    def eligible(S, T, Y, Z, R):
+        data = SimpleNamespace(y=torch.zeros((S, T, Y)))
+        params = SimpleNamespace(a=torch.zeros((Z, Y)))
+        return tsw.sweep_fused_eligible(data, params, torch.zeros((Z, T, R)))
+
+    assert tsw._pick_bs(1, 1, 15000, 128) > 0
+    assert eligible(20, 1, 100, 1, 128) and not eligible(20, 1, 15000, 1, 128)
+    assert eligible(2000, 50, 100, 5, 40) and eligible(40, 8, 300, 2, 1)
+
+
+def test_sweep_plain_groups_are_independent():
+    """Exit groups do not see each other in ``_sweep_plain``: more spikes in
+    the middle of three groups change none of the other two groups' outputs
+    or counts by a bit.  The kernel's grid relies on this: any block may
+    take any group's items, and a group's exit needs only its own norms."""
+    ops, config = _inputs(dict(S=130))
+    Z, T, R = ops["G"].shape
+    bs = tsw._pick_bs(Z, T, ops["y"].shape[-1], R)
+    assert bs == 64
+    kw = dict(niter=8, tol=1e-3, dmu_bound=config.dmu_bound, ns_iters=config.ns_iters,
+              ns_warm_iters=config.ns_warm_iters, vb=True, bs=bs)
+    names = ("y", "xb", "mask", "a", "noise", "poisson", "G", "muz", "wz", "vz")
+    base = tsw._sweep_plain(*(_t(ops[k]) for k in names), None, **kw)
+    y = ops["y"].copy()
+    y[bs:2 * bs] = y[bs:2 * bs] * 3.0 + 1.0
+    moved = tsw._sweep_plain(*(_t(y if k == "y" else ops[k]) for k in names), None, **kw)
+    keep = np.r_[0:bs, 2 * bs:130]
+    for i, name in enumerate(("mu", "w", "v", "dmu", "X")):
+        assert torch.equal(base[i][:, keep], moved[i][:, keep]), name
+        assert not torch.equal(base[i][:, bs:2 * bs], moved[i][:, bs:2 * bs]), name
+    for i in (5, 6):  # worst residual and counts per group
+        assert torch.equal(base[i][[0, 2]], moved[i][[0, 2]])
+    assert not torch.equal(base[6][1], moved[6][1])

@@ -10,10 +10,13 @@ the E-step shape (Z5 S2000 T50 R40) cold 16, warm 4 + v and probe + v;
 ``ns_packed`` cold 16 and ``probe_skip`` (odd groups drifted, 4 rounds) at
 B500 R50, and ``torch.linalg.inv_ex(I + A)`` on the same A; ``spd_inverse``
 at B10000 R40; ``sweep`` at the flagship E-step shape (Z5 S2000 T50 Y100
-R40) from a real carry with the adaptive exit, with its summed sweep, pass
-and round counts, timed per call and also as the mean of 3 back-to-back
-calls between one pair of events (how chip_smoke.py once timed it).  The
-inputs are made from seed 0 with ``chip_smoke.py``'s helpers.  Needs a
+R40) from a real carry with the adaptive exit on input draws 0, 1 and 2,
+with its summed sweep, pass and round counts and the slowest group's
+passes, timed per call and also as the mean of 3 back-to-back calls between
+one pair of events; and on draw 0 with every group live (``tol=0``) for
+niter = 0, 2, 4 and 6 sweeps, whose differences give the time of a fully
+live sweep.  The inputs are made with ``chip_smoke.py``'s helpers,
+from seed 0 (the sweep's from the seed of its draw).  Needs a
 CUDA device.
 """
 import importlib.util
@@ -86,24 +89,33 @@ def time_sweep(device, gen):
     from vlgp_tpu_torch.ops import sweep as sw
 
     cfg = Config()
-    args = cs.sweep_inputs(cs.ZDIM, 2000, 50, cs.YDIM, 40, device, gen)
     kw = dict(niter=cfg.Eniter, tol=cfg.estep_tol, dmu_bound=cfg.dmu_bound,
               ns_iters=cfg.ns_iters, ns_warm_iters=cfg.ns_warm_iters, vb=True,
               bs=sw._pick_bs(cs.ZDIM, 50, cs.YDIM, 40))
-    carry = sw._sweep_cuda(*args, None, **dict(kw, niter=4, tol=0.0))[4].contiguous()
-    run = lambda: sw._sweep_cuda(*args, carry, **kw)
-    counts = run()[6].double().sum(0).tolist()
-    per_call = cs.time_ms(run)
-    run()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
+    out = {}
+    for seed in (0, 1, 2):
+        args = cs.sweep_inputs(cs.ZDIM, 2000, 50, cs.YDIM, 40, device, gen.manual_seed(seed))
+        carry = sw._sweep_cuda(*args, None, **dict(kw, niter=4, tol=0.0))[4].contiguous()
+        run = lambda: sw._sweep_cuda(*args, carry, **kw)  # noqa: E731
+        counts = run()[6]
+        tag = f"sweep draw {seed}"
+        out[tag + " counts (sweeps, passes, rounds)"] = counts.double().sum(0).tolist()
+        out[tag + " slowest group's passes"] = int(counts[:, 1].max())
+        out[tag] = cs.time_ms(run)
         run()
-    end.record()
-    torch.cuda.synchronize()
-    return {"sweep counts (sweeps, passes, rounds)": counts, "sweep": per_call,
-            "sweep, mean of 3 back-to-back": start.elapsed_time(end) / 3}
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        out[tag + ", mean of 3 back-to-back"] = start.elapsed_time(end) / 3
+        if seed == 0:
+            for n in (0, 2, 4, 6):
+                out[f"sweep draw 0, tol 0, niter {n}"] = cs.time_ms(
+                    lambda: sw._sweep_cuda(*args, carry, **dict(kw, niter=n, tol=0.0)))
+    return out
 
 
 if __name__ == "__main__":

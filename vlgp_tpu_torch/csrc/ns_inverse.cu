@@ -49,8 +49,8 @@
 // matrices) each Newton-Schulz round is 2 R^3 FMAs per matrix with operands
 // in shared memory; X is read and written once per call, so device memory
 // is far from the bound.  At two 16-byte loads per 16 FMAs the products
-// are no longer capped by shared-memory bandwidth (mm_regs read two 4-byte
-// words per FMA, which capped it near 1/8 of the FP32 rate); what is left
+// are no longer capped by shared-memory bandwidth (the untiled product read
+// two 4-byte words per FMA, which capped it near 1/8 of the FP32 rate); what is left
 // is the FMA instruction rate, the idle lanes of a block (100 tiles on 128
 // threads at R = 40), the four barriers per round, and the stores of each
 // tile (T by rows, the new X by rows and by columns).  On an H100 (700 W)

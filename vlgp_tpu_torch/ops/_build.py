@@ -38,7 +38,7 @@ _SIGNATURES = {
         "ns_packed_probe_skip": ([_p] * 5 + [_i] * 4 + [_p], _i),
     },
     "sweep": {
-        "vlgp_sweep": ([_p] * 16 + [_i] * 8 + [_f, _f] + [_i] * 4 + [_p], _i),
+        "vlgp_sweep": ([_p] * 19 + [_i] * 8 + [_f, _f] + [_i] * 4 + [_p], _i),
     },
     "spd_inverse": {
         "spd_inverse": ([_p, _p, _i, _i, _p], _i),

@@ -12,7 +12,10 @@ to the per-sweep composition when any group's residual misses 1e-2
 (``models/vlgp.py:estep``).
 
 ``sweep`` runs ``_sweep_plain`` for CPU tensors and launches the
-``csrc/sweep.cu`` kernel (``_sweep_cuda``) for CUDA tensors.  Both return
+``csrc/sweep.cu`` kernel (``_sweep_cuda``: one cooperative launch of a
+persistent grid that walks the segments and the (latent, segment) matrices
+of the live groups stage by stage, with a grid sync between stages) for
+CUDA tensors.  Both return
 (mu, w, v, dmu, X, resid, counts): the posterior tensors (Z, S, T), X
 (Z, S, R, R), the worst residual of each group and, per group, the sweeps,
 refine passes and Newton-Schulz rounds it ran.
@@ -32,9 +35,11 @@ __all__ = ["sweep", "sweep_fused_eligible"]
 _EXP_BOUND = 10.0  # ops/math.py:trunc_exp
 # shared memory one thread block may use on an H100
 _SMEM_MAX = 232448
-# threads per block of the kernel (csrc/sweep.cu:NT); TC rows of G per chunk
-_NWARP = 512 // 32
+# rows of G per streamed chunk (csrc/ns_common.cuh:TC)
 _TC = 32
+# block 0's record of a kernel launch (csrc/sweep.cu:Stat): grid syncs,
+# blocks, blocks per SM
+_STATS = ("syncs", "blocks", "blocks_per_sm")
 
 
 def _sweep_vmem_bytes(Z, T, Y, R, bs) -> int:
@@ -61,26 +66,45 @@ def _pick_bs(Z, T, Y, R, budget: int = 11 * 2**20) -> int:
     return 0
 
 
-def _sweep_smem_bytes(Y, R) -> int:
-    """Dynamic shared memory of one kernel block (``csrc/sweep.cu:smem_bytes``):
-    the refine's three R x R blocks, G chunk and reduction slots, or the
-    stages' per-warp rows and vectors, whichever is larger."""
-    return 4 * max(3 * R * R + _TC * R + _TC + _NWARP, _NWARP * max(Y, 3 * R))
+def _tiles(R) -> int:
+    """Tiles per side of a padded R x R matrix (``csrc/ns_common.cuh:tiles_per_side``)."""
+    return (R + 3) // 4
+
+
+def _threads(R) -> int:
+    """Threads of a kernel block: one per 4 x 4 tile, rounded up to a warp
+    (``csrc/ns_common.cuh:tiled_threads``): 128 at R = 40, 1024 at R = 128."""
+    return -(-(_tiles(R) ** 2) // 32) * 32
+
+
+def _sweep_smem_bytes(Z, T, Y, R, ngroups: int = 1) -> int:
+    """Dynamic shared memory of one kernel block (``csrc/sweep.cu``): the
+    refine's Mt, X, Xt (4 nb rows of stride ``padded_ld``), G chunk, weights,
+    partial sums of v and one float per warp, or the segment stage's four
+    Z x T vectors, the mask, three Z x R vectors, a and a2 (Z x Y) and one
+    row each of xb and y (Y rounded up to an odd number of 16-byte words),
+    whichever is larger, then two bit sets of the ``ngroups`` exit groups."""
+    nb, nwarp = _tiles(R), _threads(R) // 32
+    ld = 4 * (nb | 1)
+    ns = 3 * 4 * nb * ld + _TC * 5 * nb + _TC + nwarp
+    seg = 4 * Z * T + T + 3 * Z * R + 2 * Z * Y + 2 * 4 * ((-(-Y // 4)) | 1)
+    return 4 * (max(ns, seg) + 2 * -(-ngroups // 32))
 
 
 def sweep_fused_eligible(data, params, G) -> bool:
     """Static eligibility (``vlgp_tpu/ops/sweep.py:348-360``): float32, R <= 128,
     an exit group that fits, and a block the kernel can launch."""
     Z, T, R = G.shape
-    Y = data.y.shape[-1]
+    S, Y = data.y.shape[0], data.y.shape[-1]
+    bs = _pick_bs(Z, T, Y, R)
     return (
         G.dtype == torch.float32
         and data.y.dtype == torch.float32
         and params.a.dtype == torch.float32
         and 1 <= R <= _R_MAX
         and data.y.shape[1] == T
-        and _pick_bs(Z, T, Y, R) > 0
-        and _sweep_smem_bytes(Y, R) <= _SMEM_MAX
+        and bs > 0
+        and _sweep_smem_bytes(Z, T, Y, R, -(-S // bs)) <= _SMEM_MAX
     )
 
 
@@ -222,24 +246,39 @@ def _sweep_plain(y, xb, mask, a, noise, poisson, G, muz, wz, vz, xinv, *,
     return (mu[:, :S], w[:, :S], v[:, :S], dmu[:, :S], X[:, :S], worst, counts)
 
 
+def _scratch(Z, SP, ngrp, device) -> dict:
+    """The kernel's scratch (``csrc/sweep.cu:SweepArgs``): the residual of
+    each matrix in two parities, |dmu|^2 and |mu|^2 of each segment in two
+    sweep parities, each group's last residual."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return dict(rmat=torch.empty((2 * Z * SP,), **f32), npart=torch.empty((4 * SP,), **f32),
+                rlast=torch.empty((ngrp,), **f32))
+
+
 def _sweep_cuda(y, xb, mask, a, noise, poisson, G, muz, wz, vz, xinv, *,
                 niter: int, tol: float, dmu_bound: float, ns_iters: int,
-                ns_warm_iters: int, vb: bool, bs: int):
-    """Launch the ``sweep`` kernel: one thread block per exit group."""
+                ns_warm_iters: int, vb: bool, bs: int, grid: Optional[dict] = None):
+    """Launch the ``sweep`` kernel: one cooperative launch whose grid is
+    every block that fits on the card at once.  Raises if the card refuses
+    it (a grid that cannot be co-resident included); nothing falls back.
+    With ``grid``, the kernel also counts its grid syncs, and ``grid`` takes
+    them, the blocks and the blocks per SM (``_STATS``) as int64 scalars on
+    the card, to read after a synchronize."""
     from ._build import load_library
 
     Z, T, R = G.shape
     S, _, Y = y.shape
     if not 1 <= R <= _R_MAX:
         raise ValueError(f"sweep takes 1 <= R <= {_R_MAX}, got R={R}")
-    if bs < 1 or min(niter, ns_iters, ns_warm_iters) < 0:
-        raise ValueError("sweep needs bs >= 1 and nonnegative iteration counts")
-    if _sweep_smem_bytes(Y, R) > _SMEM_MAX:
-        raise ValueError(f"sweep needs {_sweep_smem_bytes(Y, R)} bytes of shared memory "
-                         f"(Y={Y}, R={R}), more than a block may use")
+    if bs < 4 or bs % 4 or min(niter, ns_iters, ns_warm_iters) < 0:
+        raise ValueError("sweep needs bs a multiple of 4 and nonnegative iteration counts")
+    ngrp = -(-S // bs)
+    smem = _sweep_smem_bytes(Z, T, Y, R, ngrp)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"sweep needs {smem} bytes of shared memory (Z={Z}, T={T}, "
+                         f"Y={Y}, R={R}), more than a block may use")
     o = _padded(y, xb, mask, a, noise, poisson, muz, wz, vz, xinv, bs)
     SP = o["y"].shape[0]
-    nblk = SP // bs
     for name, shape in (("y", (SP, T, Y)), ("xb", (SP, T, Y)), ("mask", (SP, T)),
                         ("a", (Z, Y)), ("pois", (Y,)), ("invn", (Y,)),
                         ("mu", (Z, SP, T)), ("w", (Z, SP, T)), ("v", (Z, SP, T))):
@@ -254,21 +293,26 @@ def _sweep_cuda(y, xb, mask, a, noise, poisson, G, muz, wz, vz, xinv, *,
     if any(t.device != G.device for t in (o["y"], o["mu"], X)):
         raise ValueError("every operand of sweep must be on one device")
     dmu = torch.zeros_like(o["mu"])
-    sproj = torch.empty_like(o["mu"])
-    resid = torch.empty((nblk,), dtype=torch.float32, device=G.device)
-    counts = torch.empty((nblk, 3), dtype=torch.int32, device=G.device)
+    sc = _scratch(Z, SP, ngrp, G.device)
+    resid = torch.empty((ngrp,), dtype=torch.float32, device=G.device)
+    counts = torch.empty((ngrp, 3), dtype=torch.int32, device=G.device)
+    stats = None if grid is None else torch.empty((len(_STATS),), dtype=torch.int64,
+                                                  device=G.device)
     lib = load_library("sweep")
     with torch.cuda.device(G.device):
         stream = torch.cuda.current_stream(G.device).cuda_stream
         rc = lib.vlgp_sweep(
             *(_ptr(t) for t in (o["y"], o["xb"], o["mask"], o["a"], o["a2"], o["pois"],
-                                o["invn"], G, o["mu"], o["w"], o["v"], dmu, X, sproj,
-                                resid, counts)),
+                                o["invn"], G, o["mu"], o["w"], o["v"], dmu, X,
+                                sc["rmat"], sc["npart"], sc["rlast"], resid, counts,
+                                stats)),
             SP, T, Y, Z, R, bs, niter, int(tol > 0), tol * tol, dmu_bound,
             ns_iters, ns_warm_iters, int(vb), int(xinv is not None),
             ctypes.c_void_p(stream))
     _raise_on(rc, lib, "sweep")
     KERNEL_LAUNCHES["sweep"] += 1
+    if grid is not None:
+        grid.update(zip(_STATS, stats))
     return (o["mu"][:, :S], o["w"][:, :S], o["v"][:, :S], dmu[:, :S], X[:, :S],
             resid, counts)
 
