@@ -22,7 +22,10 @@ Phases, each of which raises on failure:
    groups, a ragged mask): outputs within 1e-4 and the same sweep, pass and
    round counts per group; each call logs its cooperative grid (blocks,
    blocks per SM) and its grid syncs;
-6. spd_inverse against its plain version at B10000 R40 and R = 1, 64, 128;
+6. spd_inverse against its plain version at R = 1, 3, 17, 33, 40, 63, 64,
+   65, 100, 127, 128 (B10000 and a ragged B10001 at R40), with a NaN
+   matrix among finite ones and a negative pivot, timed at B10000 R40 and
+   R64 and B2000 R128;
    probe_skip at B500 R50 (a ragged last group) with converged, drifted
    and NaN-carrying groups, all groups converged, all drifted, and at R17
    with only its ragged last group drifted;
@@ -33,8 +36,9 @@ Phases, each of which raises on failure:
    100 neurons x 5 latents workload (seed 0) by default and with the fused
    E-step sweep, in turns (default, fused, fused, default), with wall and
    E-step time, counters and the lstsq-aligned recovery R^2, the last fit
-   with its ns_gram launches split by caller and mode; spd_solve at B10000
-   R40; inv_one_plus_psd from a drifted carry with the fused probe.
+   with its ns_gram launches split by caller and mode; transform of 10
+   fresh trials under the last fit's result; spd_solve at B10000 R40;
+   inv_one_plus_psd from a drifted carry with the fused probe.
 
 Times are per call, each between its own pair of CUDA events, over 10
 calls after a warm-up, printed as median [min-max].  Ends with one JSON
@@ -99,6 +103,22 @@ def bound(fma, nbytes):
     """(ms, "operations" or "bytes"): the least time the card could take."""
     t_ops, t_bytes = 2.0 * fma / PEAK_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ns_gram_bound(Z, S, T, R, mode):
+    """(ms, binds) of one ns_gram call in `mode` ("cold", "cold+v", "warm+v",
+    "probe+v"; cold runs 16 Newton-Schulz iterations, warm 4), FMAs counted
+    as the kernel's algorithm runs them per matrix: the Gram build T R^2,
+    2 R^3 per iteration, R^3 for the residual, T R^2 + T R for v; bytes of
+    G, w and the residuals, x0 read in warm and probe modes, X written
+    except in probe mode, v written with +v."""
+    iters = {"cold": 16, "cold+v": 16, "warm+v": 4, "probe+v": 0}[mode]
+    want_v = mode.endswith("+v")
+    fma = T * R * R + (2 * iters + 1) * R ** 3 + (T * R * R + T * R if want_v else 0)
+    n_x = (mode in ("warm+v", "probe+v")) + (mode != "probe+v")
+    nbytes = 4 * (Z * T * R + Z * S * T + Z * S + n_x * Z * S * R * R
+                  + (Z * S * T if want_v else 0))
+    return bound(Z * S * fma, nbytes)
 
 
 def realistic_factor(Z, T, R, device):
@@ -211,8 +231,9 @@ def check_ns_gram(Z, S, T, R, device, gen):
     log(f"ns_gram Z={Z} S={S} T={T} R={R}: lambda_max {lam:.3g}; "
         f"ill-conditioned lambda_max {lam_ill:.3g} residual (f64) {r_ill:.3g}")
     for mode, rk, err, ms, pms in rows:
+        b_ms, b_by = ns_gram_bound(Z, S, T, R, mode)
         log(f"  {mode:8s} resid {rk:.3e}  |k-p| {err:.3e}  kernel {fmt_ms(ms)}  "
-            f"plain {fmt_ms(pms)}")
+            f"plain {fmt_ms(pms)}  bound {b_ms:.4f} ms ({b_by})")
     return worst, rows
 
 
@@ -462,43 +483,93 @@ def check_sweep(device, gen, shape=(ZDIM, 2000, 50, YDIM, 40)):
     return worst, ms, pms, b_ms, b_by
 
 
-def check_spd_inverse(device, gen, B40=10000):
-    """spd_inverse kernel against its plain version (SPD, lambda in [1, ~1e2])
-    at B10000 R40 and R = 1, 64, 128; returns (worst error, ms, plain ms,
-    library ms, bound ms, bound_by) at B10000 R40."""
+def spd_batch(B, R, device, gen):
+    """B SPD matrices with eigenvalues in [1, ~1e2]."""
+    Gm = torch.randn((B, R, R), generator=gen, device=device)
+    return (Gm @ Gm.mT * (1e2 / (4 * R)) + torch.eye(R, device=device)).contiguous()
+
+
+def spd_inverse_bound(B, R):
+    """The spd_inverse bound at (B, R): FMAs of the TPU kernel's algorithm
+    (Cholesky sum_j (R-1-j)^2, substitution sum_j j R, product R^3) against
+    A read and A^-1 written once."""
+    fma = B * (sum((R - 1 - j) ** 2 for j in range(R)) + R * R * (R - 1) / 2 + R ** 3)
+    return bound(fma, 2 * 4 * B * R * R)
+
+
+# (B, R) of the spd_inverse checks: odd R (the 4-byte loads), the team
+# boundaries at 32, 64 and 65, the 128 limit, and a batch that is a multiple
+# of neither the teams per block nor the team count (B10001 at R40)
+SPD_SHAPES = ((10000, 40), (10001, 40), (203, 1), (203, 3), (203, 17), (203, 33),
+              (203, 63), (2000, 64), (61, 65), (61, 100), (61, 127), (61, 128))
+
+
+def check_spd_inverse(device, gen):
+    """spd_inverse kernel against its plain version at every (B, R) of
+    SPD_SHAPES, a NaN matrix among finite ones at R40 and R100, and the
+    negative-pivot matrix; timed with its bound at B10000 R40, B10000 R64
+    and B2000 R128.  Returns (worst error, ms, plain ms, library ms, bound
+    ms, bound_by) at B10000 R40."""
     from vlgp_tpu_torch.ops import spd
 
-    def spd_batch(B, R):
-        Gm = torch.randn((B, R, R), generator=gen, device=device)
-        return (Gm @ Gm.mT * (1e2 / (4 * R)) + torch.eye(R, device=device)).contiguous()
-
     worst = 0.0
-    for B, R in ((B40, 40), (50, 1), (200, 64), (50, 128)):
-        A = spd_batch(B, R)
+
+    def compare(A, tag, finite=None):
+        """kernel against plain; `finite` (a bool mask over the batch) picks
+        the matrices held to the contract, the others must be NaN-bearing in
+        both."""
+        nonlocal worst
+        R = A.shape[-1]
         k = spd._spd_inverse_cuda(A)
         p = spd._spd_inverse_plain(A)
         torch.cuda.synchronize()
+        if finite is not None:
+            for name, out in (("kernel", k), ("plain", p)):
+                bad = torch.isnan(out).flatten(1).any(1)
+                if not torch.equal(bad, ~finite):
+                    raise AssertionError(f"spd_inverse {tag}: {name} NaN in matrices "
+                                         f"{bad.nonzero().flatten().tolist()}")
+            A, k, p = A[finite], k[finite], p[finite]
         scale = float(p.abs().amax())
         err = float((k - p).abs().amax())
         eye = torch.eye(R, dtype=torch.float64, device=device)
         r64 = float((A.double() @ k.double() - eye).abs().amax())
-        if not (err <= AGREE_TOL * scale and r64 < RESID_TOL):
-            raise AssertionError(f"spd_inverse B={B} R={R}: |kernel - plain| {err} "
+        if not (err <= AGREE_TOL * scale and r64 < RESID_TOL and torch.isfinite(k).all()):
+            raise AssertionError(f"spd_inverse {tag}: |kernel - plain| {err} "
                                  f"(max|X| {scale}), residual {r64}")
         worst = max(worst, err)
+        return err, r64
+
+    for B, R in SPD_SHAPES:
+        err, r64 = compare(spd_batch(B, R, device, gen), f"B={B} R={R}")
         log(f"spd_inverse B={B} R={R}: |k-p| {err:.3e}, residual (f64) {r64:.3e}")
-        if R == 40:
-            A40 = A
-    ms = time_ms(lambda: spd._spd_inverse_cuda(A40))
-    pms = time_ms(lambda: spd._spd_inverse_plain(A40))
-    lms = time_ms(lambda: torch.linalg.inv_ex(A40))
-    B, R = A40.shape[0], 40
-    # Cholesky sum_j (R-1-j)^2, substitution sum_j j R, product R^3
-    fma = B * (sum((R - 1 - j) ** 2 for j in range(R)) + R * R * (R - 1) / 2 + R ** 3)
-    b_ms, b_by = bound(fma, 2 * 4 * B * R * R)
-    log(f"  spd_inverse B={B} R={R}: kernel {fmt_ms(ms)}, plain {fmt_ms(pms)}, "
-        f"torch.linalg.inv_ex {fmt_ms(lms)}, bound {b_ms:.4f} ms ({b_by})")
-    return worst, ms, pms, lms, b_ms, b_by
+    for B, R in ((9, 40), (9, 100)):
+        A = spd_batch(B, R, device, gen)
+        A[4, R // 2, R // 3] = A[4, R // 3, R // 2] = float("nan")
+        finite = torch.arange(B, device=device) != 4
+        err, _ = compare(A, f"B={B} R={R}, NaN in matrix 4", finite)
+        log(f"spd_inverse B={B} R={R}, NaN in matrix 4: NaN there only, |k-p| {err:.3e} "
+            f"on the others")
+    # a negative pivot is clamped at 1e-30, not a NaN (tests/test_torch_spd.py)
+    A = torch.diag(torch.tensor([2.0, -1.0, 3.0], device=device))[None].contiguous()
+    k, p = spd._spd_inverse_cuda(A), spd._spd_inverse_plain(A)
+    if not (torch.isfinite(k).all() and torch.allclose(k, p, rtol=1e-5, atol=0.0)):
+        raise AssertionError(f"spd_inverse negative pivot: kernel {k.tolist()}, "
+                             f"plain {p.tolist()}")
+    log(f"spd_inverse negative pivot diag(2, -1, 3): kernel diagonal "
+        f"{torch.diagonal(k[0]).tolist()}, as the plain version")
+
+    timed = {}
+    for B, R in ((10000, 40), (10000, 64), (2000, 128)):
+        A = spd_batch(B, R, device, gen)
+        ms = time_ms(lambda: spd._spd_inverse_cuda(A))
+        pms = time_ms(lambda: spd._spd_inverse_plain(A))
+        lms = time_ms(lambda: torch.linalg.inv_ex(A))
+        b_ms, b_by = spd_inverse_bound(B, R)
+        log(f"  spd_inverse B={B} R={R}: kernel {fmt_ms(ms)}, plain {fmt_ms(pms)}, "
+            f"torch.linalg.inv_ex {fmt_ms(lms)}, bound {b_ms:.4f} ms ({b_by})")
+        timed[R] = (ms, pms, lms, b_ms, b_by)
+    return (worst,) + timed[40]
 
 
 def probe_skip_case(A, X, drifted, nan_at, iters, tag):
@@ -581,12 +652,15 @@ def check_probe_skip(device, gen):
     return err, ms, pms, lms, b_ms, b_by
 
 
-def make_workload():
-    """bench.py's flagship workload (seed 0)."""
-    rng = np.random.default_rng(0)
-    a = (rng.normal(size=(ZDIM, YDIM)) * 0.3).astype(np.float32)
+def make_workload(seed=0, ntrial=NTRIAL, a=None):
+    """bench.py's flagship workload (seed 0): (trials, loading, true
+    latents).  Another seed with the flagship's loading `a` gives fresh
+    Poisson draws of the same latents."""
+    rng = np.random.default_rng(seed)
+    a_seed = (rng.normal(size=(ZDIM, YDIM)) * 0.3).astype(np.float32)
+    a = a_seed if a is None else a
     trials, zs = [], []
-    for _ in range(NTRIAL):
+    for _ in range(ntrial):
         z = np.stack([np.sin(np.linspace(0, 20 + 3 * i, LENGTH)) for i in range(ZDIM)], 1)
         y = rng.poisson(np.exp(z @ a - 2.0)).astype(np.float32)
         trials.append({"y": y, "mu": (rng.normal(size=(LENGTH, ZDIM)) * 0.1).astype(np.float32)})
@@ -633,7 +707,7 @@ def check_small_fit_against_cpu():
 
 def run_fit(fused):
     """One flagship fit with the counters set to 0 just before it; returns
-    (launches, route calls, fallbacks, wall s, E-step s, R^2)."""
+    (launches, route calls, fallbacks, wall s, E-step s, R^2, FitResult)."""
     import vlgp_tpu_torch
     from vlgp_tpu_torch.models import vlgp as tv
     from vlgp_tpu_torch.ops import spd
@@ -688,7 +762,42 @@ def run_fit(fused):
         for name in ("ns_gram", "ns_packed"):
             if launches[name] == 0:
                 raise AssertionError(f"the default fit never launched {name}")
-    return launches, calls, fallbacks, wall, e_s, r2
+    return launches, calls, fallbacks, wall, e_s, r2, result
+
+
+def run_transform(result, ntrial=10):
+    """vlgp_tpu_torch.transform of `ntrial` fresh Poisson draws (seed 1) of
+    the flagship's latents under a fit's result, with no mu given (the fit's
+    factor model starts them), counters set to 0 just before; returns
+    (launches, wall s, R^2)."""
+    import vlgp_tpu_torch
+    from vlgp_tpu_torch.ops import spd
+
+    a = make_workload(ntrial=1)[1]
+    trials, _, zt = make_workload(seed=1, ntrial=ntrial, a=a)
+    for t in trials:
+        del t["mu"]
+    spd.reset_counters()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = vlgp_tpu_torch.transform(trials, result)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches = dict(spd.KERNEL_LAUNCHES)
+    mu = np.concatenate([t["mu"] for t in out])
+    if mu.shape != (ntrial * LENGTH, ZDIM) or not all(
+            np.isfinite(t[k]).all() for t in out for k in ("mu", "v", "w")):
+        raise AssertionError(f"transform: posterior of shape {mu.shape} or not finite")
+    r2 = r2_aligned(mu, zt)
+    log(f"transform ({ntrial} new trials, seed 1): {wall:.3f} s wall, recovery R^2 "
+        f"(lstsq-aligned) {r2:.4f}; kernel launches {launches}; fallback counters "
+        f"{dict(spd.FALLBACKS)}")
+    for name in ("ns_packed", "ns_gram"):
+        if launches[name] == 0:
+            raise AssertionError(f"transform never launched {name}")
+    if r2 < R2_MIN:
+        raise AssertionError(f"transform: recovery R^2 {r2:.4f} < {R2_MIN}")
+    return launches, wall, r2
 
 
 def run_fit_split(fused):
@@ -726,8 +835,7 @@ def run_spd_solve(device, gen, B=10000):
     from vlgp_tpu_torch.ops import spd
 
     R = 40
-    Gm = torch.randn((B, R, R), generator=gen, device=device)
-    A = Gm @ Gm.mT * (1e2 / (4 * R)) + torch.eye(R, device=device)
+    A = spd_batch(B, R, device, gen)
     b = torch.randn((B, R), generator=gen, device=device)
     spd.reset_counters()
     x = spd.spd_solve(A, b)
@@ -822,13 +930,13 @@ def main():
         f"sweep_core {fused[2]['sweep_core']}")
     if gap > R2_FUSED_GAP:
         raise AssertionError(f"fused-sweep fit R^2 differs from the default fit's by {gap:.4f}")
+    run_transform(fits[3][6])
     n_solve = run_spd_solve(device, seeded())
     n_probe = run_fused_probe(device, seeded())
 
     g_cold = next(r for r in g_rows if r[0] == "cold")
     p_cold = next(r for r in p_rows if r[0] == "cold")
-    g_bms, g_by = bound(Z * S * (T * R * R + 33 * R ** 3),
-                        4 * (Z * T * R + Z * S * T + Z * S * R * R + Z * S))
+    g_bms, g_by = ns_gram_bound(Z, S, T, R, "cold")
     p_bms, p_by = bound(B * 33 * RP ** 3, 4 * (2 * B * RP * RP + B))
     kernels = [
         {"name": "ns_gram", "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",

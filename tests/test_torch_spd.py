@@ -366,12 +366,15 @@ def _spd(B, R, seed):
     return (np.einsum("brk,bqk->brq", G, G) / R + np.eye(R, dtype=np.float32)).astype(np.float32)
 
 
-@pytest.mark.parametrize("R", [1, 16, 40, 64])
+@pytest.mark.parametrize("R", [1, 3, 16, 33, 40, 64, 65, 128])
 def test_spd_inverse_matches_pallas(R):
+    """Every route against the Pallas kernel in interpret mode, across the
+    CUDA kernel's team boundaries (32, 64 and 65); the kernel route above
+    the automatic R <= 64 needs force="pallas"."""
     A = _spd(5, R, seed=20 + R)
     ref = np.asarray(jspd.spd_inverse(jnp.asarray(A), force="interpret"))
     scale = np.abs(ref).max()
-    for force in (None, "xla", "interpret"):
+    for force in (None, "xla", "interpret", "pallas"):
         got = tspd.spd_inverse(torch.tensor(A), force=force)
         assert got.shape == A.shape and got.dtype == torch.float32
         err = np.abs(np_of(got) - ref).max()
@@ -380,6 +383,23 @@ def test_spd_inverse_matches_pallas(R):
     got = tspd.spd_inverse(torch.tensor(A.reshape(5, 1, R, R)))
     assert got.shape == (5, 1, R, R)
     assert tspd.KERNEL_LAUNCHES["spd_inverse"] == 0
+
+
+@pytest.mark.parametrize("R", [16, 65])
+def test_spd_inverse_nan_stays_in_its_matrix(R):
+    """One NaN entry in the middle matrix of three gives NaN only in that
+    matrix's output, in the port's plain version and in the Pallas kernel
+    (interpret mode); the other two match as before."""
+    A = _spd(3, R, seed=40 + R)
+    A[1, R // 2, R // 3] = A[1, R // 3, R // 2] = np.nan
+    ref = np.asarray(jspd.spd_inverse(jnp.asarray(A), force="interpret"))
+    assert np.isnan(ref[1]).any() and np.isfinite(ref[[0, 2]]).all()
+    scale = np.abs(ref[[0, 2]]).max()
+    for force in ("interpret", "pallas"):
+        got = np_of(tspd.spd_inverse(torch.tensor(A), force=force))
+        assert np.isnan(got[1]).any(), force
+        assert np.isfinite(got[[0, 2]]).all(), force
+        assert np.abs(got[[0, 2]] - ref[[0, 2]]).max() <= 1e-4 * scale, force
 
 
 def test_spd_inverse_plain_follows_the_kernel():

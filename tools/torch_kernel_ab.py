@@ -1,7 +1,7 @@
 """Time the CUDA kernels of one checkout of vlgp_tpu_torch on the card, so
 that two trees can be compared in turns within one machine:
 
-    python3 tools/torch_kernel_ab.py [ROOT]    # ROOT: a checkout (default: this one)
+    python3 tools/torch_kernel_ab.py [ROOT] [--spd-only]    # ROOT: a checkout (default: this one)
 
 Builds ROOT's ``csrc/`` and prints one JSON line with the card's name and
 power limit and, per case, [median, min, max] ms over 10 calls, each
@@ -9,7 +9,8 @@ between its own pair of CUDA events (``chip_smoke.time_ms``): ``ns_gram`` at
 the E-step shape (Z5 S2000 T50 R40) cold 16, warm 4 + v and probe + v;
 ``ns_packed`` cold 16 and ``probe_skip`` (odd groups drifted, 4 rounds) at
 B500 R50, and ``torch.linalg.inv_ex(I + A)`` on the same A; ``spd_inverse``
-at B10000 R40; ``sweep`` at the flagship E-step shape (Z5 S2000 T50 Y100
+at B10000 R40, B10000 R64 and B2000 R128 (only these with ``--spd-only``);
+``sweep`` at the flagship E-step shape (Z5 S2000 T50 Y100
 R40) from a real carry with the adaptive exit on input draws 0, 1 and 2,
 with its summed sweep, pass and round counts and the slowest group's
 passes, timed per call and also as the mean of 3 back-to-back calls between
@@ -26,7 +27,9 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
-ROOT = pathlib.Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else HERE
+ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
+SPD_ONLY = "--spd-only" in sys.argv[1:]
+ROOT = pathlib.Path(ARGS[0]).resolve() if ARGS else HERE
 sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
@@ -51,6 +54,18 @@ def main():
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     out = {"root": str(ROOT), "card": smi.splitlines()[0]}
+    if not SPD_ONLY:
+        time_ns(device, gen, out)
+    for B, R in ((10000, 40), (10000, 64), (2000, 128)):
+        A = cs.spd_batch(B, R, device, gen)
+        out[f"spd_inverse B{B} R{R}"] = cs.time_ms(lambda: spd._spd_inverse_cuda(A))
+    if not SPD_ONLY:
+        out.update(time_sweep(device, gen))
+    print(json.dumps(out))
+
+
+def time_ns(device, gen, out):
+    from vlgp_tpu_torch.ops import spd
 
     Z, S, T, R = cs.ZDIM, 2000, 50, 40
     G = cs.realistic_factor(Z, T, R, device)
@@ -76,12 +91,6 @@ def main():
     out["ns_packed cold 16"] = cs.time_ms(lambda: spd._ns_packed_cuda(A, 16))
     out["probe_skip"] = cs.time_ms(lambda: spd._ns_packed_cuda(A, 4, x0=x0, probe_skip=True))
     out["inv_ex(I + A)"] = cs.time_ms(lambda: torch.linalg.inv_ex(eye + A))
-
-    Gm = torch.randn((10000, 40, 40), generator=gen, device=device)
-    A40 = (Gm @ Gm.mT * (1e2 / 160) + torch.eye(40, device=device)).contiguous()
-    out["spd_inverse"] = cs.time_ms(lambda: spd._spd_inverse_cuda(A40))
-    out.update(time_sweep(device, gen))
-    print(json.dumps(out))
 
 
 def time_sweep(device, gen):

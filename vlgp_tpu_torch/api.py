@@ -1,4 +1,4 @@
-"""Public API: fit (counterpart of ``vlgp_tpu/api.py``).
+"""Public API: fit and transform (counterpart of ``vlgp_tpu/api.py``).
 
 The reference pipeline (api.py:18-76): config -> params -> FA
 initialization -> prior factors -> w/v init -> segmentation -> VEM on
@@ -19,7 +19,7 @@ from .models.driver import infer, vem
 from .models.gp import effective_rank, make_cholesky
 from .models.vlgp import update_v, update_w
 
-__all__ = ["fit", "FitResult"]
+__all__ = ["fit", "transform", "FitResult"]
 
 
 @dataclasses.dataclass
@@ -59,6 +59,25 @@ def _fill_missing_mu(data: TrialSet, trials, mu) -> TrialSet:
         keep = torch.tensor(user_mu, device=mu.device)[:, None, None]
         mu = torch.where(keep, data.mu, mu)
     return data.replace(mu=mu)
+
+
+def _resolve_device(device, caller: str) -> torch.device:
+    """``device``, or CUDA when it is None; raises when CUDA is missing
+    instead of falling back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"vlgp_tpu_torch.{caller} runs on a CUDA device by default and "
+                               "none is available; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _to_device(obj, device: torch.device, dtype: Optional[torch.dtype] = None):
+    """A Params or FactorModel with every tensor field moved to ``device``
+    (and cast to ``dtype`` when given)."""
+    moved = {f.name: getattr(obj, f.name).to(device=device, dtype=dtype)
+             for f in dataclasses.fields(obj) if isinstance(getattr(obj, f.name), torch.Tensor)}
+    return dataclasses.replace(obj, **moved)
 
 
 def _prepare(
@@ -169,12 +188,7 @@ def fit(
         raise NotImplementedError(
             "checkpointing (path=...) needs callback.Saver and utils/io, "
             "queued in ROADMAP.md (Queue 1, item 14)")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("vlgp_tpu_torch.fit runs on a CUDA device by default and "
-                               "none is available; pass device='cpu' to fit on the CPU")
-        device = "cuda"
-    device = torch.device(device)
+    device = _resolve_device(device, "fit")
 
     data, params, fm = _prepare(
         trials, n_factors, config, device,
@@ -218,3 +232,46 @@ def fit(
         initial_params=initial_params,
         _trials_in=trials,
     )
+
+
+def transform(
+    trials: Sequence[dict],
+    result_or_params,
+    config: Optional[Config] = None,
+    factor_model: Optional[FactorModel] = None,
+    device=None,
+) -> List[dict]:
+    """Infer latents for new trials under fitted parameters (reference
+    api.py:171-184; ``vlgp_tpu.transform``): prior factors are built for
+    whatever lengths arrive.
+
+    ``result_or_params`` is a :class:`FitResult`, which also supplies the
+    config and the factor model unless they are given, or bare ``Params``
+    (with ``Config()`` unless ``config`` is given).  A factor model fills
+    the ``mu`` of every trial that brings none.  ``device`` defaults to the
+    current CUDA device and raises when there is none: pass ``device="cpu"``
+    to run on the CPU.  The params and the factor model are moved there.
+    """
+    if isinstance(result_or_params, FitResult):
+        params = result_or_params.params
+        config = result_or_params.config if config is None else config
+        factor_model = (
+            result_or_params.factor_model if factor_model is None else factor_model
+        )
+    else:
+        params = result_or_params
+        if config is None:
+            config = Config()
+    device = _resolve_device(device, "transform")
+    params = _to_device(params, device)
+
+    data = pack_trials(trials, params.zdim, params.xdim, dtype=config.tdtype, device=device)
+    if factor_model is not None:
+        factor_model = _to_device(factor_model, device, data.y.dtype)
+        mu = factor_model.transform(data.y) * data.mask[..., None]
+        data = _fill_missing_mu(data, trials, mu)
+    G = make_cholesky(data.nbin, params)
+    data = update_w(data, params, config)
+    data = update_v(data, params, G, config)
+    data = infer(data, params, G, config)
+    return unpack_trials(data, trials)

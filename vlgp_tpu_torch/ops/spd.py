@@ -9,8 +9,10 @@ the float32 path:
   * ``ns_packed`` replaces ``_ns_packed_pallas``: the same Newton-Schulz on
     a given A (B, R, R); with ``probe_skip`` its fused probe + refine mode
     (``VLGP_FUSED_PROBE=1``), decided per group of matrices.
-  * ``spd_inverse`` replaces ``_spd_inverse_pallas``: Cholesky by rank-1
-    updates, L^-1 by forward substitution, then L^-T L^-1.
+  * ``spd_inverse`` replaces ``_spd_inverse_pallas``: Cholesky (the TPU
+    kernel's rank-1 updates, run left-looking, two columns a step) fused
+    with the forward substitution for L^-1, then the lower triangle of
+    L^-T L^-1.
 
 The first two live in ``csrc/ns_inverse.cu``, the third in
 ``csrc/spd_inverse.cu``.  Each kernel has a plain PyTorch version beside it
@@ -264,7 +266,8 @@ def _ns_packed_cuda(A, iters: int = 16, x0=None, resid_only: bool = False,
 
 
 def _spd_inverse_cuda(A):
-    """Launch the ``spd_inverse`` kernel: one thread block per matrix."""
+    """Launch the ``spd_inverse`` kernel: one warp per matrix for R <= 64,
+    four warps per matrix above."""
     from ._build import load_library
 
     B, R, _ = A.shape
