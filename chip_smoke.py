@@ -11,7 +11,8 @@ Phases, each of which raises on failure:
    main-path shapes (E/H-step segments and the final full-length
    inference), in the cold, warm, probe and want_v modes, plus a NaN warm
    start that must be rejected;
-4. ns_packed the same way at the update_v shape, then both kernels at
+4. ns_packed the same way at the update_v shape and at elbo_terms' shape
+   on the segments (B10000 R40, T = 50), then both kernels at
    edge shapes in every mode (R = 1, 3, 8, 17, 40, 50, 100, 127, 128 with
    T off the 32-row chunk; iters = 0 with x0);
 5. sweep (the fused E-step) against its plain version at the flagship
@@ -38,7 +39,19 @@ Phases, each of which raises on failure:
    E-step time, counters and the lstsq-aligned recovery R^2, the last fit
    with its ns_gram launches split by caller and mode; transform of 10
    fresh trials under the last fit's result; spd_solve at B10000 R40;
-   inv_one_plus_psd from a drifted carry with the fused probe.
+   inv_one_plus_psd from a drifted carry with the fused probe;
+9. the model-selection path, each sub-phase with the counters set to 0
+   just before it: (9a) fit with track_elbo=True, its ELBO series (first,
+   last, decreases, where the relative change first falls under 1e-5 and
+   1e-6) and the wall time of each record; (9b) elbo_terms of that fit's
+   segments and full-length state on the card in float32 against the CPU
+   in float64 (within ELBO_RTOL); (9c) leave_one_neuron_out over all 100
+   neurons of the last default fit, against the latent-free baseline;
+   (9d) sample_posterior, 1000 samples of trial 0; (9e) fastfit (GPFA warm
+   start) and gmap_speckled_cv over 3, 5 and 7 factors; (9f)
+   examples/tutorial_lorenz.py's recipe at the flagship widths with the
+   port's lorenz and spike, fitted from factor analysis (R^2 >=
+   R2_LORENZ_MIN).
 
 Times are per call, each between its own pair of CUDA events, over 10
 calls after a warm-up, printed as median [min-max].  Ends with one JSON
@@ -71,6 +84,20 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 NTRIAL, LENGTH, YDIM, ZDIM = 100, 1000, 100, 5
+
+# 9b: |elbo(card, float32) - elbo(CPU, float64)| / |elbo| on one state.  The
+# prior's logdet enters gp_prior_ll and the entropy with opposite signs from
+# one computation, so it cancels; what is left is dominated by the float32
+# Cholesky solves K^-1 C of gp_prior_ll's trace.  Their first-order error per
+# (latent, trial) is ~ u T lambda_max(K) / eps_K: u = 6e-8, T = 50, lambda_max
+# ~ sqrt(pi / omega) ~ 17 at omega 1e-2, eps_K = gp_noise + 1e-6 ~ 1e-4, so
+# ~0.5, or ~5e3 over 5 latents x 2000 segments (100 trials at T = 1000 give
+# the same): ~1e-3 of |ELBO| ~ 4.3e6.
+ELBO_RTOL = 1e-3
+# 9f: floor of the Lorenz fit's R^2.  vlgp_tpu in float32 on the CPU gave
+# 0.881 with this recipe at these widths (0.844 at the tutorial's 10 x 500 x
+# 50); the port's draws differ from JAX's, so the floor keeps a margin.
+R2_LORENZ_MIN = 0.80
 
 
 def log(msg=""):
@@ -237,14 +264,16 @@ def check_ns_gram(Z, S, T, R, device, gen):
     return worst, rows
 
 
-def check_ns_packed(B, R, device, gen):
+def check_ns_packed(B, R, device, gen, T=LENGTH):
+    """ns_packed against its plain version at B R: the Gram matrices of Z*N =
+    B (latent, trial) systems of length T, as update_v (full-length trials)
+    and elbo_terms (segments) build them."""
     from vlgp_tpu_torch.ops import spd
 
-    # full-length Gram matrices as update_v builds them: Z*N = B systems
     Z = ZDIM
     N = B // Z
-    G = realistic_factor(Z, LENGTH, R, device)
-    w0 = torch.rand((Z, N, LENGTH), generator=gen, device=device, dtype=torch.float32)
+    G = realistic_factor(Z, T, R, device)
+    w0 = torch.rand((Z, N, T), generator=gen, device=device, dtype=torch.float32)
     w = w0 * (1e2 / lambda_max(G, w0))
     A = torch.einsum("ztr,zst,ztq->zsrq", G, w, G).reshape(B, R, R).contiguous()
     A_warm = (A * 1.02).contiguous()
@@ -290,8 +319,10 @@ def check_ns_packed(B, R, device, gen):
     if not r_ill < RESID_TOL:
         raise AssertionError(f"ns_packed route, ill-conditioned: residual {r_ill}")
     lms = time_ms(lambda: torch.linalg.inv_ex(torch.eye(R, device=device) + A))
-    log(f"ns_packed B={B} R={R}: ill-conditioned (lambda ~1e4) residual (f64) {r_ill:.3g}; "
-        f"torch.linalg.inv_ex(I + A) {fmt_ms(lms)}")
+    b_ms, b_by = bound(B * 33 * R ** 3, 4 * (2 * B * R * R + B))
+    log(f"ns_packed B={B} R={R} (T={T}): ill-conditioned (lambda ~1e4) residual (f64) "
+        f"{r_ill:.3g}; torch.linalg.inv_ex(I + A) {fmt_ms(lms)}; cold 16 bound {b_ms:.4f} ms "
+        f"({b_by})")
     for mode, rk, err, ms, pms in rows:
         log(f"  {mode:8s} resid {rk:.3e}  |k-p| {err:.3e}  kernel {fmt_ms(ms)}  "
             f"plain {fmt_ms(pms)}")
@@ -705,9 +736,10 @@ def check_small_fit_against_cpu():
         raise AssertionError("small fit on the card disagrees with the CPU float64 fit")
 
 
-def run_fit(fused):
-    """One flagship fit with the counters set to 0 just before it; returns
-    (launches, route calls, fallbacks, wall s, E-step s, R^2, FitResult)."""
+def run_fit(fused, **fit_kw):
+    """One flagship fit with the counters set to 0 just before it, ``fit_kw``
+    passed on to fit; returns (launches, route calls, fallbacks, wall s,
+    E-step s, R^2, FitResult)."""
     import vlgp_tpu_torch
     from vlgp_tpu_torch.models import vlgp as tv
     from vlgp_tpu_torch.ops import spd
@@ -718,7 +750,7 @@ def run_fit(fused):
     torch.cuda.synchronize()
     tic = time.perf_counter()
     result = vlgp_tpu_torch.fit(trials, ZDIM, a=a, b=np.full((1, YDIM), -2.0),
-                                omega=np.full(ZDIM, 1e-2), max_iter=30)
+                                omega=np.full(ZDIM, 1e-2), max_iter=30, **fit_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     launches = dict(spd.KERNEL_LAUNCHES)
@@ -739,6 +771,8 @@ def run_fit(fused):
     rt = result.runtime
     e_s = sum(rt["e_elapsed"])
     tag = "fit (fused sweep)" if fused else "fit (default)"
+    if fit_kw:
+        tag = f"fit ({', '.join(f'{k}={v}' for k, v in fit_kw.items())})"
     log(f"{tag}: {wall:.2f} s wall, {rt['it']} EM iterations "
         f"(converged_at {rt.get('converged_at')}), final_hstep {rt.get('final_hstep', False)}")
     log(f"{tag}: E {e_s:.3f} s, M {sum(rt['m_elapsed']):.2f} s, "
@@ -879,6 +913,262 @@ def run_fused_probe(device, gen):
     return n
 
 
+def first_use_ms(device):
+    """Wall ms of the first call in this process of each dense routine that
+    elbo_terms adds to the fit path, on a 4 x 4 matrix: what the first ELBO
+    record pays once (library set-up), apart from its own work."""
+    A = 2 * torch.eye(4, device=device)[None]
+    out = {}
+    for name, fn in (("cholesky", torch.linalg.cholesky),
+                     ("solve_triangular", lambda m: torch.linalg.solve_triangular(
+                         m, m, upper=False))):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fn(A)
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - tic)
+    return out
+
+
+def run_fit_elbo(default_walls):
+    """9a: the flagship fit with track_elbo=True (default E-step), counters
+    set to 0 just before; prints the ELBO series and the wall time of each
+    record (models.driver._elbo_record, timed from outside: elbo_terms returns
+    floats, so each record ends in a host sync).  Returns (launches, wall s,
+    FitResult)."""
+    from vlgp_tpu_torch.models import driver
+
+    record, walls = driver._elbo_record, []
+
+    def timed(*args):
+        tic = time.perf_counter()
+        record(*args)
+        walls.append(1e3 * (time.perf_counter() - tic))
+
+    first = first_use_ms(torch.device("cuda"))
+    driver._elbo_record = timed
+    launches, _, _, wall, _, r2, result = run_fit(False, track_elbo=True)
+    driver._elbo_record = record
+    e = np.asarray(result.runtime["elbo"])
+    if not (len(e) == result.runtime["it"] and np.isfinite(e).all()):
+        raise AssertionError(f"ELBO series of {len(e)} records for {result.runtime['it']} "
+                             f"iterations, finite: {np.isfinite(e).all()}")
+    if launches["ns_packed"] < len(e):
+        raise AssertionError(f"{launches['ns_packed']} ns_packed launches for {len(e)} "
+                             "ELBO records")
+    drops = -np.diff(e)[np.diff(e) < 0]
+    rel = np.abs(np.diff(e)) / np.abs(e[1:])
+
+    def first_under(tol):
+        hit = np.nonzero(rel < tol)[0]
+        return int(hit[0]) + 2 if hit.size else None  # 1-based iteration of the record
+
+    log(f"9a ELBO-tracked fit: {wall:.2f} s wall (default fits {default_walls[0]:.2f} / "
+        f"{default_walls[1]:.2f} s), R^2 {r2:.4f}, {len(e)} records, ns_packed "
+        f"{launches['ns_packed']} launches")
+    fell = (f" (largest {float(drops.max())!r}, total {float(drops.sum())!r})"
+            if len(drops) else "")
+    log(f"9a ELBO series: first {float(e[0])!r}, last {float(e[-1])!r}; {len(drops)} "
+        f"decreases{fell}; relative change first < 1e-5 at iteration {first_under(1e-5)}, "
+        f"< 1e-6 at {first_under(1e-6)}")
+    log("9a first use in this process, before the fit: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in first.items()))
+    log(f"9a ELBO record wall: first {walls[0]:.2f} ms, then median "
+        f"{statistics.median(walls[1:]):.2f} ms [{min(walls[1:]):.2f}-{max(walls[1:]):.2f}], "
+        f"{sum(walls) / 1e3:.3f} s in all")
+    return launches, wall, result
+
+
+def _cpu64(obj):
+    """A TrialSet or Params with every float tensor as float64 on the CPU."""
+    import dataclasses
+
+    return dataclasses.replace(obj, **{
+        f.name: (t.double().cpu() if t.is_floating_point() else t.cpu())
+        for f in dataclasses.fields(obj)
+        if isinstance(t := getattr(obj, f.name), torch.Tensor)})
+
+
+def check_elbo_card_vs_cpu(result):
+    """9b: elbo_terms of a fit's result on the card in float32 against the
+    CPU in float64 from the same state, on the segments as fit cuts and
+    factors them and on the full-length state; the card's call timed.
+    Returns {state: (relative elbo gap, card ms)}."""
+    from vlgp_tpu_torch.data import cut_trials
+    from vlgp_tpu_torch.evaluation import elbo_terms
+    from vlgp_tpu_torch.models.gp import effective_rank, make_cholesky
+    from vlgp_tpu_torch.ops import spd
+
+    data, params, config = result.data, result.params, result.config
+    segments = cut_trials(data, config.window, seed=config.seed)
+    omega_hi = max(float(params.omega.max()), config.omega_bound[1])
+    seg_rank = min(params.rank, effective_rank(segments.nbin, omega_hi, params.dt))
+    G_seg = make_cholesky(segments.nbin, params, rank=seg_rank)
+    out = {}
+    for name, d, G in (("segments", segments, G_seg), ("full-length", data, result.G)):
+        spd.reset_counters()
+        card = elbo_terms(d, params, G)
+        n_packed = spd.KERNEL_LAUNCHES["ns_packed"]
+        walls = []
+        for _ in range(5):
+            tic = time.perf_counter()
+            elbo_terms(d, params, G)  # returns floats: ends in a host sync
+            walls.append(1e3 * (time.perf_counter() - tic))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            elbo_terms(d, params, G)
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:6]
+        log(f"9b elbo_terms on the {name} state, one call traced: device time "
+            f"{sum(e.self_device_time_total for e in prof.key_averages()) / 1e3:.2f} ms; top: "
+            + ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.2f} ms ({e.count})"
+                        for e in ops))
+        cpu = elbo_terms(_cpu64(d), _cpu64(params), G.double().cpu())
+        gaps = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu}
+        log(f"9b elbo_terms on the {name} state (G {tuple(G.shape)}): card float32 "
+            f"{statistics.median(walls):.2f} ms [{min(walls):.2f}-{max(walls):.2f}] per call, "
+            f"{n_packed} ns_packed launch(es); card float32 / CPU float64 / relative gap: "
+            + ", ".join(f"{k} {card[k]!r} / {cpu[k]!r} / {gaps[k]:.3e}" for k in cpu))
+        if not (all(np.isfinite(v) for v in card.values()) and gaps["elbo"] <= ELBO_RTOL):
+            raise AssertionError(f"9b {name}: card ELBO {card} against CPU {cpu}: relative "
+                                 f"gap {gaps['elbo']:.3e} > {ELBO_RTOL}")
+        if n_packed == 0:
+            raise AssertionError(f"9b {name}: elbo_terms never launched ns_packed")
+        out[name] = (gaps["elbo"], statistics.median(walls))
+    return out
+
+
+def run_leave_one_neuron_out(result):
+    """9c: leave_one_neuron_out over every neuron of a fit's result, counters
+    set to 0 just before; each score against the latent-free baseline of
+    tests/test_model_selection.py.  Returns (launches, wall s, wins)."""
+    from vlgp_tpu_torch.model_selection import leave_one_neuron_out
+    from vlgp_tpu_torch.ops import spd
+
+    spd.reset_counters()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    scores = leave_one_neuron_out(result)
+    wall = time.perf_counter() - tic
+    launches = dict(spd.KERNEL_LAUNCHES)
+    d, b = result.data, result.params.b
+    m = d.mask
+    eta0 = torch.einsum("stxn,xn->stn", d.x, b)
+    ll0 = (((d.y * eta0 - torch.exp(eta0)) * m[..., None]).sum((0, 1)) / m.sum()).cpu()
+    wins = sum(scores[n] > float(ll0[n]) for n in range(YDIM))
+    log(f"9c leave_one_neuron_out ({len(scores)} neurons): {wall:.2f} s wall, kernel launches "
+        f"{launches}; {wins} of {YDIM} neurons beat the latent-free baseline; scores "
+        f"{min(scores.values()):.4f} to {max(scores.values()):.4f} per bin")
+    if not (len(scores) == YDIM and all(np.isfinite(v) for v in scores.values())):
+        raise AssertionError("9c: leave_one_neuron_out gave missing or non-finite scores")
+    if not wins > YDIM // 2:
+        raise AssertionError(f"9c: only {wins} of {YDIM} neurons beat the baseline")
+    for name in ("ns_gram", "ns_packed"):
+        if launches[name] == 0:
+            raise AssertionError(f"9c: leave_one_neuron_out never launched {name}")
+    return launches, wall, wins
+
+
+def run_sample_posterior(result, device, nsamples=1000):
+    """9d: sample_posterior of trial 0 on the card; the sample mean within 5
+    standard errors of mu at 99% of the bins.  Returns the wall s."""
+    import vlgp_tpu_torch
+
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    s = vlgp_tpu_torch.sample_posterior(result, 0, nsamples)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    mu = result.data.mu[0]
+    se = s.std(0) / nsamples ** 0.5
+    share = float((torch.abs(s.mean(0) - mu) <= 5 * se).double().mean())
+    log(f"9d sample_posterior (trial 0, {nsamples} samples, lowrank): {wall:.3f} s wall, "
+        f"shape {tuple(s.shape)} on {s.device}; sample mean within 5 SE of mu at "
+        f"{100 * share:.2f}% of the bins")
+    if not (s.device.type == device.type and tuple(s.shape) == (nsamples, LENGTH, ZDIM)
+            and torch.isfinite(s).all() and share >= 0.99):
+        raise AssertionError("9d: sample_posterior samples off the card, misshaped, "
+                             "non-finite or off the posterior mean")
+    return wall
+
+
+def run_gpfa_warm_start_and_cv(device):
+    """9e: fastfit (20 GPFA iterations, then map2vi's 5 vLGP iterations) on
+    the flagship trials without their mu, and the speckled CV sweep over 3,
+    5 and 7 factors, counters set to 0 before each.  Returns (fastfit wall
+    s, R^2, CV wall s)."""
+    import vlgp_tpu_torch
+    from vlgp_tpu_torch.model_selection import gmap_speckled_cv
+    from vlgp_tpu_torch.ops import spd
+
+    trials, _, zt = make_workload()
+    for t in trials:
+        del t["mu"]
+    gp = dict(dt=1.0, var=1.0, scale=7.07)  # omega = 0.5 / 7.07^2 = 1e-2
+    spd.reset_counters()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    res = vlgp_tpu_torch.fastfit(trials, ZDIM, **gp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    mu = res.data.mu
+    r2 = r2_aligned(mu.cpu().numpy().reshape(-1, ZDIM), zt)
+    log(f"9e fastfit (20 GPFA + {res.runtime['it']} vLGP iterations): {wall:.2f} s wall, "
+        f"R^2 {r2:.4f}, omega {res.params.omega.tolist()}; kernel launches "
+        f"{dict(spd.KERNEL_LAUNCHES)}")
+    if not (mu.device.type == device.type and torch.isfinite(mu).all()):
+        raise AssertionError("9e: fastfit posterior off the card or non-finite")
+    spd.reset_counters()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    tr, te = gmap_speckled_cv(trials, (3, 5, 7), test_ratio=0.1, max_iter=20, window=50, **gp)
+    cv_wall = time.perf_counter() - tic
+    log(f"9e gmap_speckled_cv n_factors (3, 5, 7): {cv_wall:.2f} s wall; training errors "
+        f"{tr}, test errors {te}")
+    if not all(np.isfinite(tr + te)):
+        raise AssertionError("9e: non-finite cross-validation errors")
+    return wall, r2, cv_wall
+
+
+def run_lorenz(device):
+    """9f: examples/tutorial_lorenz.py's recipe at the flagship widths on the
+    card: one normalised Lorenz trajectory, trial i reading it from bin 1000 +
+    1000 i, latents x 2, a ~ N(0, 0.6^2) and bias -2.5 (NumPy seed 0), spikes
+    from a generator seeded 0; fit with 3 factors and no a or b (factor
+    analysis on the card), 30 EM iterations.  Returns (simulation s, fit s,
+    R^2)."""
+    import vlgp_tpu_torch
+    from vlgp_tpu_torch.simulation import lorenz, spike
+
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    traj = lorenz(NTRIAL * LENGTH + 1000, normalized=True, device=device)
+    torch.cuda.synchronize()
+    lorenz_s = time.perf_counter() - tic
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(3, YDIM)) * 0.6
+    b = np.full((1, YDIM), -2.5)
+    z = torch.stack([traj[1000 + i * LENGTH: 1000 + (i + 1) * LENGTH] for i in range(NTRIAL)])
+    z = (z * 2.0).float()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    y, _, _ = spike(z, a, b, gen)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - tic
+    trials = [{"y": yi} for yi in y.cpu().numpy()]
+    tic = time.perf_counter()
+    res = vlgp_tpu_torch.fit(trials, 3, max_iter=30)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tic
+    r2 = r2_aligned(res.data.mu.cpu().numpy().reshape(-1, 3), z.cpu().numpy().reshape(-1, 3))
+    log(f"9f Lorenz -> Poisson ({NTRIAL} x {LENGTH} x {YDIM}, 3 factors): simulation "
+        f"{sim_s:.2f} s (lorenz {lorenz_s:.2f} s for {NTRIAL * LENGTH + 1000} steps), spike "
+        f"rate {float(y.mean()):.4f} per bin; fit {fit_s:.2f} s, {res.runtime['it']} EM "
+        f"iterations, R^2 (lstsq-aligned) {r2:.4f}")
+    if not (y.device.type == res.data.mu.device.type == device.type and r2 >= R2_LORENZ_MIN):
+        raise AssertionError(f"9f: Lorenz fit R^2 {r2:.4f} < {R2_LORENZ_MIN}, or off the card")
+    return sim_s, fit_s, r2
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -911,6 +1201,7 @@ def main():
     g_err_b, _ = check_ns_gram(ZDIM, 100, 1000, 50, device, seeded())
     B, RP = ZDIM * NTRIAL, 50
     p_err, p_rows, p_lms = check_ns_packed(B, RP, device, seeded())
+    p_err_elbo, _, _ = check_ns_packed(10000, 40, device, seeded(), T=50)  # elbo_terms
     e_err = check_edge_shapes(device, seeded())
     sw_err, sw_ms, sw_pms, sw_bms, sw_by = check_sweep(device, seeded())
     si_err, si_ms, si_pms, si_lms, si_bms, si_by = check_spd_inverse(device, seeded())
@@ -934,6 +1225,14 @@ def main():
     n_solve = run_spd_solve(device, seeded())
     n_probe = run_fused_probe(device, seeded())
 
+    # 9, the model-selection path, each sub-phase with its own counters
+    result_elbo = run_fit_elbo((fits[0][3], fits[3][3]))[2]
+    check_elbo_card_vs_cpu(result_elbo)
+    run_leave_one_neuron_out(fits[3][6])
+    run_sample_posterior(fits[3][6], device)
+    run_gpfa_warm_start_and_cv(device)
+    run_lorenz(device)
+
     g_cold = next(r for r in g_rows if r[0] == "cold")
     p_cold = next(r for r in p_rows if r[0] == "cold")
     g_bms, g_by = ns_gram_bound(Z, S, T, R, "cold")
@@ -945,7 +1244,8 @@ def main():
          "bound_ms": g_bms, "bound_by": g_by, "library_ms": None},
         {"name": "ns_packed", "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
          "replaces": "vlgp_tpu/ops/spd.py:558", "launches": default[0]["ns_packed"],
-         "max_abs_err": max(p_err, e_err), "ms": p_cold[3][0], "plain_ms": p_cold[4][0],
+         "max_abs_err": max(p_err, p_err_elbo, e_err), "ms": p_cold[3][0],
+         "plain_ms": p_cold[4][0],
          "bound_ms": p_bms, "bound_by": p_by, "library_ms": p_lms[0]},
         {"name": "sweep", "route": "cuda", "source": "vlgp_tpu_torch/csrc/sweep.cu",
          "replaces": "vlgp_tpu/ops/sweep.py:368", "launches": fused[0]["sweep"],

@@ -10,7 +10,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from vlgp_tpu_torch.utils.convert import params_from_numpy, trialset_from_numpy
+from vlgp_tpu_torch.utils.convert import (factor_model_from_numpy, fit_result_from_numpy,
+                                          params_from_numpy, trialset_from_numpy)
 
 # f64 phase parity: both packages run the exact LAPACK route and differ
 # only in the order of their sums
@@ -46,6 +47,26 @@ def port_params(jparams):
 
 def port_data(jdata):
     return trialset_from_numpy(to_np(jdata))
+
+
+def port_result(jres):
+    """A vlgp_tpu FitResult's state (data, params, G, config) in the port."""
+    return fit_result_from_numpy(to_np(jres.data), to_np(jres.params), np.asarray(jres.G),
+                                 dataclasses.asdict(jres.config))
+
+
+def factor_models(seed=3, ydim=10, zdim=2):
+    """One factor model in both packages: the same mean, a and psi."""
+    import jax.numpy as jnp
+
+    from vlgp_tpu.init import FactorModel as JaxFactorModel
+
+    rng = np.random.default_rng(seed)
+    arrays = {"mean": rng.uniform(0.1, 0.5, size=ydim),
+              "a": rng.normal(size=(zdim, ydim)) * 0.5,
+              "psi": rng.uniform(0.5, 1.5, size=ydim)}
+    jfm = JaxFactorModel(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    return jfm, factor_model_from_numpy(arrays)
 
 
 def port_config(jconfig):

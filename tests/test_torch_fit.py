@@ -10,7 +10,7 @@ import torch
 import vlgp_tpu
 import vlgp_tpu_torch
 from vlgp_tpu_torch.models import vlgp as tv
-from vlgp_tpu_torch.models.driver import make_em_step, vem
+from vlgp_tpu_torch.models.driver import make_em_step
 from vlgp_tpu_torch.ops import spd as tspd
 
 from _torch_parity import np_of, pin_state, pin_trials, r2_aligned
@@ -124,9 +124,6 @@ def test_unported_modes_raise():
     for kw in ({"fused": True}, {"block": 4}, {"path": "ckpt"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             vlgp_tpu_torch.fit(trials, 2, a=a, device="cpu", **kw)
-    _, (seg, params, G, config) = pin_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vem(seg, params, G, config.replace(track_elbo=True))
 
 
 def test_fit_initializes_from_factor_analysis():

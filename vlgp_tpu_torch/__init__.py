@@ -4,13 +4,19 @@ hand-written CUDA kernels for NVIDIA Hopper.
 A port of ``vlgp_tpu`` (JAX on a TPU), which stays in the repository as
 the reference.  This package imports neither JAX nor ``vlgp_tpu``.
 """
-from .api import FitResult, fit, transform
+from . import evaluation, model_selection, simulation
+from .api import FitResult, fastfit, fit, map2vi, resume, sample_posterior, transform
 from .config import Config, Params, default_config, make_params
 from .data import TrialSet, cut_trials, pack_trials, unpack_trials
+from .models import gpfa
 
 __all__ = [
     "fit",
     "transform",
+    "sample_posterior",
+    "fastfit",
+    "map2vi",
+    "resume",
     "FitResult",
     "Config",
     "Params",
@@ -20,4 +26,8 @@ __all__ = [
     "pack_trials",
     "cut_trials",
     "unpack_trials",
+    "evaluation",
+    "model_selection",
+    "simulation",
+    "gpfa",
 ]

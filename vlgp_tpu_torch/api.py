@@ -1,4 +1,5 @@
-"""Public API: fit and transform (counterpart of ``vlgp_tpu/api.py``).
+"""Public API: fit, transform, sample_posterior, fastfit, map2vi, resume
+(counterpart of ``vlgp_tpu/api.py``).
 
 The reference pipeline (api.py:18-76): config -> params -> FA
 initialization -> prior factors -> w/v init -> segmentation -> VEM on
@@ -12,14 +13,16 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .config import Config, Params, _tensor, default_config, make_params
+from .config import Config, Params, _resolve_device, _tensor, default_config, make_params
 from .data import TrialSet, cut_trials, pack_trials, scatter_segments, unpack_trials
 from .init import FactorModel, initialize
+from .models import gpfa
 from .models.driver import infer, vem
-from .models.gp import effective_rank, make_cholesky
-from .models.vlgp import update_v, update_w
+from .models.gp import effective_rank, make_cholesky, posterior_cov
+from .models.vlgp import mstep, update_v, update_w
 
-__all__ = ["fit", "transform", "FitResult"]
+__all__ = ["fit", "transform", "sample_posterior", "fastfit", "map2vi", "resume",
+           "FitResult"]
 
 
 @dataclasses.dataclass
@@ -59,17 +62,6 @@ def _fill_missing_mu(data: TrialSet, trials, mu) -> TrialSet:
         keep = torch.tensor(user_mu, device=mu.device)[:, None, None]
         mu = torch.where(keep, data.mu, mu)
     return data.replace(mu=mu)
-
-
-def _resolve_device(device, caller: str) -> torch.device:
-    """``device``, or CUDA when it is None; raises when CUDA is missing
-    instead of falling back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"vlgp_tpu_torch.{caller} runs on a CUDA device by default and "
-                               "none is available; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 def _to_device(obj, device: torch.device, dtype: Optional[torch.dtype] = None):
@@ -275,3 +267,117 @@ def transform(
     data = update_v(data, params, G, config)
     data = infer(data, params, G, config)
     return unpack_trials(data, trials)
+
+
+def sample_posterior(
+    result, trial, nsamples: Optional[int] = None, generator: Optional[torch.Generator] = None,
+    reg: float = 1e-6, method: str = "lowrank", nsample: Optional[int] = None,
+):
+    """Draw joint posterior samples for one trial (reference api.py:142-168;
+    ``vlgp_tpu.sample_posterior``).  Returns (nsamples, length, n_factors)
+    on the posterior's device.
+
+    Two call forms:
+
+      * ``sample_posterior(fit_result, trial_index, nsamples)`` samples trial
+        ``trial_index`` of a :class:`FitResult`;
+      * ``sample_posterior(trial_dict, params, nsamples)`` samples any trial
+        dict carrying the posterior state (``mu`` (T, z) and ``w``) under
+        :class:`Params`, with prior factors built for the trial's length
+        (on the params' device).
+
+    ``generator`` draws the noise; when None, a generator on the posterior's
+    device is seeded from ``config.seed`` (a FitResult) or 0 (a trial dict).
+    method="lowrank" (default): with K = GG', S = G (I + G'WG)^{-1} G', so a
+    sample is mu + G chol((I+G'WG)^{-1}) eps, O(T r) per sample.
+    method="dense" builds the dense Woodbury covariance (util.py:541-547).
+    """
+    if nsamples is None:
+        nsamples = nsample  # reference keyword spelling
+    if nsamples is None:
+        raise TypeError("nsamples is required")
+    if isinstance(result, FitResult):
+        seed = result.config.seed
+        L = int(result.data.lengths[trial])
+        mu = result.data.mu[trial]  # (T, z)
+        w = result.data.w[trial]
+        mask = result.data.mask[trial]
+        G = result.G  # (z, T, r)
+    else:  # raw (trial_dict, params), the reference call form
+        trial_dict, params = result, trial
+        if not isinstance(trial_dict, dict) or "mu" not in trial_dict:
+            raise TypeError("expected a FitResult + trial index, or a trial dict with "
+                            "'mu'/'w' + Params")
+        seed = 0
+        mu = _tensor(trial_dict["mu"], params.a.dtype, params.a.device)
+        w = _tensor(trial_dict["w"], params.a.dtype, params.a.device)
+        L = mu.shape[0]
+        mask = torch.ones(L, dtype=mu.dtype, device=mu.device)
+        G = make_cholesky(L, params)
+    if generator is None:
+        generator = torch.Generator(device=mu.device)
+        generator.manual_seed(seed)
+    wz = (w * mask[:, None]).T  # (z, T)
+    muz = mu.T  # (z, T)
+    zdim, T, R = G.shape
+
+    if method == "lowrank":
+        A = torch.einsum("ztr,zt,ztq->zrq", G, wz, G)
+        eye = torch.eye(R, dtype=G.dtype, device=G.device)
+        X = torch.linalg.inv(eye * (1.0 + reg) + A)
+        C = torch.linalg.cholesky(X + reg * eye)
+        eps = torch.randn((zdim, nsamples, R), generator=generator, dtype=G.dtype,
+                          device=G.device)
+        samples = muz[:, None, :] + (eps @ C.mT) @ G.mT  # (z, nsamples, T)
+    else:
+        eye = torch.eye(T, dtype=G.dtype, device=G.device)
+        S = posterior_cov(wz, G, reg) + reg * eye
+        C = torch.linalg.cholesky(S)
+        eps = torch.randn((zdim, nsamples, T), generator=generator, dtype=G.dtype,
+                          device=G.device)
+        samples = muz[:, None, :] + eps @ C.mT
+    return samples.permute(1, 2, 0)[:, :L, :]
+
+
+def map2vi(trials, C, d, **kwargs) -> FitResult:
+    """Seed vLGP with GPFA-style (C, d) and run a short fit (reference
+    api.py:79-105, without its dead ``Saver`` reference).  ``kwargs`` go to
+    :func:`fit`, ``device`` included; ``max_iter`` defaults to 5."""
+    n_factors = C.shape[0]
+    kwargs.setdefault("max_iter", 5)
+    b = torch.log(torch.clamp(torch.as_tensor(d), min=1e-8))
+    return fit(trials, n_factors, a=C, b=b, **kwargs)
+
+
+def fastfit(trials, n_factors, dt, var, scale, max_iter=20, device=None,
+            **kwargs) -> FitResult:
+    """GPFA-warm-started fit (reference api.py:108-119): the linear-Gaussian
+    GPFA EM on window segments for ``max_iter`` iterations, then
+    :func:`map2vi` with the learned loading and bias and the matched
+    omega = 0.5 / (scale / dt)^2.  ``device`` defaults to the current CUDA
+    device and raises when there is none."""
+    config = default_config(**{k: v for k, v in kwargs.items()
+                               if k in Config.__dataclass_fields__})
+    omega = np.full(n_factors, 0.5 / ((scale / dt) ** 2))
+    device = _resolve_device(device, "fastfit")
+
+    data, params, fm = _prepare(trials, n_factors, config, device, dt=dt)
+    segments = cut_trials(data, config.window, seed=config.seed)
+    K = gpfa.make_prior(segments.nbin, dt, var, scale, dtype=data.y.dtype, device=device)
+    C0 = params.a
+    d0 = torch.exp(params.b[0])
+    R0 = torch.ones(data.ydim, dtype=K.dtype, device=device)
+    _, C, d, _ = gpfa.em(segments.y, C0, d0, R0, K, max_iter)
+    return map2vi(trials, C, d, omega=omega, dt=dt, factor_model=fm, device=device, **kwargs)
+
+
+def resume(result: FitResult, **config_kwargs) -> FitResult:
+    """Continue from a fit: infer -> M-step -> infer, on the result's
+    device.  The reference ``resume`` (api.py:122-140) sets Eniter=0 in its
+    middle pass, so its M phase never runs; here it does."""
+    config = result.config if not config_kwargs else result.config.replace(**config_kwargs)
+    data, params, G = result.data, result.params, result.G
+    data = infer(data, params, G, config)
+    params = mstep(data, params, config)
+    data = infer(data, params, G, config)
+    return dataclasses.replace(result, data=data, params=params, config=config)

@@ -59,8 +59,9 @@ class Config:
     ns_iters: int = 16
     ns_warm_iters: int = 4
     omega_init: str = "staggered"
-    # ELBO tracking and convergence (evaluation.elbo_terms is not ported
-    # yet: vem raises for either)
+    # ELBO tracking (runtime["elbo"], evaluation.elbo_terms per EM
+    # iteration) and the convergence test: "norms" (core.py:350-359) or an
+    # ELBO stall |dELBO| <= tol |ELBO|
     track_elbo: bool = False
     convergence: str = "norms"
     # checkpointing (callback.Saver is not ported yet: fit raises on path)
@@ -149,6 +150,17 @@ class Params:
 
     def replace(self, **kw) -> "Params":
         return dataclasses.replace(self, **kw)
+
+
+def _resolve_device(device, caller: str) -> torch.device:
+    """``device``, or CUDA when it is None; raises when CUDA is missing
+    instead of falling back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"vlgp_tpu_torch.{caller} runs on a CUDA device by default and "
+                               "none is available; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:

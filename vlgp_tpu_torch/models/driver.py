@@ -14,15 +14,12 @@ import torch
 
 from ..config import Config, Params
 from ..data import TrialSet
+from ..evaluation import elbo_terms
 from ..utils.profiling import annotate
 from .gp import hstep, make_cholesky
 from .vlgp import constrain_latent, constrain_loading, em_norms, estep, mstep
 
 __all__ = ["vem", "infer", "make_em_step", "xinv_zeros"]
-
-_ELBO_TODO = ("ELBO tracking (track_elbo / convergence='elbo') needs "
-              "evaluation.elbo_terms, which is queued in ROADMAP.md "
-              "(Queue 1, item 10) and not ported yet")
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -81,6 +78,17 @@ def _converged(norms, tol: float) -> bool:
     )
 
 
+def _track_elbo(config: Config) -> bool:
+    return config.track_elbo or config.convergence == "elbo"
+
+
+def _elbo_record(runtime: dict, data, params, G) -> None:
+    """Append this iteration's ELBO (and its terms) to the runtime dict."""
+    terms = elbo_terms(data, params, G)
+    runtime.setdefault("elbo", []).append(terms["elbo"])
+    runtime.setdefault("elbo_terms", []).append(terms)
+
+
 def _iter_converged(runtime: dict, norms, config: Config) -> bool:
     """The convergence test of ``config.convergence``: the reference's
     relative-update norms (core.py:350-359), or an ELBO stall."""
@@ -121,10 +129,10 @@ def vem(
 
     Returns (data, params, G, runtime); ``runtime["converged_at"]``
     records the (1-based) iteration at which the convergence test first
-    passed.
+    passed.  With ``config.track_elbo`` (or ``convergence="elbo"``) each
+    iteration's ELBO and its terms land in ``runtime["elbo"]`` and
+    ``runtime["elbo_terms"]``.
     """
-    if config.track_elbo or config.convergence == "elbo":
-        raise NotImplementedError(_ELBO_TODO)
     runtime = {"it": 0, "e_elapsed": [], "m_elapsed": [], "h_elapsed": [],
                "em_elapsed": []}
     xinv = xinv_zeros(data, G)
@@ -173,6 +181,8 @@ def vem(
         norms = {"mu": float(pre["mu"]), "a": float(pre["a"]), "b": float(pre["b"]),
                  "dmu": float(post["dmu"]), "da": float(post["da"]),
                  "db": float(post["db"])}
+        if _track_elbo(config):
+            _elbo_record(runtime, data, params, G)
         if _iter_converged(runtime, norms, config) and it + 1 >= config.min_iter:
             runtime["converged_at"] = runtime["it"]
             break

@@ -25,6 +25,7 @@ __all__ = [
     "effective_rank",
     "gp_elbo_stats",
     "hstep",
+    "posterior_cov",
 ]
 
 
@@ -285,3 +286,15 @@ def hstep(data: TrialSet, params: Params, config: Config,
                              sigsq, params.gp_noise, params.dt, profile_sigma=True)
         out = out.replace(sigma=torch.sqrt(s).to(params.sigma.dtype))
     return out
+
+
+def posterior_cov(w_l, G_l, reg: float = 0.0):
+    """Dense posterior covariance (K^-1 + diag(w))^-1 of one latent of one
+    trial, by Woodbury from the low-rank factor (util.py:541-547):
+    S = K - K W (I + K W)^-1 K with K = G G' (+ reg I).  Leading batch
+    axes of ``w_l`` (..., T) and ``G_l`` (..., T, R) are carried along."""
+    T = G_l.shape[-2]
+    eye = torch.eye(T, dtype=G_l.dtype, device=G_l.device)
+    K = G_l @ G_l.mT + reg * eye
+    KW = K * w_l[..., None, :]
+    return K - KW @ torch.linalg.solve(eye + KW, K)

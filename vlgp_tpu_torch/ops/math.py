@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["trunc_exp"]
+__all__ = ["trunc_exp", "identity"]
 
 
 def trunc_exp(x: torch.Tensor, bound: float = 10.0) -> torch.Tensor:
@@ -12,3 +12,7 @@ def trunc_exp(x: torch.Tensor, bound: float = 10.0) -> torch.Tensor:
     Keeps Poisson rates finite during early, badly-scaled iterations.
     """
     return torch.exp(torch.clamp(x, max=bound))
+
+
+def identity(x):
+    return x
