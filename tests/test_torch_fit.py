@@ -119,11 +119,19 @@ def test_em_trajectory_pinned(cadence):
         prev = (om, sg)
 
 
-def test_unported_modes_raise():
+def test_unported_modes_raise(tmp_path):
+    """fused and block > 1 still raise; path no longer does: the fit
+    writes its parameter snapshot to <path>.npz."""
+    from vlgp_tpu_torch.utils.io import load_params
+
     trials, a, _ = pin_trials(ntrial=1, length=60)
-    for kw in ({"fused": True}, {"block": 4}, {"path": "ckpt"}):
+    for kw in ({"fused": True}, {"block": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             vlgp_tpu_torch.fit(trials, 2, a=a, device="cpu", **kw)
+    res = vlgp_tpu_torch.fit(trials, 2, a=a, device="cpu", max_iter=2,
+                             path=str(tmp_path / "ckpt"))
+    snap = load_params(tmp_path / "ckpt.npz", device="cpu")
+    assert torch.equal(snap.a, res.params.a) and torch.equal(snap.omega, res.params.omega)
 
 
 def test_fit_initializes_from_factor_analysis():
@@ -138,3 +146,23 @@ def test_fit_initializes_from_factor_analysis():
     assert torch.equal(r1.data.mu, r2.data.mu)
     assert np.isfinite(np_of(r1.data.mu)).all()
     assert r2_aligned(np_of(r1.data.mu).reshape(-1, 2), zt) > 0.5
+
+
+def test_subsample_draw_valid_rows_and_reproducible():
+    """The factor-analysis subsample takes only rows where the mask is set,
+    uniformly, and the same rows from the same seed."""
+    from vlgp_tpu_torch.init import _subsample_rows
+
+    mask = torch.zeros(120)
+    mask[10:40] = 1.0
+    mask[70:90] = 1.0
+
+    def rows(seed, k=50000):
+        return _subsample_rows(mask, k, torch.Generator().manual_seed(seed))
+
+    idx = rows(0)
+    assert bool((mask[idx] == 1.0).all())
+    counts = torch.bincount(idx, minlength=120)[mask > 0]
+    # 1000 expected per valid row, binomial sd ~31
+    assert int(counts.min()) > 850 and int(counts.max()) < 1150
+    assert torch.equal(idx, rows(0)) and not torch.equal(idx, rows(1))

@@ -168,18 +168,25 @@ def fit(
     trials: list of dicts with ``y`` (length, ydim); optional ``x``, ``mu``.
     Unequal lengths are padded and masked.  ``device`` defaults to the
     current CUDA device and raises when there is none: pass ``device="cpu"``
-    to fit on the CPU.  The dtype is ``Config.dtype``.  ``fused``, ``block > 1`` and ``path`` (the
-    checkpointing Saver) are not ported yet and raise.
+    to fit on the CPU.  The dtype is ``Config.dtype``.  ``fused`` and
+    ``block > 1`` are not ported yet and raise.
+
+    Passing ``path=...`` snapshots the parameters every ``saving_interval``
+    seconds during VEM and once more at the end, as ``vlgp_tpu.fit`` does,
+    to ``<path>.npz``.  Restore with :func:`vlgp_tpu_torch.utils.io.load_params`.
     """
     if fused or block > 1:
         raise NotImplementedError(
             "fit(fused=True) and fit(block>1) need the fused EM step and its "
             "CUDA-graph scan, queued in ROADMAP.md (Queue 1, item 7)")
     config = default_config(**config_kwargs)
+    callbacks = list(callbacks)
+    saver = None
     if config.path is not None:
-        raise NotImplementedError(
-            "checkpointing (path=...) needs callback.Saver and utils/io, "
-            "queued in ROADMAP.md (Queue 1, item 14)")
+        from .callback import Saver
+
+        saver = Saver(config.path, config.saving_interval)
+        callbacks.append(saver)
     device = _resolve_device(device, "fit")
 
     data, params, fm = _prepare(
@@ -213,6 +220,9 @@ def fit(
     data = update_w(data, params, config)
     data = update_v(data, params, G_full, config)
     data = infer(data, params, G_full, config)
+
+    if saver is not None:  # final snapshot regardless of the interval
+        saver.save(data, params, config, force=True)
 
     return FitResult(
         data=data,

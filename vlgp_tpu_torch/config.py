@@ -64,7 +64,7 @@ class Config:
     # ELBO stall |dELBO| <= tol |ELBO|
     track_elbo: bool = False
     convergence: str = "norms"
-    # checkpointing (callback.Saver is not ported yet: fit raises on path)
+    # checkpointing: fit(path=...) wires a callback.Saver
     saving_interval: float = 1800.0
     path: Optional[str] = None
     # numerics
@@ -153,14 +153,13 @@ class Params:
 
 
 def _resolve_device(device, caller: str) -> torch.device:
-    """``device``, or CUDA when it is None; raises when CUDA is missing
-    instead of falling back to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"vlgp_tpu_torch.{caller} runs on a CUDA device by default and "
-                               "none is available; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    """``device``, or CUDA when it is None; raises when CUDA is asked for
+    and missing instead of falling back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"vlgp_tpu_torch.{caller} runs on a CUDA device by default and "
+                           "none is available; pass device='cpu' to run on the CPU")
+    return device
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:

@@ -57,6 +57,17 @@ def fit_factor_analysis(y: torch.Tensor, zdim: int, n_iter: int = 64,
     return FactorModel(mean=mean, a=a, psi=psi)
 
 
+def _subsample_rows(mask: torch.Tensor, k: int, generator: torch.Generator) -> torch.Tensor:
+    """``k`` row indices drawn with replacement, uniformly over the rows
+    where the 0/1 ``mask`` is set (``vlgp_tpu``'s draw weighted by the
+    mask).  Integer draws into the valid rows: ``torch.multinomial`` on the
+    CUDA device moved a draw to a neighbouring row between processes with
+    one seed."""
+    valid = torch.nonzero(mask > 0).squeeze(1)
+    pick = torch.randint(valid.shape[0], (k,), generator=generator, device=mask.device)
+    return valid[pick]
+
+
 def initialize(data, zdim: int, generator: torch.Generator, *, eps: float = 1e-8,
                subsample_frac: float = 0.1, min_subsample: int = 50,
                fa_iters: int = 64):
@@ -71,9 +82,7 @@ def initialize(data, zdim: int, generator: torch.Generator, *, eps: float = 1e-8
     mask = data.mask.reshape(-1)
     nvalid = y.shape[0]
     k = min(max(int(nvalid * subsample_frac), min_subsample), nvalid)
-    idx = torch.multinomial(mask / mask.sum(), k, replacement=True,
-                            generator=generator)
-    ysub = y[idx]
+    ysub = y[_subsample_rows(mask, k, generator)]
 
     fm = fit_factor_analysis(ysub, zdim, n_iter=fa_iters)
     a = fm.a
