@@ -63,7 +63,21 @@ Phases, each of which raises on failure:
    restore_checkpoint round trip; (10c) `python3 -m vlgp_tpu_torch fit` on
    the flagship workload and `transform` of the fresh trials as
    subprocesses, against an in-process fit with the CLI's settings (equal
-   bit for bit, R^2 >= R2_CLI_MIN), with no kernel library rebuilt.
+   bit for bit, R^2 >= R2_CLI_MIN), with no kernel library rebuilt;
+11. the sharded fit (vlgp_tpu_torch.parallel.driver.fit_sharded), each
+   sub-phase with the counters set to 0 just before it: (11a) in process
+   over an nccl group of one rank on the flagship workload, against fit
+   with the same settings run just before, both with a callback recording
+   the params at every EM iteration boundary: the params equal bit for bit
+   at every boundary and converged_at equal; after the closing H-step (no
+   inverse carry in fit_sharded), R^2 within R2_SHARD_GAP of fit's and the
+   largest relative gap in omega and mu printed; (11b) two processes on
+   the one card (this script run as `chip_smoke.py --rank R --world 2
+   --port P --out F`) over a gloo group on CUDA tensors, each fitting its
+   half of the segments: both ranks equal bit for bit, R^2 >= R2_MIN and
+   within R2_SHARD_GAP of 11a, each rank's launches and collectives
+   printed (gloo stages every collective through the host: a correctness
+   check, not a multi-card speed).
 
 Times are per call, each between its own pair of CUDA events, over 10
 calls after a warm-up, printed as median [min-max].  Ends with one JSON
@@ -74,6 +88,7 @@ device.  Imports nothing of JAX.
 """
 import collections
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -98,6 +113,8 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 NTRIAL, LENGTH, YDIM, ZDIM = 100, 1000, 100, 5
+# the flagship fit's settings besides the loading (bench.py's workload)
+FLAGSHIP_KW = dict(b=np.full((1, YDIM), -2.0), omega=np.full(ZDIM, 1e-2), max_iter=30)
 
 # 9b: |elbo(card, float32) - elbo(CPU, float64)| / |elbo| on one state.  The
 # prior's logdet enters gp_prior_ll and the entropy with opposite signs from
@@ -121,6 +138,10 @@ R2_LORENZ_MIN = 0.80
 # should not fall below the 20-trial figure; the floor keeps 0.035 under it
 # for the port's draws, which differ from JAX's, and float32 on the card.
 R2_CLI_MIN = 0.93
+# 11: the sharded fit's R^2 against the single-device fit's.  A different
+# reduction order moves the H-step's omega basin choice, and with it R^2 by
+# about +-0.004 under float noise (vlgp_tpu/config.py:64-73)
+R2_SHARD_GAP = 0.004
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -773,8 +794,7 @@ def run_fit(fused, **fit_kw):
     spd.reset_counters()
     torch.cuda.synchronize()
     tic = time.perf_counter()
-    result = vlgp_tpu_torch.fit(trials, ZDIM, a=a, b=np.full((1, YDIM), -2.0),
-                                omega=np.full(ZDIM, 1e-2), max_iter=30, **fit_kw)
+    result = vlgp_tpu_torch.fit(trials, ZDIM, a=a, **FLAGSHIP_KW, **fit_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     launches = dict(spd.KERNEL_LAUNCHES)
@@ -1404,6 +1424,190 @@ def run_cli(work, card):
             raise AssertionError(f"10c: the in-process fit never launched {name}")
 
 
+PARAM_FIELDS = ("a", "b", "noise", "sigma", "omega", "da", "db")
+
+
+def param_recorder():
+    """(list, callback): the callback appends a copy of the params' tensors
+    at every EM iteration boundary."""
+    seen = []
+
+    def record(data, params, config):
+        seen.append({f: getattr(params, f).clone() for f in PARAM_FIELDS})
+
+    return seen, record
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def reset_all_counters():
+    from vlgp_tpu_torch.models import vlgp as tv
+    from vlgp_tpu_torch.ops import spd
+
+    spd.reset_counters()
+    for k in tv.COLLECTIVES:
+        tv.COLLECTIVES[k] = 0
+
+
+def sharded_fit(recorder, **kw):
+    """fit_sharded on the flagship workload, counters set to 0 just before;
+    returns (result, wall s, launches, collectives, R^2)."""
+    from vlgp_tpu_torch.models import vlgp as tv
+    from vlgp_tpu_torch.ops import spd
+    from vlgp_tpu_torch.parallel.driver import fit_sharded
+
+    trials, a, zt = make_workload()
+    reset_all_counters()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    result = fit_sharded(trials, ZDIM, a=a, callbacks=[recorder], **FLAGSHIP_KW, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    launches, coll = dict(spd.KERNEL_LAUNCHES), dict(tv.COLLECTIVES)
+    mu = result.data.mu
+    if tuple(mu.shape) != (NTRIAL, LENGTH, ZDIM) or mu.device.type != "cuda" or not all(
+            torch.isfinite(getattr(result.data, f)).all() for f in ("mu", "v", "w")):
+        raise AssertionError(f"sharded fit: posterior of shape {tuple(mu.shape)} on "
+                             f"{mu.device}, or not finite")
+    return result, wall, launches, coll, r2_aligned(mu.cpu().numpy().reshape(-1, ZDIM), zt)
+
+
+# bytes of one iteration boundary's gather, all ranks' parts: the posterior
+# fields (mu, w, v, dmu) of the flagship's 2000 window-50 segments, float32
+BOUNDARY_BYTES = 4 * NTRIAL * -(-LENGTH // 50) * 50 * ZDIM * 4
+
+
+def run_sharded_world1(card):
+    """11a: fit_sharded in process over an nccl group of one rank against fit
+    with the same settings, both recording the params at every boundary."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    import vlgp_tpu_torch
+    from vlgp_tpu_torch.ops import spd
+
+    trials, a, zt = make_workload()
+    seen_fit, rec_fit = param_recorder()
+    reset_all_counters()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    ref = vlgp_tpu_torch.fit(trials, ZDIM, a=a, callbacks=[rec_fit], **FLAGSHIP_KW)
+    torch.cuda.synchronize()
+    wall_fit = time.perf_counter() - tic
+    launches_fit = dict(spd.KERNEL_LAUNCHES)
+    r2_fit = r2_aligned(ref.data.mu.cpu().numpy().reshape(-1, ZDIM), zt)
+
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                             world_size=1, timeout=datetime.timedelta(seconds=120))
+    seen, rec = param_recorder()
+    got, wall, launches, coll, r2 = sharded_fit(rec)  # mesh and device by default
+    tdist.destroy_process_group()
+    it = got.runtime["it"]
+    log(f"11a fit [{card}]: {wall_fit:.2f} s wall, {ref.runtime['it']} EM iterations "
+        f"(converged_at {ref.runtime.get('converged_at')}), R^2 {r2_fit:.4f}, "
+        f"launches {launches_fit}")
+    log(f"11a fit_sharded, nccl world 1 [{card}]: {wall:.2f} s wall, {it} EM iterations "
+        f"(converged_at {got.runtime.get('converged_at')}, final_hstep "
+        f"{got.runtime.get('final_hstep', False)}), R^2 {r2:.4f}, launches {launches}, "
+        f"collectives {coll} ({coll['all_reduce'] / it:.1f} all_reduce per EM iteration, "
+        f"{BOUNDARY_BYTES} bytes gathered per boundary)")
+    if len(seen) != len(seen_fit) or any(
+            not torch.equal(x[f], y[f]) for x, y in zip(seen, seen_fit) for f in PARAM_FIELDS):
+        diff = [i for i, (x, y) in enumerate(zip(seen, seen_fit))
+                if any(not torch.equal(x[f], y[f]) for f in PARAM_FIELDS)]
+        raise AssertionError(f"11a: {len(seen)} vs {len(seen_fit)} boundaries; params differ "
+                             f"from fit's at boundaries {diff}")
+    if got.runtime.get("converged_at") != ref.runtime.get("converged_at"):
+        raise AssertionError("11a: converged_at differs from fit's")
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max())
+
+    gap_om = rel(got.params.omega, ref.params.omega)
+    gap_mu = rel(got.data.mu, ref.data.mu)
+    log(f"11a: params equal bit for bit at all {len(seen)} boundaries; after the closing "
+        f"H-step: max |d omega| / max |omega| {gap_om:.3e}, max |d mu| / max |mu| "
+        f"{gap_mu:.3e}, R^2 {r2:.4f} vs {r2_fit:.4f}")
+    if abs(r2 - r2_fit) > R2_SHARD_GAP or r2 < R2_MIN:
+        raise AssertionError(f"11a: R^2 {r2:.4f} against fit's {r2_fit:.4f}")
+    for name in ("ns_gram", "ns_packed"):
+        if launches[name] == 0:
+            raise AssertionError(f"11a: fit_sharded never launched {name}")
+    return r2
+
+
+def sharded_worker(rank, world, port, out):
+    """One rank of 11b: a gloo group on CUDA tensors, this rank's half of the
+    segments on the one card; writes its result to ``out``."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the ranks share the host's cores (host-side work, gloo's staging)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                             world_size=world, timeout=datetime.timedelta(seconds=120))
+    seen, rec = param_recorder()
+    got, wall, launches, coll, r2 = sharded_fit(rec, device="cuda:0")
+    tdist.destroy_process_group()
+    torch.save({"params": {f: getattr(got.params, f).cpu() for f in PARAM_FIELDS},
+                "mu": got.data.mu.cpu(), "v": got.data.v.cpu(), "seen": len(seen),
+                "it": got.runtime["it"], "converged_at": got.runtime.get("converged_at"),
+                "final_hstep": got.runtime.get("final_hstep", False), "wall": wall,
+                "em_s": sum(got.runtime["em_elapsed"]), "launches": launches,
+                "collectives": coll, "r2": r2}, out)
+
+
+def run_sharded_gloo(card, r2_world1):
+    """11b: two processes on the one card over a gloo group; both ranks equal
+    bit for bit, R^2 >= R2_MIN and within R2_SHARD_GAP of 11a."""
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix=".smoke11_", dir=ROOT) as tmp:
+        outs = [f"{tmp}/rank{r}.pt" for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(r),
+                                   "--world", "2", "--port", str(port), "--out", outs[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            texts = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            if p.returncode != 0:
+                raise AssertionError(f"11b: rank {r} exited {p.returncode}:\n{text[-4000:]}")
+        res = [torch.load(o, weights_only=False) for o in outs]
+    for r, x in enumerate(res):
+        log(f"11b rank {r}, gloo world 2 on one card [{card}]: {x['wall']:.2f} s wall "
+            f"(EM loop {x['em_s']:.2f} s), {x['it']} EM iterations (converged_at "
+            f"{x['converged_at']}, final_hstep {x['final_hstep']}), R^2 {x['r2']:.4f}, "
+            f"launches {x['launches']}, collectives {x['collectives']} "
+            f"({x['collectives']['all_reduce'] / x['it']:.1f} all_reduce per EM iteration, "
+            f"{BOUNDARY_BYTES // 2} bytes from the other rank per boundary)")
+    a, b = res
+    same = (all(torch.equal(a["params"][f], b["params"][f]) for f in PARAM_FIELDS)
+            and torch.equal(a["mu"], b["mu"]) and torch.equal(a["v"], b["v"])
+            and a["collectives"] == b["collectives"] and a["it"] == b["it"])
+    log(f"11b: ranks equal bit for bit: {same}; R^2 {a['r2']:.4f} vs 11a {r2_world1:.4f}")
+    if not same:
+        raise AssertionError("11b: the two ranks disagree")
+    if a["r2"] < R2_MIN or abs(a["r2"] - r2_world1) > R2_SHARD_GAP:
+        raise AssertionError(f"11b: R^2 {a['r2']:.4f} against 11a's {r2_world1:.4f}")
+    for r, x in enumerate(res):
+        for name in ("ns_gram", "ns_packed"):
+            if x["launches"][name] == 0:
+                raise AssertionError(f"11b: rank {r} never launched {name}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1477,6 +1681,10 @@ def main():
         run_checkpointed_fit(work, (fits[0][3], fits[3][3]), card)
         run_cli(work, card)
 
+    # 11, the sharded fit, each sub-phase with its own counters
+    r2_world1 = run_sharded_world1(card)
+    run_sharded_gloo(card, r2_world1)
+
     g_cold = next(r for r in g_rows if r[0] == "cold")
     p_cold = next(r for r in p_rows if r[0] == "cold")
     g_bms, g_by = ns_gram_bound(Z, S, T, R, "cold")
@@ -1511,4 +1719,14 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if "--rank" in sys.argv:  # one rank of phase 11b
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        for flag in ("--rank", "--world", "--port"):
+            ap.add_argument(flag, type=int, required=True)
+        ap.add_argument("--out", required=True)
+        args = ap.parse_args()
+        sharded_worker(args.rank, args.world, args.port, args.out)
+    else:
+        main()

@@ -17,7 +17,7 @@ from ..data import TrialSet
 from ..evaluation import elbo_terms
 from ..utils.profiling import annotate
 from .gp import hstep, make_cholesky
-from .vlgp import constrain_latent, constrain_loading, em_norms, estep, mstep
+from .vlgp import Dist, constrain_latent, constrain_loading, em_norms, estep, mstep
 
 __all__ = ["vem", "infer", "make_em_step", "xinv_zeros"]
 
@@ -27,7 +27,8 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
-def make_em_step(config: Config, carry_xinv: bool = False) -> Callable:
+def make_em_step(config: Config, dist: Dist = Dist(), carry_xinv: bool = False
+                 ) -> Callable:
     """Build a single-EM-iteration function.
 
     (data, params, G) -> (data, params, G, norms) with ``norms`` holding
@@ -35,24 +36,27 @@ def make_em_step(config: Config, carry_xinv: bool = False) -> Callable:
     dmu/da/db, core.py:300-305 and 350-354).  With ``carry_xinv`` the step
     takes and returns the E-step's final Woodbury inverse, which
     warm-starts the next iteration.  ``it`` (the 0-based iteration index)
-    applies the ``hyper_interval`` cadence; ``None`` runs the H-step.
+    applies the ``hyper_interval`` cadence; ``None`` runs the H-step.  The
+    cadence is a host integer, the same on every rank, so under
+    ``dist.data`` all ranks enter the H-step's all_reduces together.
     """
 
     def em_step(data: TrialSet, params: Params, G: torch.Tensor, xinv=None,
                 it=None):
-        pre = em_norms(data, params)
-        data, params = constrain_loading(data, params, config)
+        pre = em_norms(data, params, dist)
+        data, params = constrain_loading(data, params, config, dist)
         if carry_xinv:
-            data, xinv = estep(data, params, G, config, xinv=xinv, return_xinv=True)
+            data, xinv = estep(data, params, G, config, dist=dist, xinv=xinv,
+                               return_xinv=True)
         else:
-            data = estep(data, params, G, config)
-        data, params = constrain_latent(data, params, config)
-        params = mstep(data, params, config)
+            data = estep(data, params, G, config, dist=dist)
+        data, params = constrain_latent(data, params, config, dist)
+        params = mstep(data, params, config, dist=dist)
         interval = max(1, int(config.hyper_interval))
         if config.Hstep and (it is None or it % interval == 0):
-            params = hstep(data, params, config, rank=G.shape[-1], xinv=xinv)
+            params = hstep(data, params, config, dist, rank=G.shape[-1], xinv=xinv)
             G = make_cholesky(data.nbin, params, rank=G.shape[-1])
-        post = em_norms(data, params)
+        post = em_norms(data, params, dist)
         norms = dict(mu=pre["mu"], a=pre["a"], b=pre["b"],
                      dmu=post["dmu"], da=post["da"], db=post["db"])
         if carry_xinv:

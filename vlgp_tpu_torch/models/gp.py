@@ -17,6 +17,7 @@ from ..config import Config, Params
 from ..data import TrialSet
 from ..ops.ichol import ichol_gauss, ichol_gauss_batch, nystrom_gauss_batch
 from ..ops.spd import inv_one_plus_gram
+from .vlgp import Dist, _check_dist, _psum
 
 __all__ = [
     "sekernel",
@@ -178,7 +179,7 @@ def _aitken_accept(x0, x1, x2, lo, hi, trust):
     return torch.clamp(torch.where(contracting, aitken, x2), lo, hi)
 
 
-def hstep(data: TrialSet, params: Params, config: Config,
+def hstep(data: TrialSet, params: Params, config: Config, dist: Dist = Dist(),
           rank: Optional[int] = None, xinv=None) -> Params:
     """Hyperparameter step: per-latent bounded search on log(omega) with
     at-bound rejection (gp.optimize, gp.py:65-97), plus the profiled sigma
@@ -188,8 +189,12 @@ def hstep(data: TrialSet, params: Params, config: Config,
     E-step's Woodbury inverses X = (I + G' diag(w~) G)^{-1} with the
     commuting identities AX = I - X and QA = P - Q, so no (S, T, T)
     tensor is formed.  ``xinv`` (the E-step's carried inverse) warm-starts
-    the first refinement, which skips the probe.
+    the first refinement, which skips the probe.  Under ``dist.data`` the
+    pooled statistics are summed over the ranks (one all_reduce before the
+    refinements and one in each), so the search runs on the same statistic,
+    and returns the same omega and sigma, on every rank.
     """
+    _check_dist(dist)
     if not config.Hstep:
         return params
 
@@ -199,20 +204,20 @@ def hstep(data: TrialSet, params: Params, config: Config,
     rank = min(params.rank, T) if rank is None else min(rank, T)
     lo = torch.full((Z,), math.log(config.omega_bound[0]), dtype=dtype, device=device)
     hi = torch.full((Z,), math.log(config.omega_bound[1]), dtype=dtype, device=device)
-    # segments with at least one valid bin
+    # segments with at least one valid bin: fully masked rows (the padding
+    # of a sharded fit) count for nothing
     valid = data.mask.amax(dim=1)  # (S,)
-    nseg_total = valid.sum()
     margin = 2e-3 * (hi - lo)
 
     mu_t = data.mu.permute(2, 0, 1)  # (Z, S, T)
     w_t = data.w.permute(2, 0, 1) * data.mask[None]
-    Mbar = torch.einsum("zst,zsu->ztu", mu_t, mu_t)
     sigsq = (params.sigma ** 2).reshape(Z, 1, 1)
     eps = params.gp_noise
     eyeT = torch.eye(T, dtype=dtype, device=device)
     # ridge-folded weights w/(1 + eps w): the low-rank prior K = GG' + eps I
     wt2 = (w_t / (1.0 + eps * w_t)).contiguous()
-    sum_w = torch.einsum("s,zst->zt", valid, wt2)
+    nseg_total, Mbar, sum_w = _psum((valid.sum(), torch.einsum("zst,zsu->ztu", mu_t, mu_t),
+                                     torch.einsum("s,zst->zt", valid, wt2)), dist.data)
 
     def F(log_om, warmX=None, warm_probe=True):
         # one fixed-point refinement: posterior statistic at the running
@@ -231,9 +236,10 @@ def hstep(data: TrialSet, params: Params, config: Config,
         sum_QP = vQ.permute(0, 2, 1, 3).reshape(Zs, T, S * R) @ \
             P.permute(0, 2, 1, 3).reshape(Zs, T, S * R).mT
         sum_X = torch.einsum("s,zsrq->zrq", valid, X)
+        sum_QA = torch.einsum("s,zstr->ztr", valid, P - Q)  # Q A = P - Q
+        sum_QP, sum_X, sum_QA = _psum((sum_QP, sum_X, sum_QA), dist.data)
         eyeR = torch.eye(R, dtype=dtype, device=device)
         sum_AXA_mA = sum_X - nseg_total * eyeR  # A X A - A = X - I
-        sum_QA = torch.einsum("s,zstr->ztr", valid, P - Q)  # Q A = P - Q
         KK = G_om @ G_om.mT
         GM = G_om @ sum_AXA_mA
         t_qa = sum_QA @ G_om.mT

@@ -5,13 +5,20 @@ The reference's loops over trials, latents and neurons are independent
 given the sufficient statistics, so each phase is a batched tensor
 computation; the hot-loop math runs latent-major (Z, N, T).  The JAX
 package's on-device loop exits become host-synced Python loops here.
+
+Every phase takes a :class:`Dist` naming the process group of each mesh
+axis; with the default (no groups) it runs on one device.  ``data`` splits
+segments/trials over the ranks of a group: cross-segment sums become
+``all_reduce``s, and every branch whose body holds one decides on reduced
+(rank-uniform) values, so no rank waits on a collective the others skip.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as tdist
 
 from ..config import Config, Params
 from ..data import TrialSet
@@ -27,6 +34,8 @@ from ..ops.sweep import sweep_fused_eligible
 _SWEEP_FUSED = os.environ.get("VLGP_SWEEP_FUSED", "0") == "1"
 
 __all__ = [
+    "Dist",
+    "COLLECTIVES",
     "estep",
     "mstep",
     "update_w",
@@ -35,6 +44,58 @@ __all__ = [
     "constrain_latent",
     "em_norms",
 ]
+
+
+class Dist(NamedTuple):
+    """Process group of each mesh axis (None: not sharded on that axis);
+    the counterpart of ``vlgp_tpu.models.vlgp.Dist``, whose fields are axis
+    names.  ``model`` (channels over ranks) is ROADMAP item 16b."""
+
+    data: Optional[object] = None
+    model: Optional[object] = None
+
+
+# collectives made in this process, by kind (``_all_reduce`` and
+# ``parallel.mesh``'s broadcast and all_gather each add one per call)
+COLLECTIVES = {"all_reduce": 0, "broadcast": 0, "all_gather": 0}
+
+
+def _check_dist(dist: Dist) -> None:
+    if dist.model is not None:
+        raise NotImplementedError(
+            "sharding channels over a model axis is not ported yet: ROADMAP.md "
+            "Queue 1, item 16b (vlgp_tpu_torch shards the data axis only)")
+
+
+def _all_reduce(x, group, op):
+    """Reduce ``x`` (a tensor, or a sequence of tensors of one dtype sent as
+    one flat buffer) over the ranks of ``group`` on a copy; ``x`` itself
+    when ``group`` is None."""
+    if group is None:
+        return x
+    parts = [x] if isinstance(x, torch.Tensor) else list(x)
+    flat = torch.cat([t.reshape(-1) for t in parts])
+    tdist.all_reduce(flat, op=op, group=group)
+    COLLECTIVES["all_reduce"] += 1
+    # each result in an allocation of its own, as an unreduced tensor is: a
+    # library kernel may take another path for an unaligned view, and then
+    # a world of one would not repeat the single-device fit bit for bit
+    out, k = [], 0
+    for t in parts:
+        out.append(flat[k:k + t.numel()].reshape(t.shape).clone())
+        k += t.numel()
+    return out[0] if isinstance(x, torch.Tensor) else out
+
+
+def _psum(x, group):
+    """Sum over the ranks of ``group`` (``lax.psum`` over a mesh axis in
+    ``vlgp_tpu``); the identity for None."""
+    return _all_reduce(x, group, tdist.ReduceOp.SUM)
+
+
+def _pmax(x, group):
+    """Max over the ranks of ``group`` (``lax.pmax``); the identity for None."""
+    return _all_reduce(x, group, tdist.ReduceOp.MAX)
 
 
 def _zmajor(x):
@@ -105,7 +166,7 @@ def _marginal_variance(G, wmz, iters: int = 16):
 
 def estep(
     data: TrialSet, params: Params, G: torch.Tensor, config: Config,
-    niter: Optional[int] = None,
+    niter: Optional[int] = None, dist: Dist = Dist(),
     xinv: Optional[torch.Tensor] = None, return_xinv: bool = False,
 ):
     """E-step: up to Eniter Newton sweeps over all segments and latents
@@ -117,8 +178,11 @@ def estep(
     |dmu| <= estep_tol * |mu| after at least 2 sweeps (a host-synced
     check per sweep); 0 runs the fixed count.  With ``_SWEEP_FUSED`` an
     eligible call runs every sweep in one ``ops.sweep.sweep`` call, whose
-    groups of segments exit on their own norms.
+    groups of segments exit on their own norms.  Under ``dist.data`` the
+    exit norms are summed and the fused call's residual maxed over the
+    ranks before each test, so every rank sweeps the same count.
     """
+    _check_dist(dist)
     niter = config.Eniter if niter is None else niter
     if niter < 1:
         return (data, xinv) if return_xinv else data
@@ -166,8 +230,7 @@ def estep(
         tol = config.estep_tol
         for i in range(niter):
             if tol > 0 and i >= 2:
-                nd = torch.sum(dmuz * dmuz)
-                nm = torch.sum(muz * muz)
+                nd, nm = _psum((torch.sum(dmuz * dmuz), torch.sum(muz * muz)), dist.data)
                 if not bool(nd > tol * tol * nm):
                     break
             muz, wz, vz, dmuz, X = sweep(muz, wz, vz, X)
@@ -182,7 +245,7 @@ def estep(
             _zmajor(data.mu), _zmajor(data.w), _zmajor(data.v), xinv,
             niter=niter, tol=config.estep_tol, dmu_bound=config.dmu_bound,
             ns_iters=config.ns_iters, ns_warm_iters=config.ns_warm_iters, vb=vb)
-        if _converged(resid.amax()):
+        if _converged(_pmax(resid.amax(), dist.data)):
             muz, wz, vz, dmuz, X = fused
         else:
             FALLBACKS["sweep_core"] += 1
@@ -194,8 +257,11 @@ def estep(
     return (out, X) if return_xinv else out
 
 
-def update_w(data: TrialSet, params: Params, config: Config) -> TrialSet:
-    """Recompute likelihood precision weights (core.py:419-442)."""
+def update_w(data: TrialSet, params: Params, config: Config, dist: Dist = Dist()
+             ) -> TrialSet:
+    """Recompute likelihood precision weights (core.py:419-442); local to
+    each segment, so nothing is reduced on the data axis."""
+    _check_dist(dist)
     muz, vz = _zmajor(data.mu), _zmajor(data.v)
     eta = _eta(muz, params.a, _xb(data.x, params.b))
     r = _rates(eta, vz, params.a)
@@ -204,8 +270,11 @@ def update_w(data: TrialSet, params: Params, config: Config) -> TrialSet:
     return data.replace(w=_zminor(wz))
 
 
-def update_v(data: TrialSet, params: Params, G, config: Config) -> TrialSet:
-    """Recompute the VB marginal posterior variance (core.py:445-471)."""
+def update_v(data: TrialSet, params: Params, G, config: Config, dist: Dist = Dist()
+             ) -> TrialSet:
+    """Recompute the VB marginal posterior variance (core.py:445-471);
+    local to each segment."""
+    _check_dist(dist)
     if config.method != "VB":
         return data
     wz = _zmajor(data.w) * data.mask[None]
@@ -213,13 +282,14 @@ def update_v(data: TrialSet, params: Params, G, config: Config) -> TrialSet:
     return data.replace(v=_zminor(vz))
 
 
-def _masked_var(resid, mask):
+def _masked_var(resid, mask, dist: Dist):
     """Per-channel variance of masked residuals (M-step noise MLE,
     core.py:177)."""
     m = mask[..., None]
-    n = torch.sum(mask)
-    mean = torch.sum(resid * m, dim=(0, 1)) / n
-    return torch.sum(resid * resid * m, dim=(0, 1)) / n - mean * mean
+    n, s1, s2 = _psum((torch.sum(mask), torch.sum(resid * m, dim=(0, 1)),
+                       torch.sum(resid * resid * m, dim=(0, 1))), dist.data)
+    mean = s1 / n
+    return s2 / n - mean * mean
 
 
 def _pair_stats(rm, p, q):
@@ -232,10 +302,16 @@ def _pair_stats(rm, p, q):
 
 
 def mstep(data: TrialSet, params: Params, config: Config,
-          niter: Optional[int] = None) -> Params:
+          niter: Optional[int] = None, dist: Dist = Dist()) -> Params:
     """M-step: Newton (or plain gradient) for Poisson channels, closed form
     for Gaussian (core.py:129-249).  ``config.mstep_tol > 0`` stops once
-    |da| <= tol |a| and |db| <= tol |b| after at least 2 iterations."""
+    |da| <= tol |a| and |db| <= tol |b| after at least 2 iterations.
+
+    Under ``dist.data`` the sufficient statistics are summed over the ranks
+    (one all_reduce per family and Newton iteration), so a, b, da and db
+    come out bitwise equal on every rank and the exit test, which reads
+    only them, is rank-uniform without a collective of its own."""
+    _check_dist(dist)
     niter = config.Mniter if niter is None else niter
     if niter < 1:
         return params
@@ -258,29 +334,34 @@ def mstep(data: TrialSet, params: Params, config: Config,
     if need_gauss:
         # data-independent Gaussian normal equations (core.py:224-226)
         xm = x * m[..., None]
-        Mg = torch.einsum("zst,kst->zk", mum, muz) + torch.diag(torch.sum(vm, dim=(1, 2)))
-        xtx = torch.einsum("stxn,stqn->nxq", xm, x)
+        Mg, vsum, xtx = _psum((torch.einsum("zst,kst->zk", mum, muz),
+                               torch.sum(vm, dim=(1, 2)),
+                               torch.einsum("stxn,stqn->nxq", xm, x)), dist.data)
+        Mg = Mg + torch.diag(vsum)
 
     def iteration(a, b, noise_prev):
         xb = _xb(x, b)
         eta = _eta(muz, a, xb)
-        noise = _masked_var(y - eta, mask)
+        noise = _masked_var(y - eta, mask, dist)
         ym = y * m
 
         if need_pois:
             r = _rates(eta, vz, a)
             rm = r * m
             # ---- Poisson loading update (core.py:182-200) ----
-            C1 = torch.einsum("zst,sty->zy", mum, y - r)
-            C2 = torch.einsum("zst,sty->zy", vm, r)
-            grad_a = C1 - a * C2
-            grad_b = torch.einsum("stxy,sty->xy", x, ym - rm)
+            stats = [torch.einsum("zst,sty->zy", mum, y - r),
+                     torch.einsum("zst,sty->zy", vm, r),
+                     torch.einsum("stxy,sty->xy", x, ym - rm)]
             if config.use_hessian:
                 # Hessian of -loglik w.r.t. a[:, n]:
                 # (mu + v a_n)' diag(r_n) (mu + v a_n) + diag(r_n' v)
-                E1 = _pair_stats(rm, muz, muz)
-                E2 = _pair_stats(rm, vz, muz)
-                E3 = _pair_stats(rm, vz, vz)
+                stats += [_pair_stats(rm, muz, muz), _pair_stats(rm, vz, muz),
+                          _pair_stats(rm, vz, vz),
+                          torch.einsum("stxy,sty,stqy->yxq", x, rm, x)]
+            C1, C2, grad_b, *hess = _psum(stats, dist.data)
+            grad_a = C1 - a * C2
+            if config.use_hessian:
+                E1, E2, E3, nhess_b = hess
                 an = a.T  # (y, z)
                 nhess = (
                     E1
@@ -291,7 +372,6 @@ def mstep(data: TrialSet, params: Params, config: Config,
                 )
                 delta_a = torch.linalg.solve(nhess + eps * Iz, grad_a.T[..., None])[..., 0].T
                 # ---- Poisson regression update (core.py:205-218) ----
-                nhess_b = torch.einsum("stxy,sty,stqy->yxq", x, rm, x)
                 delta_b = torch.linalg.solve(nhess_b + eps * Ix, grad_b.T[..., None])[..., 0].T
             else:
                 # gradient mode (core.py:196-197, 215-216)
@@ -304,10 +384,10 @@ def mstep(data: TrialSet, params: Params, config: Config,
 
         if need_gauss:
             # ---- Gaussian closed form (core.py:221-235) ----
-            rhs_a = torch.einsum("zst,sty->zy", mum, y - _xb(x, b))
+            rhs_a = _psum(torch.einsum("zst,sty->zy", mum, y - _xb(x, b)), dist.data)
             a_gauss = torch.linalg.solve(Mg, rhs_a)
             resid = ym - _eta(mum, a_gauss, torch.zeros_like(y))
-            rhs_b = torch.einsum("stxy,sty->yx", x, resid)
+            rhs_b = _psum(torch.einsum("stxy,sty->yx", x, resid), dist.data)
             b_gauss = torch.linalg.solve(xtx + eps * Ix, rhs_b[..., None])[..., 0].T
             # zero the history-filter rows, keep the bias (core.py:235)
             b_gauss = b_gauss * (torch.arange(xdim, device=b.device) == 0)[:, None].to(b.dtype)
@@ -344,9 +424,11 @@ def mstep(data: TrialSet, params: Params, config: Config,
     return params.replace(a=a, b=b, noise=noise, da=da, db=db)
 
 
-def constrain_loading(data: TrialSet, params: Params, config: Config
-                      ) -> Tuple[TrialSet, Params]:
-    """Normalize the loading, compensating the latents (core.py:392-416)."""
+def constrain_loading(data: TrialSet, params: Params, config: Config,
+                      dist: Dist = Dist()) -> Tuple[TrialSet, Params]:
+    """Normalize the loading, compensating the latents (core.py:392-416);
+    the loading is replicated over the data axis, so nothing is reduced."""
+    _check_dist(dist)
     c = config.constrain_loading
     if not c or c == "none":
         return data, params
@@ -370,17 +452,18 @@ def constrain_loading(data: TrialSet, params: Params, config: Config
     return data.replace(mu=data.mu * s[None, None, :]), params.replace(a=a / s[:, None])
 
 
-def constrain_latent(data: TrialSet, params: Params, config: Config
-                     ) -> Tuple[TrialSet, Params]:
+def constrain_latent(data: TrialSet, params: Params, config: Config,
+                     dist: Dist = Dist()) -> Tuple[TrialSet, Params]:
     """Center/scale the posterior mean, compensating (b, a)
     (core.py:366-389).  Off by default, as in the reference."""
+    _check_dist(dist)
     c = config.constrain_latent
     if not c or c == "none":
         return data, params
     m = data.mask[..., None]
-    n = torch.sum(data.mask)
-    mean = torch.sum(data.mu * m, dim=(0, 1)) / n
-    std = torch.sqrt(torch.sum((data.mu - mean) ** 2 * m, dim=(0, 1)) / n)
+    n, s1 = _psum((torch.sum(data.mask), torch.sum(data.mu * m, dim=(0, 1))), dist.data)
+    mean = s1 / n
+    std = torch.sqrt(_psum(torch.sum((data.mu - mean) ** 2 * m, dim=(0, 1)), dist.data) / n)
     mu, a, b = data.mu, params.a, params.b
     if c in ("location", "both"):
         mu = (mu - mean) * m
@@ -392,16 +475,19 @@ def constrain_latent(data: TrialSet, params: Params, config: Config
     return data.replace(mu=mu), params.replace(a=a, b=b)
 
 
-def em_norms(data: TrialSet, params: Params) -> dict:
-    """Squared norms used by the convergence test (core.py:300-305, 350-359)."""
+def em_norms(data: TrialSet, params: Params, dist: Dist = Dist()) -> dict:
+    """Squared norms used by the convergence test (core.py:300-305,
+    350-359); the posterior's are summed over the data axis."""
+    _check_dist(dist)
     m = data.mask[..., None]
 
     def sq(t):
         return torch.sum(t * t)
 
+    mu, dmu = _psum((sq(data.mu * m), sq(data.dmu * m)), dist.data)
     return dict(
-        mu=sq(data.mu * m),
-        dmu=sq(data.dmu * m),
+        mu=mu,
+        dmu=dmu,
         a=sq(params.a),
         da=sq(params.da),
         b=sq(params.b),

@@ -6,14 +6,15 @@ dimension: ``rank`` sequential steps of O(Z n) vector work, with pivots
 chosen on the device (no host round trip per step).
 ``nystrom_gauss_batch`` is the one-Cholesky landmark factor used for the
 window segments, with the same per-latent fallback to ichol when the
-landmark Cholesky fails.
+landmark Cholesky fails.  ``ichol`` is the same pivoted factorization of a
+general PSD matrix (``vlgp/math.py:129-169``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["ichol_gauss", "ichol_gauss_batch", "nystrom_gauss_batch"]
+__all__ = ["ichol_gauss", "ichol_gauss_batch", "ichol", "nystrom_gauss_batch"]
 
 
 def _as_omega(omega) -> torch.Tensor:
@@ -115,3 +116,46 @@ def nystrom_gauss_batch(n: int, omega, rank: int, dt: float = 1.0,
         return G
     return torch.where(finite[:, None, None], G,
                        ichol_gauss_batch(n, omega, rank, dt))
+
+
+def ichol(A, rank: int | None = None, tol: float = 1e-10) -> torch.Tensor:
+    """Pivoted incomplete Cholesky of a general PSD matrix, A ~= G G'
+    (``vlgp_tpu/ops/ichol.py:161-202``, reference ``math.py:129-169``).
+
+    ``rank`` sequential steps (default n) of greedy max-diagonal pivoting on
+    A's device; exhausted pivots (d <= tol) give zero columns.  Returns
+    (n, rank)."""
+    A = torch.as_tensor(A)
+    n = A.shape[0]
+    rank = n if rank is None else rank
+    dtype, device = A.dtype, A.device
+    rows = torch.arange(n, device=device)
+    cols = torch.arange(rank, device=device)
+    G = torch.zeros((n, rank), dtype=dtype, device=device)
+    diagA = torch.diagonal(A)
+    d = diagA.clone()
+    pvec = rows.clone()
+    zero = torch.zeros((), dtype=dtype, device=device)
+    neg_inf = torch.tensor(-float("inf"), dtype=dtype, device=device)
+    for i in range(min(rank, n)):
+        # greedy pivot: largest remaining diagonal, swapped into place i
+        jast = torch.argmax(torch.where(rows >= i, d, neg_inf))
+        perm = rows.clone()
+        perm.scatter_(0, jast[None], i)
+        perm[i] = jast
+        pvec, d, G = pvec[perm], d[perm], G[perm]
+
+        alive = d[i] > tol
+        gii = torch.sqrt(torch.clamp(d[i], min=tol))
+        G[i, i] = torch.where(alive, gii, zero)
+        nextcol = A[pvec, pvec[i]]
+        prev = torch.where(cols < i, G[i], zero)
+        newcol = torch.where(alive, (nextcol - G @ prev) / gii, zero)
+        below = rows > i
+        G[:, i] = torch.where(below, newcol, G[:, i])
+        dnew = diagA[pvec] - torch.sum(G[:, : i + 1] ** 2, dim=1)
+        d = torch.where(below, dnew, d)
+    # un-permute rows: out[pvec[k]] = G[k]
+    out = torch.zeros_like(G)
+    out[pvec] = G
+    return out
