@@ -77,7 +77,17 @@ Phases, each of which raises on failure:
    half of the segments: both ranks equal bit for bit, R^2 >= R2_MIN and
    within R2_SHARD_GAP of 11a, each rank's launches and collectives
    printed (gloo stages every collective through the host: a correctness
-   check, not a multi-card speed).
+   check, not a multi-card speed); (11c) the same two processes on a (1, 2)
+   mesh (`--mesh 1x2`): the channels split over the ranks, 50 each, all
+   2000 segments on both, the fused sweep asked for (a model axis is never
+   eligible for it): both ranks equal bit for bit (the replicated fields
+   and the gathered channel fields), 100 channels in the result, R^2 >=
+   R2_MIN and within R2_SHARD_GAP of 11a, ns_gram and ns_packed launched
+   and sweep not, the all_reduces per EM iteration and the bytes by axis
+   printed; (11d) the (1, 2) mesh on the first 99 of the 100 neurons
+   (`--ydim 99`): rank 1 holds one padded channel, whose a, b, da and db
+   stay exactly zero at every EM iteration boundary; 99 channels in the
+   result and R^2 >= R2_MIN.
 
 Times are per call, each between its own pair of CUDA events, over 10
 calls after a warm-up, printed as median [min-max].  Ends with one JSON
@@ -1455,18 +1465,21 @@ def reset_all_counters():
         tv.COLLECTIVES[k] = 0
 
 
-def sharded_fit(recorder, **kw):
-    """fit_sharded on the flagship workload, counters set to 0 just before;
-    returns (result, wall s, launches, collectives, R^2)."""
+def sharded_fit(recorder, ydim=YDIM, **kw):
+    """fit_sharded on the flagship workload, or on its first ``ydim``
+    neurons, counters set to 0 just before; returns (result, wall s,
+    launches, collectives, R^2)."""
     from vlgp_tpu_torch.models import vlgp as tv
     from vlgp_tpu_torch.ops import spd
     from vlgp_tpu_torch.parallel.driver import fit_sharded
 
     trials, a, zt = make_workload()
+    trials = [dict(t, y=t["y"][:, :ydim]) for t in trials]
+    flagship = dict(FLAGSHIP_KW, b=FLAGSHIP_KW["b"][:, :ydim])
     reset_all_counters()
     torch.cuda.synchronize()
     tic = time.perf_counter()
-    result = fit_sharded(trials, ZDIM, a=a, callbacks=[recorder], **FLAGSHIP_KW, **kw)
+    result = fit_sharded(trials, ZDIM, a=a[:, :ydim], callbacks=[recorder], **flagship, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
     launches, coll = dict(spd.KERNEL_LAUNCHES), dict(tv.COLLECTIVES)
@@ -1543,37 +1556,73 @@ def run_sharded_world1(card):
     return r2
 
 
-def sharded_worker(rank, world, port, out):
-    """One rank of 11b: a gloo group on CUDA tensors, this rank's half of the
-    segments on the one card; writes its result to ``out``."""
+def sharded_worker(rank, world, port, out, shape, ydim):
+    """One rank of 11b, 11c or 11d: a gloo group on CUDA tensors, this rank's
+    block of a ``shape`` mesh on the one card; writes its result to ``out``."""
     import datetime
 
     import torch.distributed as tdist
 
+    from vlgp_tpu_torch.models import vlgp as tv
+    from vlgp_tpu_torch.ops import spd
+    from vlgp_tpu_torch.parallel import driver, make_mesh
+
     torch.backends.cuda.matmul.allow_tf32 = False
     # the ranks share the host's cores (host-side work, gloo's staging)
     torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    timeout = datetime.timedelta(seconds=120)
     tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                             world_size=world, timeout=datetime.timedelta(seconds=120))
+                             world_size=world, timeout=timeout)
+    mesh = make_mesh(shape, device="cuda:0", timeout=timeout)
+    # asked for, and never eligible under a model axis (ops/sweep.py)
+    tv._SWEEP_FUSED = mesh.model > 1
+    # this rank's last channel after every EM step (a padded one in 11d)
+    tails, step_of = [], driver.sharded_em_step
+
+    def recorded(*args):
+        step = step_of(*args)
+
+        def run(*state):
+            out = step(*state)
+            p = out[1]
+            tails.append({f: getattr(p, f)[..., -1].cpu() for f in ("a", "b", "da", "db")}
+                         | {"active": None if p.active is None else bool(p.active[-1])})
+            return out
+
+        return run
+
+    driver.sharded_em_step = recorded
     seen, rec = param_recorder()
-    got, wall, launches, coll, r2 = sharded_fit(rec, device="cuda:0")
+    got, wall, launches, coll, r2 = sharded_fit(rec, ydim=ydim, mesh=mesh)
+    routes = dict(spd.ROUTE_CALLS)
     tdist.destroy_process_group()
     torch.save({"params": {f: getattr(got.params, f).cpu() for f in PARAM_FIELDS},
-                "mu": got.data.mu.cpu(), "v": got.data.v.cpu(), "seen": len(seen),
-                "it": got.runtime["it"], "converged_at": got.runtime.get("converged_at"),
+                "mu": got.data.mu.cpu(), "v": got.data.v.cpu(), "w": got.data.w.cpu(),
+                "seen": [s["a"].shape[-1] for s in seen], "it": got.runtime["it"],
+                "converged_at": got.runtime.get("converged_at"),
                 "final_hstep": got.runtime.get("final_hstep", False), "wall": wall,
                 "em_s": sum(got.runtime["em_elapsed"]), "launches": launches,
-                "collectives": coll, "r2": r2}, out)
+                "routes": routes, "collectives": coll, "r2": r2, "coords": mesh.coords,
+                "ydim": got.data.y.shape[-1], "tails": tails}, out)
 
 
-def run_sharded_gloo(card, r2_world1):
-    """11b: two processes on the one card over a gloo group; both ranks equal
-    bit for bit, R^2 >= R2_MIN and within R2_SHARD_GAP of 11a."""
+# bytes of one E-step sweep's two model-axis all_reduces (residual @ a and
+# the weights, each (Z, S, T) float32 over the flagship's 2000 segments)
+SWEEP_MODEL_BYTES = 2 * ZDIM * NTRIAL * -(-LENGTH // 50) * 50 * 4
+
+
+def run_sharded_gloo(card, r2_world1, tag="11b", shape=(2, 1), ydim=YDIM):
+    """11b, 11c and 11d: two processes on the one card over a gloo group, on
+    a ``shape`` mesh, fitting the first ``ydim`` neurons; both ranks equal
+    bit for bit and R^2 >= R2_MIN; within R2_SHARD_GAP of 11a on all
+    neurons; with a model axis, no sweep launch and the padded channel
+    exactly zero."""
     port = free_port()
     with tempfile.TemporaryDirectory(prefix=".smoke11_", dir=ROOT) as tmp:
         outs = [f"{tmp}/rank{r}.pt" for r in range(2)]
         procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(r),
-                                   "--world", "2", "--port", str(port), "--out", outs[r]],
+                                   "--world", "2", "--port", str(port), "--out", outs[r],
+                                   "--mesh", f"{shape[0]}x{shape[1]}", "--ydim", str(ydim)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for r in range(2)]
         try:
@@ -1584,28 +1633,46 @@ def run_sharded_gloo(card, r2_world1):
                     p.kill()
         for r, (p, text) in enumerate(zip(procs, texts)):
             if p.returncode != 0:
-                raise AssertionError(f"11b: rank {r} exited {p.returncode}:\n{text[-4000:]}")
+                raise AssertionError(f"{tag}: rank {r} exited {p.returncode}:\n{text[-4000:]}")
         res = [torch.load(o, weights_only=False) for o in outs]
     for r, x in enumerate(res):
-        log(f"11b rank {r}, gloo world 2 on one card [{card}]: {x['wall']:.2f} s wall "
-            f"(EM loop {x['em_s']:.2f} s), {x['it']} EM iterations (converged_at "
-            f"{x['converged_at']}, final_hstep {x['final_hstep']}), R^2 {x['r2']:.4f}, "
-            f"launches {x['launches']}, collectives {x['collectives']} "
-            f"({x['collectives']['all_reduce'] / x['it']:.1f} all_reduce per EM iteration, "
-            f"{BOUNDARY_BYTES // 2} bytes from the other rank per boundary)")
+        c, it = x["collectives"], x["it"]
+        log(f"{tag} rank {r} at {x['coords']} of a {shape[0]}x{shape[1]} mesh, gloo on one card "
+            f"[{card}]: {x['wall']:.2f} s wall (EM loop {x['em_s']:.2f} s), {it} EM iterations "
+            f"(converged_at {x['converged_at']}, final_hstep {x['final_hstep']}), {ydim} "
+            f"neurons, R^2 {x['r2']:.4f}, launches {x['launches']}, sweep route calls "
+            f"{x['routes']['sweep']}, collectives {c}; all_reduce per EM iteration: data "
+            f"{c['all_reduce_data'] / it:.1f}, model {c['all_reduce_model'] / it:.1f}; bytes: "
+            f"data {c['bytes_data']}, model {c['bytes_model']} = "
+            f"{c['bytes_model'] // SWEEP_MODEL_BYTES} x {SWEEP_MODEL_BYTES} + "
+            f"{c['bytes_model'] % SWEEP_MODEL_BYTES}")
     a, b = res
     same = (all(torch.equal(a["params"][f], b["params"][f]) for f in PARAM_FIELDS)
-            and torch.equal(a["mu"], b["mu"]) and torch.equal(a["v"], b["v"])
+            and all(torch.equal(a[f], b[f]) for f in ("mu", "v", "w"))
             and a["collectives"] == b["collectives"] and a["it"] == b["it"])
-    log(f"11b: ranks equal bit for bit: {same}; R^2 {a['r2']:.4f} vs 11a {r2_world1:.4f}")
+    log(f"{tag}: ranks equal bit for bit: {same}; R^2 {a['r2']:.4f} vs 11a {r2_world1:.4f}")
     if not same:
-        raise AssertionError("11b: the two ranks disagree")
-    if a["r2"] < R2_MIN or abs(a["r2"] - r2_world1) > R2_SHARD_GAP:
-        raise AssertionError(f"11b: R^2 {a['r2']:.4f} against 11a's {r2_world1:.4f}")
+        raise AssertionError(f"{tag}: the two ranks disagree")
+    if a["r2"] < R2_MIN or (ydim == YDIM and abs(a["r2"] - r2_world1) > R2_SHARD_GAP):
+        raise AssertionError(f"{tag}: R^2 {a['r2']:.4f} against 11a's {r2_world1:.4f}")
     for r, x in enumerate(res):
+        if x["ydim"] != ydim or set(x["seen"]) != {ydim}:
+            raise AssertionError(f"{tag}: rank {r} returned {x['ydim']} channels, its callbacks "
+                                 f"saw {set(x['seen'])}, not {ydim}")
         for name in ("ns_gram", "ns_packed"):
             if x["launches"][name] == 0:
-                raise AssertionError(f"11b: rank {r} never launched {name}")
+                raise AssertionError(f"{tag}: rank {r} never launched {name}")
+        if shape[1] > 1 and (x["launches"]["sweep"] or x["routes"]["sweep"]):
+            raise AssertionError(f"{tag}: rank {r} ran the fused sweep under a model axis")
+    if ydim % shape[1]:
+        # the last rank of the data row holds the padded channels
+        pad = res[-1]["tails"]
+        zero = all(t["active"] is False and all(not t[f].any() for f in ("a", "b", "da", "db"))
+                   for t in pad)
+        log(f"{tag}: the padded channel on rank 1 is inactive, and its a, b, da and db exactly "
+            f"zero at all {len(pad)} EM iteration boundaries: {zero}")
+        if not zero or len(pad) != a["it"]:
+            raise AssertionError(f"{tag}: the padded channel moved")
 
 
 def main():
@@ -1684,6 +1751,8 @@ def main():
     # 11, the sharded fit, each sub-phase with its own counters
     r2_world1 = run_sharded_world1(card)
     run_sharded_gloo(card, r2_world1)
+    run_sharded_gloo(card, r2_world1, "11c", (1, 2))
+    run_sharded_gloo(card, r2_world1, "11d", (1, 2), ydim=YDIM - 1)
 
     g_cold = next(r for r in g_rows if r[0] == "cold")
     p_cold = next(r for r in p_rows if r[0] == "cold")
@@ -1719,14 +1788,17 @@ def main():
 
 
 if __name__ == "__main__":
-    if "--rank" in sys.argv:  # one rank of phase 11b
+    if "--rank" in sys.argv:  # one rank of phase 11b, 11c or 11d
         import argparse
 
         ap = argparse.ArgumentParser()
         for flag in ("--rank", "--world", "--port"):
             ap.add_argument(flag, type=int, required=True)
         ap.add_argument("--out", required=True)
+        ap.add_argument("--mesh", default=None, help="DxM, default: every rank on the data axis")
+        ap.add_argument("--ydim", type=int, default=YDIM, help="fit the first YDIM neurons")
         args = ap.parse_args()
-        sharded_worker(args.rank, args.world, args.port, args.out)
+        shape = (args.world, 1) if args.mesh is None else tuple(map(int, args.mesh.split("x")))
+        sharded_worker(args.rank, args.world, args.port, args.out, shape, args.ydim)
     else:
         main()

@@ -5,9 +5,6 @@ vlgp_tpu.parallel on a (2, 1) mesh of the virtual CPU devices."""
 import datetime
 import functools
 import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -26,36 +23,19 @@ import _torch_dist_worker as W
 from _torch_parity import assert_close, np_of, pin_trials
 
 torch.set_num_threads(1)
-HERE = os.path.dirname(os.path.abspath(__file__))
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 @functools.lru_cache(maxsize=None)
 def _launch(case: str, tmp: str):
     """Start both ranks of one worker case (once per case and module), each
     a process of its own."""
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    return [subprocess.Popen([sys.executable, os.path.join(HERE, "_torch_dist_worker.py"),
-                              case, str(r), "2", str(port), os.path.join(tmp, f"{case}{r}.pt")],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-            for r in range(2)]
+    return W.launch(case, tmp)
 
 
 @functools.lru_cache(maxsize=None)
 def _gloo(case: str, tmp: str):
     """Both ranks' results of one worker case."""
-    procs = _launch(case, tmp)
-    outs = [p.communicate(timeout=240)[0] for p in procs]
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} of {case} failed:\n{out}"
-    return [torch.load(os.path.join(tmp, f"{case}{r}.pt"), weights_only=False)
-            for r in range(2)]
+    return W.collect(_launch(case, tmp), case, tmp)
 
 
 @pytest.fixture(scope="module")
@@ -131,7 +111,7 @@ def test_world1_fit_sharded_matches_fit(group):
 
     ref = vlgp_tpu_torch.fit(trials, 2, device="cpu", callbacks=[record("fit")], **kw)
     if group == "gloo_world1":
-        tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}",
+        tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{W.free_port()}",
                                  rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
     try:
         for k in tv.COLLECTIVES:
@@ -240,8 +220,9 @@ def test_two_ranks_adaptive_exits_agree_bitwise(tmp_dir, name):
 
 
 def test_mesh_contract_world1():
-    """The sharding contract names every field vlgp_tpu's does; a world of
-    one pads, shards, gathers and replicates as identities (values)."""
+    """The sharding contract splits every field over the axes vlgp_tpu's
+    does, dimension by dimension; a world of one pads, shards, gathers and
+    replicates as identities (values)."""
     from vlgp_tpu.parallel import mesh as jmesh
 
     from vlgp_tpu_torch.config import make_params
@@ -252,8 +233,10 @@ def test_mesh_contract_world1():
     params = make_params(10, 2, 1, "poisson", a=a, dtype=torch.float64)
     assert set(data_specs(data)) == set(jmesh.TRIALSET_SPEC_FIELDS)
     assert set(params_specs(params)) == set(jmesh.PARAMS_SPEC_FIELDS)
-    assert set(data_specs(data).values()) == {"data"}
-    assert set(params_specs(params).values()) == {None}
+    for f, spec in data_specs(data).items():
+        assert spec == tuple(jmesh.TRIALSET_SPEC_FIELDS[f]), f
+    for f, spec in params_specs(params).items():
+        assert spec == tuple(jmesh.PARAMS_SPEC_FIELDS[f]), f
     mesh = make_mesh(device="cpu")
     assert (mesh.shape, mesh.rank, mesh.group) == ((1, 1), 0, None)
     assert mesh.dist(DIST) == tv.Dist()
@@ -266,17 +249,18 @@ def test_mesh_contract_world1():
 
 
 def test_entry_points_refuse():
-    """fit_sharded runs on the card unless asked for the CPU; block > 1 and
-    the model axis are later items and raise naming them."""
+    """block > 1 is a later item and raises naming it; a mesh shape must
+    cover the ranks, and the svd loading constraint under a model axis
+    raises, as in vlgp_tpu (models/vlgp.py:510-511)."""
     trials, kw = _fit_kw()
     with pytest.raises(NotImplementedError, match="item 7"):
         fit_sharded(trials, 2, device="cpu", block=2, **kw)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        make_mesh((1, 2), device="cpu")
-    config = vlgp_tpu_torch.default_config(dtype="float64")
+    with pytest.raises(ValueError, match="mesh shape"):
+        make_mesh((1, 2), device="cpu")  # a world of one
+    config = vlgp_tpu_torch.default_config(dtype="float64", constrain_loading="svd")
     _, seg, params, _ = W.prepared(config)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        tv.mstep(seg, params, config, dist=tv.Dist(model=object()))
+    with pytest.raises(NotImplementedError, match="svd"):
+        tv.constrain_loading(seg, params, config, dist=tv.Dist(model=object()))
 
 
 def test_fit_sharded_without_device_needs_cuda(monkeypatch):

@@ -140,10 +140,10 @@ def test_pick_bs_and_eligibility(pin32):
     for shape in ((2, 16, 6, 16), (2, 64, 6, 50), (3, 33, 7, 128), (1, 200, 300, 8)):
         assert tsw._pick_bs(*shape) == jsw._pick_bs(*shape)
     data, params, G, _ = pin32[1]
-    assert tsw.sweep_fused_eligible(data, params, G)
-    assert not tsw.sweep_fused_eligible(data, params, G.double())
+    assert tsw.sweep_fused_eligible(data, params, G, tv.Dist())
+    assert not tsw.sweep_fused_eligible(data, params, G.double(), tv.Dist())
     big = torch.zeros((G.shape[0], G.shape[1], 130))
-    assert not tsw.sweep_fused_eligible(data, params, big)
+    assert not tsw.sweep_fused_eligible(data, params, big, tv.Dist())
 
 
 def _jax_fused_estep(jstate, xinv):
@@ -284,7 +284,7 @@ def test_sweep_geometry_at_the_edge_widths():
     def eligible(S, T, Y, Z, R):
         data = SimpleNamespace(y=torch.zeros((S, T, Y)))
         params = SimpleNamespace(a=torch.zeros((Z, Y)))
-        return tsw.sweep_fused_eligible(data, params, torch.zeros((Z, T, R)))
+        return tsw.sweep_fused_eligible(data, params, torch.zeros((Z, T, R)), tv.Dist())
 
     assert tsw._pick_bs(1, 1, 15000, 128) > 0
     assert eligible(20, 1, 100, 1, 128) and not eligible(20, 1, 15000, 1, 128)

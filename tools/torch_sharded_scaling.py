@@ -1,6 +1,8 @@
-"""How does the data axis of vlgp_tpu_torch's sharded fit scale over cards?
+"""How does vlgp_tpu_torch's sharded fit scale over cards?
 
     python3 -m torch.distributed.run --nproc-per-node 4 tools/torch_sharded_scaling.py OUT.json
+    python3 -m torch.distributed.run --nproc-per-node 4 tools/torch_sharded_scaling.py OUT.json \\
+        --meshes 4x1,2x2,1x4                         # the (data, model) meshes of all ranks
     python3 -m torch.distributed.run --nproc-per-node 4 tools/torch_sharded_scaling.py OUT.json \\
         --device cpu --backend gloo --small          # a rehearsal on the CPU
 
@@ -13,11 +15,13 @@ per rank: ``cuda:<LOCAL_RANK>``) and, on the flagship workload of
 2. runs ``fit_sharded`` over the ranks 0..1 (world 2; the others wait) and
    over all ranks (world 4), each with the counters set to 0 just before;
 
-in turns: fit, world 2, world 4, world 4, world 2, fit.  Rank 0 writes each
-run's wall (host clock ending in ``torch.cuda.synchronize``), EM-loop
-seconds, all-reduces and R^2 to OUT.json and prints it, with the card's
-name and power limit.  ``--small`` cuts the workload to 8 x 200 x 20 x 3
-and 6 EM iterations.
+in turns: fit, world 2, world 4, world 4, world 2, fit.  With ``--meshes``
+the sharded runs are ``fit_sharded`` over all ranks on each listed mesh
+instead, in turns (fit, the meshes, the meshes reversed, fit).  Rank 0
+writes each run's wall (host clock ending in ``torch.cuda.synchronize``),
+EM-loop seconds, all-reduces and bytes by axis, and R^2 to OUT.json and
+prints it, with the card's name and power limit.  ``--small`` cuts the
+workload to 8 x 200 x 20 x 3 and 6 EM iterations.
 """
 import argparse
 import datetime
@@ -52,6 +56,7 @@ def main():
     ap.add_argument("--device", default=None)
     ap.add_argument("--backend", default="nccl")
     ap.add_argument("--small", action="store_true")
+    ap.add_argument("--meshes", default="", help="DxM,... over all ranks, e.g. 4x1,2x2,1x4")
     args = ap.parse_args()
 
     import vlgp_tpu_torch
@@ -60,7 +65,8 @@ def main():
     from vlgp_tpu_torch.parallel import make_mesh
     from vlgp_tpu_torch.parallel.driver import fit_sharded, initialize_distributed
 
-    initialize_distributed(backend=args.backend, timeout=datetime.timedelta(seconds=300))
+    timeout = datetime.timedelta(seconds=300)
+    initialize_distributed(backend=args.backend, timeout=timeout)
     rank, world = tdist.get_rank(), tdist.get_world_size()
     if args.device == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
@@ -73,9 +79,17 @@ def main():
     else:
         trials, a, zt = cs.make_workload()
         kw = dict(cs.FLAGSHIP_KW)
-    pair = tdist.new_group([0, 1])
-    meshes = {2: make_mesh(group=pair, device=device) if rank < 2 else None,
-              world: make_mesh(device=device)}
+    if args.meshes:  # every rank makes every mesh's subgroups, in one order
+        names = args.meshes.split(",")
+        meshes = {m: make_mesh(tuple(map(int, m.split("x"))), device=device, timeout=timeout)
+                  for m in names}
+        order = ([("fit", 1)] + [("sharded", m) for m in names + names[::-1]] + [("fit", 1)])
+    else:
+        pair = tdist.new_group([0, 1])
+        meshes = {2: make_mesh(group=pair, device=device) if rank < 2 else None,
+                  world: make_mesh(device=device)}
+        order = [("fit", 1), ("sharded", 2), ("sharded", world), ("sharded", world),
+                 ("sharded", 2), ("fit", 1)]
 
     def run(name, n):
         tdist.barrier()
@@ -94,12 +108,13 @@ def main():
         wall = time.perf_counter() - tic
         em = res.runtime["em_elapsed"]
         r2 = cs.r2_aligned(res.data.mu.cpu().numpy().reshape(-1, cs.ZDIM), zt)
-        return {"run": name, "world": n, "wall_s": wall, "em_s": sum(em),
-                "it": res.runtime["it"], "r2": r2, "all_reduce": tv.COLLECTIVES["all_reduce"],
-                "ns_gram": spd.KERNEL_LAUNCHES["ns_gram"]}
+        c = tv.COLLECTIVES
+        return {"run": name, "world" if isinstance(n, int) else "mesh": n, "wall_s": wall,
+                "em_s": sum(em), "it": res.runtime["it"], "r2": r2,
+                "all_reduce": c["all_reduce"], "all_reduce_data": c["all_reduce_data"],
+                "all_reduce_model": c["all_reduce_model"], "bytes_data": c["bytes_data"],
+                "bytes_model": c["bytes_model"], "ns_gram": spd.KERNEL_LAUNCHES["ns_gram"]}
 
-    order = [("fit", 1), ("sharded", 2), ("sharded", world), ("sharded", world),
-             ("sharded", 2), ("fit", 1)]
     rows = []
     for name, n in order:
         rows.append(run(name, n))

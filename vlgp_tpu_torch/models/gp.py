@@ -17,7 +17,7 @@ from ..config import Config, Params
 from ..data import TrialSet
 from ..ops.ichol import ichol_gauss, ichol_gauss_batch, nystrom_gauss_batch
 from ..ops.spd import inv_one_plus_gram
-from .vlgp import Dist, _check_dist, _psum
+from .vlgp import Dist, _psum
 
 __all__ = [
     "sekernel",
@@ -192,9 +192,10 @@ def hstep(data: TrialSet, params: Params, config: Config, dist: Dist = Dist(),
     the first refinement, which skips the probe.  Under ``dist.data`` the
     pooled statistics are summed over the ranks (one all_reduce before the
     refinements and one in each), so the search runs on the same statistic,
-    and returns the same omega and sigma, on every rank.
+    and returns the same omega and sigma, on every rank.  The statistics
+    read only the posterior, which is the same on every rank of a data row,
+    so ``dist.model`` adds nothing (``vlgp_tpu/models/gp.py:395-450``).
     """
-    _check_dist(dist)
     if not config.Hstep:
         return params
 
@@ -217,7 +218,7 @@ def hstep(data: TrialSet, params: Params, config: Config, dist: Dist = Dist(),
     # ridge-folded weights w/(1 + eps w): the low-rank prior K = GG' + eps I
     wt2 = (w_t / (1.0 + eps * w_t)).contiguous()
     nseg_total, Mbar, sum_w = _psum((valid.sum(), torch.einsum("zst,zsu->ztu", mu_t, mu_t),
-                                     torch.einsum("s,zst->zt", valid, wt2)), dist.data)
+                                     torch.einsum("s,zst->zt", valid, wt2)), dist, "data")
 
     def F(log_om, warmX=None, warm_probe=True):
         # one fixed-point refinement: posterior statistic at the running
@@ -237,7 +238,7 @@ def hstep(data: TrialSet, params: Params, config: Config, dist: Dist = Dist(),
             P.permute(0, 2, 1, 3).reshape(Zs, T, S * R).mT
         sum_X = torch.einsum("s,zsrq->zrq", valid, X)
         sum_QA = torch.einsum("s,zstr->ztr", valid, P - Q)  # Q A = P - Q
-        sum_QP, sum_X, sum_QA = _psum((sum_QP, sum_X, sum_QA), dist.data)
+        sum_QP, sum_X, sum_QA = _psum((sum_QP, sum_X, sum_QA), dist, "data")
         eyeR = torch.eye(R, dtype=dtype, device=device)
         sum_AXA_mA = sum_X - nseg_total * eyeR  # A X A - A = X - I
         KK = G_om @ G_om.mT

@@ -9,8 +9,12 @@ package's on-device loop exits become host-synced Python loops here.
 Every phase takes a :class:`Dist` naming the process group of each mesh
 axis; with the default (no groups) it runs on one device.  ``data`` splits
 segments/trials over the ranks of a group: cross-segment sums become
-``all_reduce``s, and every branch whose body holds one decides on reduced
-(rank-uniform) values, so no rank waits on a collective the others skip.
+``all_reduce``s.  ``model`` splits the channels: the E-step's channel
+contractions (``residual @ a`` and the weight refresh) and the norms of the
+loading become ``all_reduce``s over the model group, so every rank of a
+data row holds the same posterior.  Every branch whose body holds a
+collective decides on reduced (rank-uniform) values, so no rank waits on a
+collective the others skip.
 """
 from __future__ import annotations
 
@@ -49,34 +53,40 @@ __all__ = [
 class Dist(NamedTuple):
     """Process group of each mesh axis (None: not sharded on that axis);
     the counterpart of ``vlgp_tpu.models.vlgp.Dist``, whose fields are axis
-    names.  ``model`` (channels over ranks) is ROADMAP item 16b."""
+    names.  ``data`` splits segments, ``model`` channels."""
 
     data: Optional[object] = None
     model: Optional[object] = None
 
 
-# collectives made in this process, by kind (``_all_reduce`` and
-# ``parallel.mesh``'s broadcast and all_gather each add one per call)
-COLLECTIVES = {"all_reduce": 0, "broadcast": 0, "all_gather": 0}
+# collectives made in this process: calls by kind (``_all_reduce`` and
+# ``parallel.mesh``'s broadcast and all_gather each add one per call), the
+# all_reduces by axis, and the bytes of each all_reduce's buffer and each
+# all_gather's part of one rank, by the axis whose group carried them
+COLLECTIVES = {"all_reduce": 0, "broadcast": 0, "all_gather": 0,
+               "all_reduce_data": 0, "all_reduce_model": 0,
+               "bytes_data": 0, "bytes_model": 0}
 
 
-def _check_dist(dist: Dist) -> None:
-    if dist.model is not None:
-        raise NotImplementedError(
-            "sharding channels over a model axis is not ported yet: ROADMAP.md "
-            "Queue 1, item 16b (vlgp_tpu_torch shards the data axis only)")
+def _count(kind: str, axis: str, t: torch.Tensor) -> None:
+    """Add one ``kind`` collective of buffer ``t`` over ``axis`` to COLLECTIVES."""
+    COLLECTIVES[kind] += 1
+    if kind == "all_reduce":
+        COLLECTIVES[f"all_reduce_{axis}"] += 1
+    COLLECTIVES[f"bytes_{axis}"] += t.numel() * t.element_size()
 
 
-def _all_reduce(x, group, op):
+def _all_reduce(x, dist: Dist, axis: str, op):
     """Reduce ``x`` (a tensor, or a sequence of tensors of one dtype sent as
-    one flat buffer) over the ranks of ``group`` on a copy; ``x`` itself
-    when ``group`` is None."""
+    one flat buffer) over the ranks of ``dist``'s ``axis`` group on a copy;
+    ``x`` itself when that axis has no group."""
+    group = getattr(dist, axis)
     if group is None:
         return x
     parts = [x] if isinstance(x, torch.Tensor) else list(x)
     flat = torch.cat([t.reshape(-1) for t in parts])
     tdist.all_reduce(flat, op=op, group=group)
-    COLLECTIVES["all_reduce"] += 1
+    _count("all_reduce", axis, flat)
     # each result in an allocation of its own, as an unreduced tensor is: a
     # library kernel may take another path for an unaligned view, and then
     # a world of one would not repeat the single-device fit bit for bit
@@ -87,15 +97,15 @@ def _all_reduce(x, group, op):
     return out[0] if isinstance(x, torch.Tensor) else out
 
 
-def _psum(x, group):
-    """Sum over the ranks of ``group`` (``lax.psum`` over a mesh axis in
-    ``vlgp_tpu``); the identity for None."""
-    return _all_reduce(x, group, tdist.ReduceOp.SUM)
+def _psum(x, dist: Dist, axis: str):
+    """Sum over the ranks of ``dist``'s ``axis`` (``lax.psum`` over a mesh
+    axis in ``vlgp_tpu``); the identity where the axis has no group."""
+    return _all_reduce(x, dist, axis, tdist.ReduceOp.SUM)
 
 
-def _pmax(x, group):
-    """Max over the ranks of ``group`` (``lax.pmax``); the identity for None."""
-    return _all_reduce(x, group, tdist.ReduceOp.MAX)
+def _pmax(x, dist: Dist, axis: str):
+    """Max over the ranks of ``dist``'s ``axis`` (``lax.pmax``)."""
+    return _all_reduce(x, dist, axis, tdist.ReduceOp.MAX)
 
 
 def _zmajor(x):
@@ -134,9 +144,10 @@ def _residual(y, eta, r, params: Params):
     return torch.where(params.poisson, y - r, (y - eta) / _safe_noise(params.noise))
 
 
-def _weights(U, a):
-    """w = U @ (a.T)^2, latent-major (core.py:104)."""
-    return torch.einsum("sty,zy->zst", U, a * a)
+def _weights(U, a, dist: Dist):
+    """w = U @ (a.T)^2, latent-major (core.py:104), summed over the
+    channels of every model rank."""
+    return _psum(torch.einsum("sty,zy->zst", U, a * a), dist, "model")
 
 
 def _woodbury_inverse(G, wmz, iters: int = 16, warm=None, warm_iters: int = 8):
@@ -180,9 +191,12 @@ def estep(
     eligible call runs every sweep in one ``ops.sweep.sweep`` call, whose
     groups of segments exit on their own norms.  Under ``dist.data`` the
     exit norms are summed and the fused call's residual maxed over the
-    ranks before each test, so every rank sweeps the same count.
+    ranks before each test, so every rank sweeps the same count.  Under
+    ``dist.model`` each sweep sums ``residual @ a`` and the weights over the
+    model group (two (Z, S, T) all_reduces), so every rank of a data row
+    sweeps the same posterior; the fused sweep is not eligible there
+    (``ops.sweep.sweep_fused_eligible``).
     """
-    _check_dist(dist)
     niter = config.Eniter if niter is None else niter
     if niter < 1:
         return (data, xinv) if return_xinv else data
@@ -200,7 +214,7 @@ def estep(
         eta = _eta(muz, a, xb)
         r = _rates(eta, vz, a)
         residual = _residual(y, eta, r, params) * mask[..., None]
-        s = torch.einsum("sty,zy->zst", residual, a)
+        s = _psum(torch.einsum("sty,zy->zst", residual, a), dist, "model")
         delta = _woodbury_delta(G, s, muz, wz * maskz, X)
         delta = torch.clamp(delta, -config.dmu_bound, config.dmu_bound) * maskz
         muz = muz + delta
@@ -208,7 +222,7 @@ def estep(
         eta = _eta(muz, a, xb)
         r = _rates(eta, vz, a)
         U = torch.where(poisson_U, r, inv_noise)
-        wz = _weights(U, a) * maskz
+        wz = _weights(U, a, dist) * maskz
         if vb:
             X, vz = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=X,
                                       warm_iters=config.ns_warm_iters, want_v=True)
@@ -230,13 +244,13 @@ def estep(
         tol = config.estep_tol
         for i in range(niter):
             if tol > 0 and i >= 2:
-                nd, nm = _psum((torch.sum(dmuz * dmuz), torch.sum(muz * muz)), dist.data)
+                nd, nm = _psum((torch.sum(dmuz * dmuz), torch.sum(muz * muz)), dist, "data")
                 if not bool(nd > tol * tol * nm):
                     break
             muz, wz, vz, dmuz, X = sweep(muz, wz, vz, X)
         return muz, wz, vz, dmuz, X
 
-    if _SWEEP_FUSED and sweep_fused_eligible(data, params, G):
+    if _SWEEP_FUSED and sweep_fused_eligible(data, params, G, dist):
         # the whole E-step in one launch (ops/sweep.py), with ``core`` as the
         # net when any group's inverse misses its residual contract
         # (vlgp_tpu/models/vlgp.py:262-290); a host-synced branch
@@ -245,7 +259,7 @@ def estep(
             _zmajor(data.mu), _zmajor(data.w), _zmajor(data.v), xinv,
             niter=niter, tol=config.estep_tol, dmu_bound=config.dmu_bound,
             ns_iters=config.ns_iters, ns_warm_iters=config.ns_warm_iters, vb=vb)
-        if _converged(_pmax(resid.amax(), dist.data)):
+        if _converged(_pmax(resid.amax(), dist, "data")):
             muz, wz, vz, dmuz, X = fused
         else:
             FALLBACKS["sweep_core"] += 1
@@ -260,21 +274,19 @@ def estep(
 def update_w(data: TrialSet, params: Params, config: Config, dist: Dist = Dist()
              ) -> TrialSet:
     """Recompute likelihood precision weights (core.py:419-442); local to
-    each segment, so nothing is reduced on the data axis."""
-    _check_dist(dist)
+    each segment, summed over the model axis's channels."""
     muz, vz = _zmajor(data.mu), _zmajor(data.v)
     eta = _eta(muz, params.a, _xb(data.x, params.b))
     r = _rates(eta, vz, params.a)
     U = torch.where(params.poisson, r, 1.0 / _safe_noise(params.noise))
-    wz = _weights(U, params.a) * data.mask[None]
+    wz = _weights(U, params.a, dist) * data.mask[None]
     return data.replace(w=_zminor(wz))
 
 
 def update_v(data: TrialSet, params: Params, G, config: Config, dist: Dist = Dist()
              ) -> TrialSet:
     """Recompute the VB marginal posterior variance (core.py:445-471);
-    local to each segment."""
-    _check_dist(dist)
+    local to each segment and to the (model-summed) weights."""
     if config.method != "VB":
         return data
     wz = _zmajor(data.w) * data.mask[None]
@@ -287,7 +299,7 @@ def _masked_var(resid, mask, dist: Dist):
     core.py:177)."""
     m = mask[..., None]
     n, s1, s2 = _psum((torch.sum(mask), torch.sum(resid * m, dim=(0, 1)),
-                       torch.sum(resid * resid * m, dim=(0, 1))), dist.data)
+                       torch.sum(resid * resid * m, dim=(0, 1))), dist, "data")
     mean = s1 / n
     return s2 / n - mean * mean
 
@@ -309,9 +321,12 @@ def mstep(data: TrialSet, params: Params, config: Config,
 
     Under ``dist.data`` the sufficient statistics are summed over the ranks
     (one all_reduce per family and Newton iteration), so a, b, da and db
-    come out bitwise equal on every rank and the exit test, which reads
-    only them, is rank-uniform without a collective of its own."""
-    _check_dist(dist)
+    come out bitwise equal on every rank of a model column.  Every update
+    is per channel, so ``dist.model`` adds nothing to an iteration; the
+    exit test's squared norms are summed over the model group
+    (``vlgp_tpu/models/vlgp.py:483-490``), so every model rank takes the
+    same trip count.  ``params.active`` pins the channels it marks False
+    (the padding of ``parallel.mesh.pad_channels``) to their state."""
     niter = config.Mniter if niter is None else niter
     if niter < 1:
         return params
@@ -336,7 +351,7 @@ def mstep(data: TrialSet, params: Params, config: Config,
         xm = x * m[..., None]
         Mg, vsum, xtx = _psum((torch.einsum("zst,kst->zk", mum, muz),
                                torch.sum(vm, dim=(1, 2)),
-                               torch.einsum("stxn,stqn->nxq", xm, x)), dist.data)
+                               torch.einsum("stxn,stqn->nxq", xm, x)), dist, "data")
         Mg = Mg + torch.diag(vsum)
 
     def iteration(a, b, noise_prev):
@@ -358,7 +373,7 @@ def mstep(data: TrialSet, params: Params, config: Config,
                 stats += [_pair_stats(rm, muz, muz), _pair_stats(rm, vz, muz),
                           _pair_stats(rm, vz, vz),
                           torch.einsum("stxy,sty,stqy->yxq", x, rm, x)]
-            C1, C2, grad_b, *hess = _psum(stats, dist.data)
+            C1, C2, grad_b, *hess = _psum(stats, dist, "data")
             grad_a = C1 - a * C2
             if config.use_hessian:
                 E1, E2, E3, nhess_b = hess
@@ -384,10 +399,10 @@ def mstep(data: TrialSet, params: Params, config: Config,
 
         if need_gauss:
             # ---- Gaussian closed form (core.py:221-235) ----
-            rhs_a = _psum(torch.einsum("zst,sty->zy", mum, y - _xb(x, b)), dist.data)
+            rhs_a = _psum(torch.einsum("zst,sty->zy", mum, y - _xb(x, b)), dist, "data")
             a_gauss = torch.linalg.solve(Mg, rhs_a)
             resid = ym - _eta(mum, a_gauss, torch.zeros_like(y))
-            rhs_b = _psum(torch.einsum("stxy,sty->yx", x, resid), dist.data)
+            rhs_b = _psum(torch.einsum("stxy,sty->yx", x, resid), dist, "data")
             b_gauss = torch.linalg.solve(xtx + eps * Ix, rhs_b[..., None])[..., 0].T
             # zero the history-filter rows, keep the bias (core.py:235)
             b_gauss = b_gauss * (torch.arange(xdim, device=b.device) == 0)[:, None].to(b.dtype)
@@ -416,9 +431,9 @@ def mstep(data: TrialSet, params: Params, config: Config,
     mtol = config.mstep_tol
     for i in range(niter):
         if mtol > 0 and i >= 2:
-            moving = (torch.sum(da * da) > mtol * mtol * torch.sum(a * a)) | (
-                torch.sum(db * db) > mtol * mtol * torch.sum(b * b))
-            if not bool(moving):
+            nda, na, ndb, nb = _psum((torch.sum(da * da), torch.sum(a * a),
+                                      torch.sum(db * db), torch.sum(b * b)), dist, "model")
+            if not bool((nda > mtol * mtol * na) | (ndb > mtol * mtol * nb)):
                 break
         a, b, noise, da, db = iteration(a, b, noise)
     return params.replace(a=a, b=b, noise=noise, da=da, db=db)
@@ -427,26 +442,29 @@ def mstep(data: TrialSet, params: Params, config: Config,
 def constrain_loading(data: TrialSet, params: Params, config: Config,
                       dist: Dist = Dist()) -> Tuple[TrialSet, Params]:
     """Normalize the loading, compensating the latents (core.py:392-416);
-    the loading is replicated over the data axis, so nothing is reduced."""
-    _check_dist(dist)
+    the loading is replicated over the data axis, and its norms are summed
+    over the model axis's channels.  ``"svd"`` under a model axis raises, as
+    in ``vlgp_tpu`` (``models/vlgp.py:510-511``)."""
     c = config.constrain_loading
     if not c or c == "none":
         return data, params
     a = params.a
     if c == "svd":
+        if dist.model is not None:
+            raise NotImplementedError("svd loading constraint under model sharding")
         _, _, vh = torch.linalg.svd(a, full_matrices=False)
         us = a @ vh.T
         mu = torch.einsum("stz,zk->stk", data.mu, us)
         return data.replace(mu=mu), params.replace(a=vh)
     if c == "fro":
-        s = torch.sqrt(torch.sum(a * a)) + config.eps
+        s = torch.sqrt(_psum(torch.sum(a * a), dist, "model")) + config.eps
         return data.replace(mu=data.mu * s), params.replace(a=a / s)
     # row-wise vector norm with ord=c (core.py:413)
     ord_ = float(c) if not isinstance(c, (int, float)) else c
     if ord_ == 2:
-        s = torch.sqrt(torch.sum(a * a, dim=1)) + config.eps
+        s = torch.sqrt(_psum(torch.sum(a * a, dim=1), dist, "model")) + config.eps
     elif ord_ == 1:
-        s = torch.sum(torch.abs(a), dim=1) + config.eps
+        s = _psum(torch.sum(torch.abs(a), dim=1), dist, "model") + config.eps
     else:
         raise ValueError(f"unsupported loading constraint {c!r}")
     return data.replace(mu=data.mu * s[None, None, :]), params.replace(a=a / s[:, None])
@@ -455,15 +473,16 @@ def constrain_loading(data: TrialSet, params: Params, config: Config,
 def constrain_latent(data: TrialSet, params: Params, config: Config,
                      dist: Dist = Dist()) -> Tuple[TrialSet, Params]:
     """Center/scale the posterior mean, compensating (b, a)
-    (core.py:366-389).  Off by default, as in the reference."""
-    _check_dist(dist)
+    (core.py:366-389).  Off by default, as in the reference.  The
+    compensation of b and a is per channel, so the model axis reduces
+    nothing."""
     c = config.constrain_latent
     if not c or c == "none":
         return data, params
     m = data.mask[..., None]
-    n, s1 = _psum((torch.sum(data.mask), torch.sum(data.mu * m, dim=(0, 1))), dist.data)
+    n, s1 = _psum((torch.sum(data.mask), torch.sum(data.mu * m, dim=(0, 1))), dist, "data")
     mean = s1 / n
-    std = torch.sqrt(_psum(torch.sum((data.mu - mean) ** 2 * m, dim=(0, 1)), dist.data) / n)
+    std = torch.sqrt(_psum(torch.sum((data.mu - mean) ** 2 * m, dim=(0, 1)), dist, "data") / n)
     mu, a, b = data.mu, params.a, params.b
     if c in ("location", "both"):
         mu = (mu - mean) * m
@@ -477,19 +496,14 @@ def constrain_latent(data: TrialSet, params: Params, config: Config,
 
 def em_norms(data: TrialSet, params: Params, dist: Dist = Dist()) -> dict:
     """Squared norms used by the convergence test (core.py:300-305,
-    350-359); the posterior's are summed over the data axis."""
-    _check_dist(dist)
+    350-359); the posterior's are summed over the data axis, the
+    parameters' over the model axis."""
     m = data.mask[..., None]
 
     def sq(t):
         return torch.sum(t * t)
 
-    mu, dmu = _psum((sq(data.mu * m), sq(data.dmu * m)), dist.data)
-    return dict(
-        mu=mu,
-        dmu=dmu,
-        a=sq(params.a),
-        da=sq(params.da),
-        b=sq(params.b),
-        db=sq(params.db),
-    )
+    mu, dmu = _psum((sq(data.mu * m), sq(data.dmu * m)), dist, "data")
+    a, da, b, db = _psum((sq(params.a), sq(params.da), sq(params.b), sq(params.db)),
+                         dist, "model")
+    return dict(mu=mu, dmu=dmu, a=a, da=da, b=b, db=db)

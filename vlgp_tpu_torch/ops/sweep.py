@@ -91,14 +91,17 @@ def _sweep_smem_bytes(Z, T, Y, R, ngroups: int = 1) -> int:
     return 4 * (max(ns, seg) + 2 * -(-ngroups // 32))
 
 
-def sweep_fused_eligible(data, params, G) -> bool:
-    """Static eligibility (``vlgp_tpu/ops/sweep.py:348-360``): float32, R <= 128,
-    an exit group that fits, and a block the kernel can launch."""
+def sweep_fused_eligible(data, params, G, dist) -> bool:
+    """Static eligibility (``vlgp_tpu/ops/sweep.py:348-360``): no model axis
+    in ``dist`` (a ``models.vlgp.Dist``; the sweep's channel contractions
+    would need all_reduces inside the kernel), float32, R <= 128, an exit
+    group that fits, and a block the kernel can launch."""
     Z, T, R = G.shape
     S, Y = data.y.shape[0], data.y.shape[-1]
     bs = _pick_bs(Z, T, Y, R)
     return (
-        G.dtype == torch.float32
+        dist.model is None
+        and G.dtype == torch.float32
         and data.y.dtype == torch.float32
         and params.a.dtype == torch.float32
         and 1 <= R <= _R_MAX

@@ -1,15 +1,18 @@
 """Multi-device fits over ``torch.distributed`` (counterpart of
-``vlgp_tpu/parallel``): the data axis, segments split over the ranks of a
-process group.  ``fit_sharded`` and ``initialize_distributed`` live in
-``parallel.driver``, as in ``vlgp_tpu``."""
+``vlgp_tpu/parallel``): a (data, model) mesh of the ranks of a process
+group, segments split over the data axis and channels over the model axis.
+``fit_sharded`` and ``initialize_distributed`` live in ``parallel.driver``,
+as in ``vlgp_tpu``."""
 from .mesh import (
     data_specs,
     gather,
     make_mesh,
+    pad_channels,
     pad_segments,
     params_specs,
     replicate,
     shard_data,
+    trim_channels,
 )
 from .spmd import DIST, sharded_em_step, sharded_infer
 
@@ -21,6 +24,8 @@ __all__ = [
     "replicate",
     "gather",
     "pad_segments",
+    "pad_channels",
+    "trim_channels",
     "sharded_em_step",
     "sharded_infer",
     "DIST",

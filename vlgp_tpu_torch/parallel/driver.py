@@ -1,11 +1,12 @@
-"""The multi-device fit: the ``fit`` pipeline over the data axis of a
-process group (counterpart of ``vlgp_tpu/parallel/driver.py``).
+"""The multi-device fit: the ``fit`` pipeline over a (data, model) mesh of
+a process group (counterpart of ``vlgp_tpu/parallel/driver.py``).
 
 Run one process per card, each calling :func:`initialize_distributed`
 and then :func:`fit_sharded` with the same arguments, for example under
 ``torchrun --nproc-per-node N script.py``.  The segments are split over
-the ranks; the EM step and the final inference run through
-``parallel.spmd``, and every rank returns the same :class:`FitResult`.
+the data axis and the channels over the model axis; the EM step and the
+final inference run through ``parallel.spmd``, and every rank returns the
+same :class:`FitResult`.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from ..data import TrialSet, cut_trials, scatter_segments
 from ..models.driver import _elbo_record, _iter_converged, _track_elbo, xinv_zeros
 from ..models.gp import effective_rank, hstep, make_cholesky
 from ..models.vlgp import update_v, update_w
-from .mesh import Mesh, gather, make_mesh, pad_segments, replicate, shard_data
+from .mesh import (Mesh, gather, make_mesh, pad_channels, pad_segments, replicate,
+                   shard_data, trim_channels)
 from .spmd import sharded_em_step, sharded_infer
 
 __all__ = ["fit_sharded", "initialize_distributed"]
@@ -58,9 +60,13 @@ def fit_sharded(
     device=None,
     **kwargs,
 ) -> FitResult:
-    """Fit vLGP with the segments split over the ranks of ``mesh`` (default
-    :func:`~vlgp_tpu_torch.parallel.mesh.make_mesh`: the world group, or a
-    world of one when no process group is initialised).
+    """Fit vLGP with the segments split over the data axis of ``mesh`` and
+    the channels over its model axis (default
+    :func:`~vlgp_tpu_torch.parallel.mesh.make_mesh`: every rank of the world
+    group on the data axis, or a world of one when no process group is
+    initialised).  Any channel count works with any model size: the
+    channels are padded with exactly inert ones (``pad_channels``) and
+    trimmed from the result.
 
     Every rank calls it with the same arguments.  Extra keyword arguments
     go to :class:`Config` or to the parameters, as in ``fit``.  ``device``
@@ -71,8 +77,9 @@ def fit_sharded(
     As ``vlgp_tpu``'s ``fit_sharded``: rank 0's prepared parameters (and
     factor-analysis start) are broadcast; the segments are cut with the
     config's seed on every rank, padded with masked rows to a multiple of
-    the world size and split into contiguous blocks; callbacks and ELBO
-    tracking see the gathered real segments at every iteration boundary;
+    the data-axis size and split into contiguous blocks; callbacks and ELBO
+    tracking see the gathered real segments and channels, and the params
+    with the padded channels trimmed, at every iteration boundary;
     with ``hyper_interval > 1`` a closing H-step runs on the gathered
     segments without the inverse carry (``fit`` passes it, so the two
     agree bit for bit through the EM loop, not after it); the final
@@ -107,6 +114,9 @@ def fit_sharded(
     params, mu, fm = replicate((params, data.mu, fm), mesh)
     data = data.replace(mu=mu)
     initial_params = params
+    n_data, n_model = mesh.shape
+    ydim = data.ydim
+    data, params = pad_channels(data, params, n_model)
 
     # prior factors and initial posterior weights on the full trials
     G_full = make_cholesky(data.nbin, params)
@@ -115,20 +125,24 @@ def fit_sharded(
 
     segments = cut_trials(data, config.window, seed=config.seed)
     n_real = segments.ntrial
-    seg_full = pad_segments(segments, mesh.world)
+    seg_full = pad_segments(segments, n_data)
     seg = shard_data(seg_full, mesh)
+    params_s = shard_data(params, mesh)  # this rank's channels
     omega_hi = max(float(params.omega.max()), config.omega_bound[1])
     seg_rank = min(params.rank, effective_rank(segments.nbin, omega_hi, params.dt))
     G_seg = make_cholesky(segments.nbin, params, rank=seg_rank)
 
     runtime = {"it": 0, "em_elapsed": []}
 
-    def boundary(seg, params, G_seg):
-        """Iteration-boundary work on the gathered real segments: ELBO
-        tracking, then the callbacks (RuntimeError swallowed, core.py:341-345)."""
+    def boundary(seg, params_s, G_seg):
+        """Iteration-boundary work on the gathered real segments and
+        channels, with the padded channels trimmed from the params
+        (``vlgp_tpu/parallel/driver.py:120-133``): ELBO tracking, then the
+        callbacks (RuntimeError swallowed, core.py:341-345)."""
         if not boundary_work:
             return
-        real = _head(gather(seg, mesh, static=seg_full), n_real)
+        real, params = trim_channels(_head(gather(seg, mesh, static=seg_full), n_real),
+                                     gather(params_s, mesh), ydim)
         if _track_elbo(config):
             _elbo_record(runtime, real, params, G_seg)
         for cb in callbacks:
@@ -137,17 +151,17 @@ def fit_sharded(
             except RuntimeError:
                 pass
 
-    step = sharded_em_step(mesh, config, seg, params)
+    step = sharded_em_step(mesh, config, seg, params_s)
     xinv = xinv_zeros(seg, G_seg)
     for it in range(config.max_iter):
         runtime["it"] += 1
         tic = time.perf_counter()
-        seg, params, G_seg, norms, xinv = step(seg, params, G_seg, xinv, it)
+        seg, params_s, G_seg, norms, xinv = step(seg, params_s, G_seg, xinv, it)
         norms = {k: float(v) for k, v in norms.items()}
         runtime["em_elapsed"].append(time.perf_counter() - tic)
         if verbose and mesh.rank == 0:
             print(f"Iteration {it + 1}, EM {runtime['em_elapsed'][-1]:.2f}s")
-        boundary(seg, params, G_seg)
+        boundary(seg, params_s, G_seg)
         if _iter_converged(runtime, norms, config) and it + 1 >= config.min_iter:
             runtime["converged_at"] = runtime["it"]
             break
@@ -160,19 +174,21 @@ def fit_sharded(
         # ended on an iteration whose H-step was skipped.  Every rank runs
         # it on the gathered segments (padded rows are mask-inert), without
         # the per-rank inverse carry, and gets the same omega and sigma.
-        params = hstep(seg_all, params, config, rank=G_seg.shape[-1])
+        params_s = hstep(seg_all, params_s, config, rank=G_seg.shape[-1])
         runtime["final_hstep"] = True
 
     # the trained posterior back into the full trials, refreshed factors,
-    # and the final full-length inference split over trials
+    # and the final full-length inference split over trials and channels
+    params = gather(params_s, mesh)
     data = scatter_segments(data, _head(seg_all, n_real))
     G_full = make_cholesky(data.nbin, params)
     data = update_w(data, params, config)
     data = update_v(data, params, G_full, config)
-    data_full = pad_segments(data, mesh.world)
+    data_full = pad_segments(data, n_data)
     data_s = shard_data(data_full, mesh)
-    data_s = sharded_infer(mesh, config, data_s, params)(data_s, params, G_full)
+    data_s = sharded_infer(mesh, config, data_s, params_s)(data_s, params_s, G_full)
     data = _head(gather(data_s, mesh, static=data_full), data.ntrial)
+    data, params = trim_channels(data, params, ydim)
 
     if saver is not None:  # final snapshot regardless of the interval
         saver.save(data, params, config, force=True)

@@ -1,11 +1,15 @@
-"""The EM step and the inference E-step over the data axis of a mesh
+"""The EM step and the inference E-step over a (data, model) mesh
 (counterpart of ``vlgp_tpu/parallel/spmd.py``).
 
 ``vlgp_tpu`` wraps its single-device phases in ``shard_map``.  Here each
-rank runs the same phases on its own rows with ``dist.data`` bound to the
-mesh's process group: cross-segment reductions (the M-step's and the
-H-step's sufficient statistics, the convergence norms) become
-``all_reduce``s, and every rank ends the step with the same parameters.
+rank runs the same phases on its own block, with ``dist.data`` bound to its
+data group and ``dist.model`` to its model group: cross-segment reductions
+(the M-step's and the H-step's sufficient statistics, the posterior's
+convergence norms) become ``all_reduce``s over the data group, and
+cross-channel contractions (the E-step's ``residual @ a`` and weight
+refresh, the loading's norms) ``all_reduce``s over the model group.  Every
+rank ends the step with the same posterior as the other ranks of its data
+row and the same parameters as the other ranks of its model column.
 """
 from __future__ import annotations
 
@@ -20,12 +24,13 @@ from .mesh import Mesh
 __all__ = ["sharded_em_step", "sharded_infer", "DIST"]
 
 # the axes the step shards, by name; ``Mesh.dist`` binds them to a group
-DIST = Dist(data="data")
+DIST = Dist(data="data", model="model")
 
 
 def sharded_em_step(mesh: Mesh, config: Config, data: TrialSet, params: Params) -> Callable:
-    """The EM step over ``mesh``'s data axis, for row-sharded data (see
-    :func:`~vlgp_tpu_torch.parallel.mesh.shard_data`).  ``data`` and
+    """The EM step over ``mesh``, for this rank's block of the data and of
+    the params (:func:`~vlgp_tpu_torch.parallel.mesh.shard_data` of each;
+    on a mesh of model size 1 the params are whole).  ``data`` and
     ``params`` are ``vlgp_tpu``'s signature, where they fix the compiled
     shapes; the port builds nothing from them.
 
@@ -34,7 +39,8 @@ def sharded_em_step(mesh: Mesh, config: Config, data: TrialSet, params: Params) 
     (``models.driver.xinv_zeros`` of the sharded data to start) and ``it``
     the 0-based EM iteration, which applies the ``hyper_interval`` cadence
     (unused at ``hyper_interval=1``; the signature stays fixed).  ``norms``
-    are summed over the ranks, so every rank takes the same convergence
+    are summed over the ranks (the posterior's over the data axis, the
+    params' over the model axis), so every rank takes the same convergence
     decision.
     """
     em = make_em_step(config, mesh.dist(DIST), carry_xinv=True)
@@ -48,10 +54,10 @@ def sharded_em_step(mesh: Mesh, config: Config, data: TrialSet, params: Params) 
 
 def sharded_infer(mesh: Mesh, config: Config, data: TrialSet, params: Params,
                   niter: Optional[int] = None) -> Callable:
-    """The inference-only E-step (core.py:260-266) over ``mesh``'s data
-    axis: (data, params, G) -> data, ``niter`` sweeps (default
+    """The inference-only E-step (core.py:260-266) over ``mesh``: (data,
+    params, G) -> data for this rank's blocks, ``niter`` sweeps (default
     ``config.max_iter``), the adaptive exit decided on norms summed over
-    the ranks."""
+    the data axis."""
     n = config.max_iter if niter is None else niter
     dist = mesh.dist(DIST)
 
