@@ -5,7 +5,7 @@
 Phases, each of which raises on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the three sources of vlgp_tpu_torch/csrc/ with nvcc
+2. build: compiles the four sources of vlgp_tpu_torch/csrc/ with nvcc
    (sm_90a), one process each, all at once;
 3. ns_gram against its plain PyTorch version on the card, at the two
    main-path shapes (E/H-step segments and the final full-length
@@ -87,7 +87,28 @@ Phases, each of which raises on failure:
    printed; (11d) the (1, 2) mesh on the first 99 of the 100 neurons
    (`--ydim 99`): rank 1 holds one padded channel, whose a, b, da and db
    stay exactly zero at every EM iteration boundary; 99 channels in the
-   result and R^2 >= R2_MIN.
+   result and R^2 >= R2_MIN;
+12. the fused and scanned EM drivers as CUDA graphs, each sub-phase with
+   the counters set to 0 just before it: (12a) five EM iterations eagerly
+   and with fit(fused=True), whose decision counts (sweeps, M-step
+   iterations, every fallback key: host counters against the device
+   counters of the replays) must be equal and whose params are compared at
+   every boundary, then the 30-iteration eager and fused flagship fits
+   (wall, EM loop, capture time, peak memory, R^2 within R2_GRAPH_GAP),
+   every replay under torch.cuda.set_sync_debug_mode("error"); (12b)
+   fit(block=5) and fit(block=7) (a tail block of 2): one host read of the
+   norms per block, the same converged_at; (12c) fit(fused=True) with the
+   fused sweep, its cooperative launch captured; (12d) inv_one_plus_gram
+   captured with a warm carry and replayed from a good and a NaN carry:
+   equal to the eager call bit for bit, device fallbacks equal to the host
+   ones (the NaN carry runs reject, refine and the cold restart in IF
+   bodies); (12e) a small float64 fit(fused=True) on the card against the
+   card's eager fit (bit for bit) and the CPU's (GRAPH64_RTOL); (12f)
+   fit_sharded(block=3) over an nccl group of one rank against block=1,
+   and fit_sharded(block=2) over a gloo group on CUDA tensors, which must
+   raise a ValueError naming nccl; then one eager and one fused fit under
+   torch.profiler (kernels, busy and idle share, launch calls and host
+   syncs, for the fit and its EM loop).
 
 Times are per call, each between its own pair of CUDA events, over 10
 calls after a warm-up, printed as median [min-max].  Ends with one JSON
@@ -1675,6 +1696,369 @@ def run_sharded_gloo(card, r2_world1, tag="11b", shape=(2, 1), ydim=YDIM):
             raise AssertionError(f"{tag}: the padded channel moved")
 
 
+# ---------------------------------------------------------------------------
+# 12: the fused and scanned EM drivers as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# 12a/12c: a graph-replayed fit's R^2 against the eager fit's (the H-step's
+# omega basin moves R^2 by about +-0.004 under float noise, as in phase 11)
+R2_GRAPH_GAP = 0.004
+# 12e: the card's float64 fused fit against the CPU's.  Both run the exact
+# Cholesky route and differ in the order of their sums only, but over ten EM
+# iterations the H-step's golden search, on an objective that is flat near
+# its optimum, turns those ~1e-15 differences into up to 8.5e-6 in omega and
+# 4e-6 in mu (measured on the card, the eager fit alike); the fused fit must
+# equal the card's eager fit bit for bit, and the CPU's within 1e-4
+GRAPH64_RTOL = 1e-4
+# runtime API calls that make the host wait for the device (torch.profiler
+# names); a device-to-host copy is one of cudaMemcpyAsync + a stream sync
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cudaLaunchCooperativeKernel", "cuLaunchKernelEx")
+
+
+def _union_s(spans):
+    """Seconds covered by the union of (start_ns, end_ns) intervals."""
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy * 1e-9
+
+
+def trace_fit(fn):
+    """fn() (one fit) under torch.profiler (CPU and CUDA activities): (fn's
+    result, stats).  For the whole call and for the EM loop: the device
+    kernels that ran (copies and sets apart), their busy time (the union of
+    their intervals), the idle share of the window, the host launch calls
+    (kernel launches; cudaGraphLaunch apart) and the host syncs
+    (SYNC_CALLS), and the eight kernels that took the most device time in
+    the loop.  The loop's window runs from the first E-step annotation to
+    the end of the last M- or H-step annotation of an eager fit, and from
+    the first cudaGraphLaunch to the first host sync after the last one of
+    a fused fit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+    dev, host = [], []
+    for e in prof.profiler.kineto_results.events():
+        rec = (e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            host.append(rec)
+        elif not (e.is_user_annotation() or rec[2].startswith("vlgp:")):
+            dev.append(rec)  # the device-side spans of record_function are no work
+    graph = sorted(h for h in host if h[2] == "cudaGraphLaunch")
+    syncs = sorted(h for h in host if h[2] in SYNC_CALLS)
+    if graph:
+        lo = graph[0][0]
+        hi = next((h[1] for h in syncs if h[0] >= graph[-1][1]), graph[-1][1])
+    else:
+        marks = [h for h in host if h[2] in ("vlgp:estep", "vlgp:mstep", "vlgp:hstep")]
+        lo = min(h[0] for h in marks)
+        hi = max(h[1] for h in marks)
+
+    def stats(lo, hi):
+        d = [x for x in dev if lo <= x[0] < hi]
+        by_name = collections.Counter()
+        for a, b, name in d:
+            by_name[name] += b - a
+        busy = _union_s([(a, b) for a, b, _ in d])
+        return dict(device_kernels=sum(not x[2].startswith(("Memcpy", "Memset")) for x in d),
+                    busy_s=busy, window_s=(hi - lo) * 1e-9,
+                    idle_share=1 - busy / ((hi - lo) * 1e-9),
+                    launch_calls=sum(lo <= h[0] < hi and h[2] in LAUNCH_CALLS for h in host),
+                    graph_launches=sum(lo <= h[0] < hi for h in graph),
+                    host_syncs=sum(lo <= h[0] < hi for h in syncs),
+                    top_kernels_ms=[(n[:60], round(t * 1e-6, 2))
+                                    for n, t in by_name.most_common(8)])
+
+    first = min(x[0] for x in dev + host)
+    last = max(x[1] for x in dev + host)
+    whole = stats(first, last + 1)
+    whole.pop("top_kernels_ms")
+    return out, dict(wall_s=wall, fit=whole, em_loop=stats(lo, hi))
+
+
+def graph_fit(recorder=None, **fit_kw):
+    """One flagship fit with the counters set to 0 just before it and the
+    peak memory reset: (result, wall s, R^2, host kernel launches, peak
+    bytes)."""
+    import vlgp_tpu_torch
+    from vlgp_tpu_torch.ops import spd
+
+    trials, a, zt = make_workload()
+    reset_all_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    result = vlgp_tpu_torch.fit(trials, ZDIM, a=a, callbacks=[recorder] if recorder else [],
+                                **{**FLAGSHIP_KW, **fit_kw})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    d = result.data
+    if tuple(d.mu.shape) != (NTRIAL, LENGTH, ZDIM) or d.mu.device.type != "cuda" or not all(
+            torch.isfinite(getattr(d, f)).all() for f in ("mu", "v", "w")):
+        raise AssertionError(f"fit {fit_kw}: posterior of shape {tuple(d.mu.shape)} on "
+                             f"{d.mu.device}, or not finite")
+    r2 = r2_aligned(d.mu.cpu().numpy().reshape(-1, ZDIM), zt)
+    return result, wall, r2, dict(spd.KERNEL_LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+def boundary_gap(seen, ref):
+    """(max relative gap of the params over the recorded boundaries, the
+    first boundary's): 0.0 where equal bit for bit."""
+    gaps = [max(float((x[f] - y[f]).abs().max() / y[f].abs().max().clamp_min(1e-30))
+                for f in PARAM_FIELDS) for x, y in zip(seen, ref)]
+    return max(gaps), gaps[0]
+
+
+def run_graph_decisions(card):
+    """12a, first part: five EM iterations eagerly and as replays of the
+    captured step, each recording the params at every boundary: the
+    decision counts of the loop (sweeps, M-step iterations, fallbacks) and
+    the params at every boundary compared; the capture time."""
+    from vlgp_tpu_torch.models import driver
+
+    driver._GRAPH_CACHE.clear()
+    seen_e, rec_e = param_recorder()
+    eager, wall_e, r2_e, launch_e, mem_e = graph_fit(rec_e, max_iter=5)
+    seen_f, rec_f = param_recorder()
+    fused, wall_f, r2_f, launch_f, mem_f = graph_fit(rec_f, max_iter=5, fused=True)
+    ce, cf = eager.runtime["counts"], fused.runtime["counts"]
+    gap, gap1 = boundary_gap(seen_f, seen_e)
+    log(f"12a decisions, 5 EM iterations [{card}]: eager (host counters) {ce}")
+    log(f"12a decisions, 5 EM iterations [{card}]: fused (device counters of the replays) {cf}")
+    log(f"12a: the host counters of the fused fit count each capture, not each replay: "
+        f"KERNEL_LAUNCHES {launch_f} holds the kernels the two captures recorded (and the "
+        f"eager set-up, final H-step and inference), against {launch_e} for the eager fit")
+    log(f"12a: capture of the step's two cadence graphs (warm-up of every branch included) "
+        f"{fused.runtime['capture_s']:.2f} s, outside em_elapsed; fit wall {wall_f:.2f} s "
+        f"against {wall_e:.2f} s eager")
+    log(f"12a: params at the {len(seen_f)} boundaries: max relative gap {gap:.3e} "
+        f"(after iteration 1: {gap1:.3e}); R^2 {r2_f:.4f} vs {r2_e:.4f}")
+    if ce != cf:
+        raise AssertionError(f"12a: decision counts differ: eager {ce}, fused {cf}")
+    if len(seen_f) != len(seen_e) or fused.runtime["it"] != eager.runtime["it"]:
+        raise AssertionError("12a: the fused fit ran another number of iterations")
+
+
+def run_graph_fits(card, r2_eager, walls_eager):
+    """12a (second part) and 12b: the 30-iteration flagship fit with
+    fused=True, block=5 and block=7, each replay run under
+    torch.cuda.set_sync_debug_mode("error") (the norms reads excepted),
+    R^2 within R2_GRAPH_GAP of the eager fit's, the host reads counted."""
+    from vlgp_tpu_torch.models import driver
+
+    reads = [0]
+    norms = driver._GraphSteps.norms
+
+    def counted(self):
+        reads[0] += 1
+        return norms(self)
+
+    res, wall, r2, launches, mem = graph_fit()
+    log(f"12a eager default fit [{card}]: {wall:.2f} s wall, EM loop "
+        f"{sum(res.runtime['em_elapsed']):.3f} s (E {sum(res.runtime['e_elapsed']):.3f}, M "
+        f"{sum(res.runtime['m_elapsed']):.3f}, H {sum(res.runtime['h_elapsed']):.3f}), peak "
+        f"memory {mem / 2**20:.0f} MiB, R^2 {r2:.4f}")
+    driver._GraphSteps.norms = counted
+    driver.CHECK_REPLAY_SYNCS = True
+    out = {}
+    try:
+        for tag, kw in (("12a fused", dict(fused=True)), ("12b block=5", dict(block=5)),
+                        ("12b block=7", dict(block=7))):
+            reads[0] = 0
+            res, wall, r2, launches, mem = graph_fit(**kw)
+            rt = res.runtime
+            em = sum(rt["em_elapsed"])
+            log(f"{tag} [{card}]: {wall:.2f} s wall (eager default fit "
+                f"{walls_eager[0]:.2f} / {walls_eager[1]:.2f} s in phase 8), EM loop {em:.3f} s "
+                f"({1e3 * em / rt['it']:.1f} ms per iteration), capture {rt.get('capture_s', 0):.2f} "
+                f"s, {rt['it']} iterations (converged_at {rt.get('converged_at')}), "
+                f"{reads[0]} host reads of the norms, peak memory {mem / 2**20:.0f} MiB, "
+                f"R^2 {r2:.4f} vs {r2_eager:.4f}; counts {rt['counts']}")
+            k = kw.get("block", 1)
+            if reads[0] != -(-rt["it"] // k):
+                raise AssertionError(f"{tag}: {reads[0]} norms reads for {rt['it']} iterations")
+            if abs(r2 - r2_eager) > R2_GRAPH_GAP or r2 < R2_MIN:
+                raise AssertionError(f"{tag}: R^2 {r2:.4f} against the eager fit's {r2_eager:.4f}")
+            out[tag] = res
+    finally:
+        driver._GraphSteps.norms = norms
+        driver.CHECK_REPLAY_SYNCS = False
+    ca = [r.runtime.get("converged_at") for r in out.values()]
+    if len(set(ca)) != 1:
+        raise AssertionError(f"12b: converged_at differs between the drivers: {ca}")
+
+
+def run_graph_fused_sweep(card, r2_fused_sweep):
+    """12c: fit(fused=True) with the fused E-step sweep: its cooperative
+    launch replayed inside the captured step."""
+    from vlgp_tpu_torch.models import vlgp as tv
+
+    tv._SWEEP_FUSED = True
+    try:
+        res, wall, r2, launches, mem = graph_fit(fused=True)
+    finally:
+        tv._SWEEP_FUSED = False
+    rt = res.runtime
+    log(f"12c fused=True with the fused sweep [{card}]: {wall:.2f} s wall, EM loop "
+        f"{sum(rt['em_elapsed']):.3f} s, capture {rt['capture_s']:.2f} s, R^2 {r2:.4f} "
+        f"(phase 8 fused sweep, eager: {r2_fused_sweep:.4f}); counts {rt['counts']}; "
+        f"host-counted sweep launches {launches['sweep']} (captures)")
+    if launches["sweep"] == 0:
+        raise AssertionError("12c: no sweep launch was captured")
+    if abs(r2 - r2_fused_sweep) > R2_GRAPH_GAP or r2 < R2_MIN:
+        raise AssertionError(f"12c: R^2 {r2:.4f} against {r2_fused_sweep:.4f}")
+
+
+def run_graph_fallback(card, device, gen):
+    """12d: inv_one_plus_gram captured with a warm start, replayed from a
+    good carry and from a NaN one: the NaN carry makes the IF bodies run
+    the probe's reject, the refine (NaN) and the cold restart on the card;
+    each replay equal bit for bit to the eager call and its device counters
+    equal to the eager call's host fallbacks."""
+    from vlgp_tpu_torch.ops import control, spd
+
+    G = realistic_factor(ZDIM, 50, 40, device)
+    w = torch.rand((ZDIM, 2000, 50), generator=gen, device=device) * 2.0
+    X0 = spd.inv_one_plus_gram(G, w, iters=16)
+    warm = X0.clone()
+    cap = control.Capturer(device)
+
+    def f():
+        return spd.inv_one_plus_gram(G, w, iters=16, warm=warm, warm_iters=4, want_v=True)
+
+    cap.warmup(f)
+    graph, out = cap.capture(f)
+    for case, carry in (("good carry", X0), ("NaN carry", torch.full_like(X0, float("nan")))):
+        warm.copy_(carry)
+        cap.reset_counts()
+        graph.replay()
+        got = cap.read_counts()
+        spd.reset_counters()
+        X, v = f()
+        host = {k: n for k, n in spd.FALLBACKS.items() if n}
+        dev = {k: n for k, n in got.items() if n and k in spd.FALLBACKS}
+        same = torch.equal(out[0], X) and torch.equal(out[1], v)
+        log(f"12d {case} [{card}]: replay equal to the eager call bit for bit: {same}; "
+            f"device fallbacks {dev}, eager host fallbacks {host}")
+        if not same or dev != host:
+            raise AssertionError(f"12d {case}: the captured net differs from the eager one")
+        if case == "NaN carry" and set(host) != {"gram_probe_reject", "gram_refine_fail"}:
+            raise AssertionError(f"12d: a NaN carry took {host}, not reject -> refine -> cold")
+    cap.close()
+
+
+def run_graph_float64(card):
+    """12e: a small float64 fit(fused=True) on the card against the CPU's
+    float64 fused fit (the same 4 x 120 x 10 x 2 input as phase 7)."""
+    import vlgp_tpu_torch
+
+    rng = np.random.default_rng(7)
+    a = rng.normal(size=(2, 10)) * 0.5
+    trials = []
+    for _ in range(4):
+        z = np.column_stack((np.sin(np.linspace(0, 6, 120)), np.cos(np.linspace(0, 6, 120))))
+        trials.append({"y": rng.poisson(np.exp(z @ a - 1.5)).astype(float),
+                       "mu": rng.normal(size=(120, 2)) * 0.1})
+    kw = dict(a=a, b=np.full((1, 10), -1.5), noise=np.ones(10), max_iter=10, dtype="float64")
+    gpu = vlgp_tpu_torch.fit(trials, 2, device="cuda", fused=True, **kw)
+    eager = vlgp_tpu_torch.fit(trials, 2, device="cuda", **kw)
+    cpu = vlgp_tpu_torch.fit(trials, 2, device="cpu", fused=True, **kw)
+
+    def gaps(x, ref):
+        rel = {f: float((getattr(x.params, f).cpu() - getattr(ref.params, f).cpu()).abs().max()
+                        / getattr(ref.params, f).abs().max()) for f in ("a", "b", "omega", "sigma")}
+        rel["mu"] = float((x.data.mu.cpu() - ref.data.mu.cpu()).abs().max()
+                          / ref.data.mu.abs().max())
+        return rel
+
+    vs_eager, vs_cpu, eager_cpu = gaps(gpu, eager), gaps(gpu, cpu), gaps(eager, cpu)
+    log(f"12e float64 fit(fused=True) on the card [{card}]: against the card's eager fit "
+        f"{vs_eager}; against the CPU's fused fit {vs_cpu} (the card's eager fit against the "
+        f"CPU: {eager_cpu}); counts card {gpu.runtime['counts']} / CPU {cpu.runtime['counts']}")
+    if max(vs_eager.values()) > 0 or gpu.runtime["counts"] != cpu.runtime["counts"]:
+        raise AssertionError("12e: the card's float64 fused fit differs from its eager fit")
+    if max(vs_cpu.values()) > GRAPH64_RTOL:
+        raise AssertionError("12e: the card's float64 fused fit disagrees with the CPU's")
+
+
+def run_graph_sharded(card):
+    """12f: fit_sharded(block=3) over an nccl group of one rank against
+    fit_sharded(block=1), the params at the block boundaries compared; then
+    fit_sharded(block=2) over a gloo group on CUDA tensors, which must raise
+    a ValueError naming nccl."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    from vlgp_tpu_torch.parallel.driver import fit_sharded
+
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                             world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        seen1, rec1 = param_recorder()
+        ref, wall1, _, _, r2_1 = sharded_fit(rec1)
+        seen3, rec3 = param_recorder()
+        got, wall3, launches, coll, r2_3 = sharded_fit(rec3, block=3)
+    finally:
+        tdist.destroy_process_group()
+    gap, gap1 = boundary_gap(seen3, seen1[2::3])
+    log(f"12f fit_sharded, nccl world 1 [{card}]: block=1 {wall1:.2f} s, R^2 {r2_1:.4f}; "
+        f"block=3 {wall3:.2f} s, R^2 {r2_3:.4f}, {got.runtime['it']} iterations "
+        f"(converged_at {got.runtime.get('converged_at')}), capture and replays; params at "
+        f"{len(seen3)} block boundaries: max relative gap {gap:.3e} (first {gap1:.3e})")
+    if abs(r2_3 - r2_1) > R2_GRAPH_GAP or len(seen3) != -(-got.runtime["it"] // 3):
+        raise AssertionError("12f: fit_sharded(block=3) disagrees with block=1")
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                             world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        trials, a, _ = make_workload(ntrial=4)
+        try:
+            fit_sharded(trials, ZDIM, a=a, device="cuda", block=2, **FLAGSHIP_KW)
+        except ValueError as e:
+            if "nccl" not in str(e):
+                raise
+            log(f"12f fit_sharded(block=2) on a gloo group with CUDA tensors raised: {e}")
+        else:
+            raise AssertionError("12f: fit_sharded(block=2) on gloo with CUDA tensors ran")
+    finally:
+        tdist.destroy_process_group()
+
+
+def run_graph_traces(card):
+    """12, the trace: one eager and one fused flagship fit under
+    torch.profiler, each after an untraced fit with the same settings (so
+    the fused fit's graphs are captured and cached before the trace)."""
+    for tag, kw in (("eager", {}), ("fused", dict(fused=True))):
+        graph_fit(**kw)
+        res, st = trace_fit(lambda: graph_fit(**kw))
+        st["em_elapsed_s"] = sum(res[0].runtime["em_elapsed"])
+        log(f"12 trace, {tag} fit [{card}]: {json.dumps(st)}")
+
+
+def run_phase12(card, device, gen, r2_eager, walls_eager, r2_fused_sweep):
+    """Phase 12, each sub-phase with its counters set to 0 just before."""
+    run_graph_decisions(card)
+    run_graph_fits(card, r2_eager, walls_eager)
+    run_graph_fused_sweep(card, r2_fused_sweep)
+    run_graph_fallback(card, device, gen)
+    run_graph_float64(card)
+    run_graph_sharded(card)
+    run_graph_traces(card)
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1753,6 +2137,9 @@ def main():
     run_sharded_gloo(card, r2_world1)
     run_sharded_gloo(card, r2_world1, "11c", (1, 2))
     run_sharded_gloo(card, r2_world1, "11d", (1, 2), ydim=YDIM - 1)
+
+    # 12, the fused and scanned EM drivers as CUDA graphs
+    run_phase12(card, device, seeded(), fits[0][5], (fits[0][3], fits[3][3]), fits[1][5])
 
     g_cold = next(r for r in g_rows if r[0] == "cold")
     p_cold = next(r for r in p_rows if r[0] == "cold")

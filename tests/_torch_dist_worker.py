@@ -33,7 +33,8 @@ from vlgp_tpu_torch.models.gp import effective_rank, make_cholesky  # noqa: E402
 from vlgp_tpu_torch.models.vlgp import update_v, update_w  # noqa: E402
 from vlgp_tpu_torch.ops import spd  # noqa: E402
 from vlgp_tpu_torch.parallel import (gather, make_mesh, pad_channels, pad_segments,  # noqa: E402
-                                     shard_data, sharded_em_step, sharded_infer)
+                                     shard_data, sharded_em_scan, sharded_em_step,
+                                     sharded_infer)
 from vlgp_tpu_torch.parallel.driver import fit_sharded  # noqa: E402
 
 # JAX's strict single-vs-multi-device settings (tests/test_fit_sharded.py:45-55):
@@ -235,6 +236,33 @@ def case_model4(mesh, out_dir):
             "collectives": dict(tv.COLLECTIVES), "coords": mesh.coords}
 
 
+def case_scan(mesh, out_dir):
+    """sharded_em_scan of 3 steps from the prepared state, then fit_sharded
+    with block=2 (two blocks of 2 EM iterations, then the closing H-step)
+    with ELBO tracking and a recording callback (float64, STRICT).  A mesh
+    with a model axis fits the 15 channels of the model cases, padded."""
+    ydim = YDIM if mesh.shape[1] == 1 else YDIM_ODD
+    config = default_config(**FIT_KW)
+    data, seg, params, G = prepared(config, ydim, mesh.shape[1])
+    seg_full = pad_segments(seg, mesh.shape[0])
+    seg_s, p_s = shard_data(seg_full, mesh), shard_data(params, mesh)
+    scan = sharded_em_scan(mesh, config, seg_s, p_s, 3)
+    seg_s, p3, G3, xinv, norms = scan(seg_s, p_s, G, xinv_zeros(seg_s, G), 0)
+    out = {"scan_seg": _host(gather(seg_s, mesh, static=seg_full)),
+           "scan_params": _host(gather(p3, mesh)), "scan_G": G3.cpu(),
+           "scan_norms": {k: v.cpu() for k, v in norms.items()},
+           "xinv_shape": tuple(xinv.shape)}
+    trials, a = workload(ydim=ydim)
+    seen = []
+    res = fit_sharded(trials, ZDIM, mesh=mesh, block=2, track_elbo=True,
+                      callbacks=[lambda d, p, c: seen.append((d.ntrial, _host(p)))],
+                      **start_kw(a), **FIT_KW)
+    out.update(fit_params=_host(res.params), fit_mu=res.data.mu.cpu(), seen=seen,
+               fit_runtime={k: res.runtime.get(k) for k in ("it", "elbo", "converged_at",
+                                                            "final_hstep")})
+    return out
+
+
 def main():
     case, rank, world, port, out = sys.argv[1:6]
     shape = tuple(int(n) for n in sys.argv[6].split("x")) if len(sys.argv) > 6 else None
@@ -243,7 +271,7 @@ def main():
                              world_size=int(world), timeout=TIMEOUT)
     mesh = make_mesh(shape, device="cpu", timeout=TIMEOUT)
     result = {"parity": case_parity, "adaptive": case_adaptive, "model": case_model,
-              "model4": case_model4}[case](mesh, os.path.dirname(out))
+              "model4": case_model4, "scan": case_scan}[case](mesh, os.path.dirname(out))
     tdist.destroy_process_group()
     torch.save(result, out)
 

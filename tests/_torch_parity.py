@@ -112,3 +112,51 @@ def pin_state(dtype="float64", **config_kw):
     port = (port_data(seg), port_params(params), torch.tensor(np.asarray(G)),
             port_config(config))
     return (seg, params, G, config), port
+
+
+def jax_scan(shape):
+    """vlgp_tpu.parallel's side of tests/_torch_dist_worker.py's ``scan``
+    case on a ``shape`` (data, model) mesh of the virtual CPU devices:
+    sharded_em_scan of 3 steps from the prepared state (15 channels padded
+    to the model axis where it has one), then fit_sharded with block=2,
+    ELBO tracking and a recording callback."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from vlgp_tpu.config import default_config, make_params
+    from vlgp_tpu.data import cut_trials, pack_trials
+    from vlgp_tpu.models.gp import effective_rank, make_cholesky
+    from vlgp_tpu.models.vlgp import update_v, update_w
+    from vlgp_tpu.parallel import make_mesh, pad_segments, replicate, shard_data
+    from vlgp_tpu.parallel.driver import fit_sharded
+    from vlgp_tpu.parallel.spmd import sharded_em_scan
+    from vlgp_tpu.parallel.mesh import _put, pad_channels, to_host
+
+    import _torch_dist_worker as W
+
+    mesh = make_mesh(shape, devices=jax.devices()[:shape[0] * shape[1]])
+    ydim = W.YDIM if shape[1] == 1 else W.YDIM_ODD
+    config = default_config(**W.FIT_KW)
+    trials, a = W.workload(ydim=ydim)
+    kw = W.start_kw(a)
+    params = make_params(ydim, W.ZDIM, 1, "poisson", a=kw["a"], b=kw["b"], noise=kw["noise"],
+                         omega=np.full(W.ZDIM, 1e-2), dtype=jnp.float64)
+    data = pack_trials(trials, W.ZDIM, 1, dtype=np.float64)
+    data, params = pad_channels(data, params, shape[1])
+    G_full = make_cholesky(data.nbin, params)
+    data = update_v(update_w(data, params, config), params, G_full, config)
+    seg = cut_trials(data, config.window, seed=0)
+    rank = min(params.rank, effective_rank(seg.nbin, config.omega_bound[1], params.dt))
+    G = make_cholesky(seg.nbin, params, rank=rank)
+    seg_s = shard_data(pad_segments(seg, shape[0]), mesh)
+    params_r, G_r = replicate((params, G), mesh)
+    xinv = _put(np.zeros((W.ZDIM, seg_s.ntrial, rank, rank)), mesh, P(None, "data", None, None))
+    seg_o, p_o, G_o, _, norms = sharded_em_scan(mesh, config, seg_s, params_r, 3)(
+        seg_s, params_r, G_r, xinv, 0)
+    seen = []
+    res = fit_sharded(trials, W.ZDIM, mesh=mesh, block=2, track_elbo=True,
+                      callbacks=[lambda d, p, c: seen.append(p)], **kw, **W.FIT_KW)
+    return dict(seg=to_host(seg_o), params=to_host(p_o), G=np.asarray(G_o),
+                norms={k: np.asarray(v) for k, v in norms.items()}, n_seg=seg.ntrial,
+                fit=res, seen=seen)

@@ -121,10 +121,22 @@ def test_cli_arguments_match_jax(cmd, capsys, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--fused"], ["--block", "2"]])
-def test_cli_unported_modes_raise(flag, tmp_path):
+def test_cli_unported_modes_raise(flag, tmp_path, monkeypatch):
+    """--fused and --block reach fit, as vlgp_tpu's CLI passes them, and
+    the fit runs (on the CPU its steps are the eager ones)."""
+    seen = {}
+    fit = vlgp_tpu_torch.fit
+
+    def spy(*args, **kw):
+        seen.update(fused=kw["fused"], block=kw["block"])
+        return fit(*args, **kw)
+
+    monkeypatch.setattr(vlgp_tpu_torch, "fit", spy)
     fin = _write_trials(tmp_path, "stacked", _trials())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["fit", fin, str(tmp_path / "out"), *FIT_ARGS, *flag, "--device", "cpu"])
+    tcli.main(["fit", fin, str(tmp_path / "out"), *FIT_ARGS, *flag, "--device", "cpu"])
+    assert seen == ({"fused": True, "block": 1} if flag == ["--fused"]
+                    else {"fused": False, "block": 2})
+    assert vlgp_tpu_torch.load(tmp_path / "out.npz", device="cpu").params.a.shape[0] == 2
 
 
 @pytest.mark.parametrize("cmd", ["fit", "transform"])

@@ -120,14 +120,16 @@ def test_em_trajectory_pinned(cadence):
 
 
 def test_unported_modes_raise(tmp_path):
-    """fused and block > 1 still raise; path no longer does: the fit
-    writes its parameter snapshot to <path>.npz."""
+    """fused and block > 1 run (models.driver; on the CPU the eager step,
+    so the fit equals the default one bit for bit), and path writes the
+    parameter snapshot to <path>.npz."""
     from vlgp_tpu_torch.utils.io import load_params
 
     trials, a, _ = pin_trials(ntrial=1, length=60)
+    ref = vlgp_tpu_torch.fit(trials, 2, a=a, device="cpu", max_iter=4)
     for kw in ({"fused": True}, {"block": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            vlgp_tpu_torch.fit(trials, 2, a=a, device="cpu", **kw)
+        got = vlgp_tpu_torch.fit(trials, 2, a=a, device="cpu", max_iter=4, **kw)
+        assert torch.equal(got.params.a, ref.params.a) and torch.equal(got.data.mu, ref.data.mu)
     res = vlgp_tpu_torch.fit(trials, 2, a=a, device="cpu", max_iter=2,
                              path=str(tmp_path / "ckpt"))
     snap = load_params(tmp_path / "ckpt.npz", device="cpu")

@@ -20,7 +20,7 @@ from vlgp_tpu_torch.parallel import (DIST, data_specs, gather, make_mesh, pad_se
 from vlgp_tpu_torch.parallel.driver import fit_sharded
 
 import _torch_dist_worker as W
-from _torch_parity import assert_close, np_of, pin_trials
+from _torch_parity import assert_close, jax_scan, np_of, pin_trials
 
 torch.set_num_threads(1)
 
@@ -201,6 +201,42 @@ def test_two_ranks_boundary_work(tmp_dir):
     assert os.path.exists(os.path.join(tmp_dir, "snap.npz"))
 
 
+def test_two_ranks_em_scan_and_block_fit_match_jax(tmp_dir):
+    """sharded_em_scan (3 steps, norms stacked per step) and fit_sharded
+    with block=2 over two gloo ranks against vlgp_tpu.parallel on a (2, 1)
+    mesh, float64, from the same state: the steps at the one-step
+    tolerances above (atol 1e-12, G 1e-9, norms rtol 1e-8), the fit at the
+    fit's (a 1e-6, omega 1e-8, mu 1e-6), the per-block ELBO at rtol 1e-8 and
+    the runtime bookkeeping equal.  The port's norms come back after xinv,
+    in vlgp_tpu's order."""
+    _launch("scan", tmp_dir)
+    ref = jax_scan((2, 1))
+    ranks = _gloo("scan", tmp_dir)
+    fit = ref["fit"]
+    n = ref["n_seg"]
+    for r in ranks:
+        for f in ("mu", "w", "v", "dmu"):
+            assert_close(r["scan_seg"][f][:n], np.asarray(getattr(ref["seg"], f))[:n],
+                         atol=1e-12, err_msg=f)
+        for f in ("a", "b", "noise", "omega", "sigma", "da", "db"):
+            assert_close(r["scan_params"][f], np.asarray(getattr(ref["params"], f)),
+                         atol=1e-12, err_msg=f)
+        assert_close(r["scan_G"], ref["G"], atol=1e-9)
+        for k, v in ref["norms"].items():
+            assert r["scan_norms"][k].shape == (3,)
+            assert_close(r["scan_norms"][k], v, atol=1e-15, err_msg=k)
+        assert r["xinv_shape"][1] == 8
+        for key in ("it", "converged_at", "final_hstep"):
+            assert r["fit_runtime"][key] == fit.runtime.get(key), key
+        assert len(r["seen"]) == len(ref["seen"]) == 2  # one per block
+        assert np.abs(r["fit_params"]["a"].numpy() - np.asarray(fit.params.a)).max() < 1e-6
+        assert np.abs(r["fit_params"]["omega"].numpy()
+                      - np.asarray(fit.params.omega)).max() < 1e-8
+        assert np.abs(r["fit_mu"].numpy() - np.asarray(fit.data.mu)).max() < 1e-6
+        assert_close(np.array(r["fit_runtime"]["elbo"]), np.array(fit.runtime["elbo"]))
+    assert torch.equal(ranks[0]["fit_mu"], ranks[1]["fit_mu"])
+
+
 @pytest.mark.parametrize("name", ["f64", "f32_fused"])
 def test_two_ranks_adaptive_exits_agree_bitwise(tmp_dir, name):
     """With the adaptive E/M exits and the grid stage on, each branch that
@@ -249,12 +285,17 @@ def test_mesh_contract_world1():
 
 
 def test_entry_points_refuse():
-    """block > 1 is a later item and raises naming it; a mesh shape must
-    cover the ranks, and the svd loading constraint under a model axis
-    raises, as in vlgp_tpu (models/vlgp.py:510-511)."""
+    """block > 1 runs (on the CPU, eagerly) and repeats block=1's fit bit
+    for bit; a mesh shape must cover the ranks, and the svd loading
+    constraint under a model axis raises, as in vlgp_tpu
+    (models/vlgp.py:510-511)."""
     trials, kw = _fit_kw()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fit_sharded(trials, 2, device="cpu", block=2, **kw)
+    got = fit_sharded(trials, 2, device="cpu", block=2, **kw)
+    ref = fit_sharded(trials, 2, device="cpu", **kw)
+    assert torch.equal(got.params.omega, ref.params.omega) and torch.equal(got.data.mu,
+                                                                           ref.data.mu)
+    # the norms test passes at iteration 4, the end of the second block
+    assert got.runtime["converged_at"] == ref.runtime["converged_at"] == got.runtime["it"] == 4
     with pytest.raises(ValueError, match="mesh shape"):
         make_mesh((1, 2), device="cpu")  # a world of one
     config = vlgp_tpu_torch.default_config(dtype="float64", constrain_loading="svd")

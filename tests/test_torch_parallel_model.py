@@ -23,12 +23,12 @@ import vlgp_tpu_torch
 from vlgp_tpu_torch.config import make_params
 from vlgp_tpu_torch.data import pack_trials
 from vlgp_tpu_torch.models import vlgp as tv
-from vlgp_tpu_torch.models.driver import make_em_step
+from vlgp_tpu_torch.models.driver import check_capturable, make_em_step
 from vlgp_tpu_torch.ops import sweep as tsw
 from vlgp_tpu_torch.parallel import pad_channels, trim_channels
 
 import _torch_dist_worker as W
-from _torch_parity import assert_close, np_of, pin_trials
+from _torch_parity import assert_close, jax_scan, np_of, pin_trials
 
 torch.set_num_threads(1)
 
@@ -215,6 +215,40 @@ def test_model_axis_four_ranks_fit_sharded_matches_jax(tmp_dir):
         assert r["collectives"] == ranks[0]["collectives"]
 
 
+def test_model_axis_em_scan_and_block_fit_match_jax(tmp_dir):
+    """sharded_em_scan (3 steps) and fit_sharded with block=2 over a (1, 2)
+    mesh of two gloo ranks (15 channels padded to 16) against
+    vlgp_tpu.parallel's on the same mesh: the steps at the one-step
+    tolerances (atol 1e-12, G G' 1e-9, norms rtol 1e-8; measured ~1e-12),
+    the fit at the (1, 2) fit's above (omega 2e-4 relative, a 1e-5, mu
+    1e-4, ELBO rtol 1e-6: its first H-step flips the same golden-search
+    comparison), the runtime bookkeeping equal."""
+    _launch("scan", tmp_dir, 2, "1x2")
+    ref = jax_scan((1, 2))
+    ranks = _gloo("scan", tmp_dir, 2, "1x2")
+    fit = ref["fit"]
+    for r in ranks:
+        for f in ("mu", "w", "v", "dmu"):
+            assert_close(r["scan_seg"][f], np.asarray(getattr(ref["seg"], f)), atol=1e-12,
+                         err_msg=f)
+        for f in ("a", "b", "noise", "omega", "sigma", "da", "db"):
+            assert_close(r["scan_params"][f], np.asarray(getattr(ref["params"], f)),
+                         atol=1e-12, err_msg=f)
+        assert_close(r["scan_G"] @ r["scan_G"].mT, ref["G"] @ ref["G"].transpose(0, 2, 1),
+                     atol=1e-9)
+        for k, v in ref["norms"].items():
+            assert_close(r["scan_norms"][k], v, atol=1e-15, err_msg=k)
+        for key in ("it", "converged_at", "final_hstep"):
+            assert r["fit_runtime"][key] == fit.runtime.get(key), key
+        assert len(r["seen"]) == len(ref["seen"]) == 2
+        assert_close(r["fit_params"]["omega"], np.asarray(fit.params.omega), rtol=2e-4)
+        assert np.abs(r["fit_params"]["a"].numpy() - np.asarray(fit.params.a)).max() < 1e-5
+        assert np.abs(r["fit_mu"].numpy() - np.asarray(fit.data.mu)).max() < 1e-4
+        assert_close(np.array(r["fit_runtime"]["elbo"]), np.array(fit.runtime["elbo"]), rtol=1e-6)
+    for f in ranks[0]["fit_params"]:
+        assert torch.equal(ranks[0]["fit_params"][f], ranks[1]["fit_params"][f]), f
+
+
 def test_model_axis_adaptive_exits_agree_bitwise(tmp_dir):
     """Float32 with the adaptive E-step and M-step exits on (estep_tol,
     mstep_tol) and the fused sweep asked for: the two model ranks decide
@@ -281,7 +315,8 @@ def test_model_axis_refusals():
     """Under a model axis sweep_fused_eligible is false (vlgp_tpu/ops/
     sweep.py:355) and the EM step with constrain_loading="svd" raises, as in
     vlgp_tpu (models/vlgp.py:510-511), here on a gloo model group of one
-    rank; block > 1 still raises naming item 7."""
+    rank, whose CUDA collectives a captured step refuses (checked without a
+    card); block > 1 runs on the CPU."""
     _, seg, params, G = W.prepared(vlgp_tpu_torch.default_config(dtype="float64"))
     seg32 = seg.replace(**{f: getattr(seg, f).float() for f in ("y", "x", "mu", "w", "v", "dmu")})
     p32 = params.replace(a=params.a.float())
@@ -296,10 +331,16 @@ def test_model_axis_refusals():
             step(seg, params, G)
         # the data axis alone takes the svd constraint
         make_em_step(svd, tv.Dist(data=tdist.group.WORLD))(seg, params, G)
+        with pytest.raises(ValueError, match="nccl"):
+            check_capturable(vlgp_tpu_torch.default_config(), tv.Dist(model=tdist.group.WORLD),
+                             torch.device("cuda"))
     finally:
         tdist.destroy_process_group()
     trials, a = W.workload(ydim=W.YDIM_ODD)
     from vlgp_tpu_torch.parallel.driver import fit_sharded
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fit_sharded(trials, W.ZDIM, device="cpu", block=2, **W.start_kw(a), **W.FIT_KW)
+    # block > 1 runs: on the CPU its steps are the eager ones, bit for bit
+    got = fit_sharded(trials, W.ZDIM, device="cpu", block=2, **W.start_kw(a), **W.FIT_KW)
+    ref = fit_sharded(trials, W.ZDIM, device="cpu", **W.start_kw(a), **W.FIT_KW)
+    assert torch.equal(got.params.a, ref.params.a) and torch.equal(got.data.mu, ref.data.mu)
+    assert got.runtime["it"] == ref.runtime["it"] == 4

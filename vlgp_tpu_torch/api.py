@@ -17,9 +17,9 @@ from .config import Config, Params, _resolve_device, _tensor, default_config, ma
 from .data import TrialSet, cut_trials, pack_trials, scatter_segments, unpack_trials
 from .init import FactorModel, initialize
 from .models import gpfa
-from .models.driver import infer, vem
+from .models.driver import check_capturable, infer, vem
 from .models.gp import effective_rank, make_cholesky, posterior_cov
-from .models.vlgp import mstep, update_v, update_w
+from .models.vlgp import Dist, mstep, update_v, update_w
 
 __all__ = ["fit", "transform", "sample_posterior", "fastfit", "map2vi", "resume",
            "FitResult"]
@@ -168,17 +168,16 @@ def fit(
     trials: list of dicts with ``y`` (length, ydim); optional ``x``, ``mu``.
     Unequal lengths are padded and masked.  ``device`` defaults to the
     current CUDA device and raises when there is none: pass ``device="cpu"``
-    to fit on the CPU.  The dtype is ``Config.dtype``.  ``fused`` and
-    ``block > 1`` are not ported yet and raise.
+    to fit on the CPU.  The dtype is ``Config.dtype``.  ``fused=True`` runs
+    each EM iteration as one step with one host read of its convergence
+    norms, and ``block=k`` k iterations per read (``models.driver.vem``):
+    on the card as replays of a captured CUDA graph, raising when the step
+    cannot be captured (``constrain_loading="svd"``).
 
     Passing ``path=...`` snapshots the parameters every ``saving_interval``
     seconds during VEM and once more at the end, as ``vlgp_tpu.fit`` does,
     to ``<path>.npz``.  Restore with :func:`vlgp_tpu_torch.utils.io.load_params`.
     """
-    if fused or block > 1:
-        raise NotImplementedError(
-            "fit(fused=True) and fit(block>1) need the fused EM step and its "
-            "CUDA-graph scan, queued in ROADMAP.md (Queue 1, item 7)")
     config = default_config(**config_kwargs)
     callbacks = list(callbacks)
     saver = None
@@ -188,6 +187,8 @@ def fit(
         saver = Saver(config.path, config.saving_interval)
         callbacks.append(saver)
     device = _resolve_device(device, "fit")
+    if fused or block > 1:
+        check_capturable(config, Dist(), device)
 
     data, params, fm = _prepare(
         trials, n_factors, config, device,
@@ -211,6 +212,7 @@ def fit(
     initial_params = params
     segments, params, G_seg, runtime = vem(
         segments, params, G_seg, config, callbacks=callbacks, verbose=verbose,
+        fused=fused, block=block,
     )
 
     # write the trained posterior back, refresh factors, final full

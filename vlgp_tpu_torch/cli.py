@@ -62,10 +62,10 @@ def main(argv=None) -> int:
                       choices=["poisson", "gaussian"])
     pfit.add_argument("--dtype", type=str, default="float32")
     pfit.add_argument("--fused", action="store_true",
-                      help="run each EM iteration as one graph (not ported yet: fit raises)")
+                      help="run each EM iteration as one captured CUDA graph")
     pfit.add_argument("--block", type=int, default=1,
-                      help="this many EM iterations per device dispatch "
-                           "(values > 1 imply --fused; not ported yet: fit raises)")
+                      help="this many EM iterations per host read of the norms "
+                           "(values > 1 imply --fused)")
     pfit.add_argument("--path", type=str, default=None,
                       help="periodic parameter snapshots to this path")
     pfit.add_argument("--quiet", action="store_true")

@@ -4,7 +4,9 @@ Counterpart of ``vlgp_tpu/models/vlgp.py`` (reference ``vlgp/core.py``).
 The reference's loops over trials, latents and neurons are independent
 given the sufficient statistics, so each phase is a batched tensor
 computation; the hot-loop math runs latent-major (Z, N, T).  The JAX
-package's on-device loop exits become host-synced Python loops here.
+package's on-device loop exits and branches go through ``ops.control``:
+Python loops and host branches when run eagerly, conditional nodes of a
+CUDA graph under a capture (``models/driver.py``).
 
 Every phase takes a :class:`Dist` naming the process group of each mesh
 axis; with the default (no groups) it runs on one device.  ``data`` splits
@@ -26,8 +28,9 @@ import torch.distributed as tdist
 
 from ..config import Config, Params
 from ..data import TrialSet
+from ..ops import control
 from ..ops.math import trunc_exp
-from ..ops.spd import FALLBACKS, _converged, inv_one_plus_gram, inv_one_plus_psd
+from ..ops.spd import FALLBACKS, _ok, inv_one_plus_gram, inv_one_plus_psd
 from ..ops.sweep import sweep as fused_sweep
 from ..ops.sweep import sweep_fused_eligible
 
@@ -108,6 +111,13 @@ def _pmax(x, dist: Dist, axis: str):
     return _all_reduce(x, dist, axis, tdist.ReduceOp.MAX)
 
 
+# torch.linalg.svd reads its solver's info on the host, which a CUDA graph
+# capture refuses
+SVD_CAPTURE = ("constrain_loading='svd' cannot run inside a CUDA graph: torch.linalg.svd "
+               "synchronizes with the host on CUDA.  Use fused=False and block=1, or "
+               "constrain_loading='fro' (ROADMAP.md, Queue 1, item 20)")
+
+
 def _zmajor(x):
     """(N, T, Z) -> (Z, N, T)."""
     return x.permute(2, 0, 1)
@@ -186,8 +196,8 @@ def estep(
     ``xinv`` warm-starts the first sweep's Woodbury inverse (Z, S, R, R);
     with ``return_xinv`` the final sweep's inverse is returned as
     ``(data, xinv)``.  ``config.estep_tol > 0`` stops once
-    |dmu| <= estep_tol * |mu| after at least 2 sweeps (a host-synced
-    check per sweep); 0 runs the fixed count.  With ``_SWEEP_FUSED`` an
+    |dmu| <= estep_tol * |mu| after at least 2 sweeps
+    (``control.bounded_while``); 0 runs the fixed count.  With ``_SWEEP_FUSED`` an
     eligible call runs every sweep in one ``ops.sweep.sweep`` call, whose
     groups of segments exit on their own norms.  Under ``dist.data`` the
     exit norms are summed and the fused call's residual maxed over the
@@ -242,28 +252,34 @@ def estep(
         X = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=xinv,
                               warm_iters=config.ns_warm_iters)
         tol = config.estep_tol
-        for i in range(niter):
-            if tol > 0 and i >= 2:
-                nd, nm = _psum((torch.sum(dmuz * dmuz), torch.sum(muz * muz)), dist, "data")
-                if not bool(nd > tol * tol * nm):
-                    break
-            muz, wz, vz, dmuz, X = sweep(muz, wz, vz, X)
-        return muz, wz, vz, dmuz, X
+
+        def keep_going(i, carry):
+            if not (tol > 0 and i >= 2):
+                return None
+            muz, _, _, dmuz, _ = carry
+            nd, nm = _psum((torch.sum(dmuz * dmuz), torch.sum(muz * muz)), dist, "data")
+            return nd > tol * tol * nm
+
+        return control.bounded_while(niter, keep_going,
+                                     lambda c: sweep(c[0], c[1], c[2], c[4]),
+                                     (muz, wz, vz, dmuz, X), name="estep_sweeps")
 
     if _SWEEP_FUSED and sweep_fused_eligible(data, params, G, dist):
         # the whole E-step in one launch (ops/sweep.py), with ``core`` as the
         # net when any group's inverse misses its residual contract
-        # (vlgp_tpu/models/vlgp.py:262-290); a host-synced branch
+        # (vlgp_tpu/models/vlgp.py:262-290), through control.cond
         *fused, resid, _ = fused_sweep(
             y, xb, mask, a, params.noise, params.poisson, G,
             _zmajor(data.mu), _zmajor(data.w), _zmajor(data.v), xinv,
             niter=niter, tol=config.estep_tol, dmu_bound=config.dmu_bound,
             ns_iters=config.ns_iters, ns_warm_iters=config.ns_warm_iters, vb=vb)
-        if _converged(_pmax(resid.amax(), dist, "data")):
-            muz, wz, vz, dmuz, X = fused
-        else:
-            FALLBACKS["sweep_core"] += 1
-            muz, wz, vz, dmuz, X = core()
+
+        def net():
+            control.tally(FALLBACKS, "sweep_core")
+            return core()
+
+        muz, wz, vz, dmuz, X = control.cond(_ok(_pmax(resid.amax(), dist, "data")),
+                                            lambda: tuple(fused), net)
     else:
         muz, wz, vz, dmuz, X = core()
     out = data.replace(mu=_zminor(muz), w=_zminor(wz), v=_zminor(vz),
@@ -292,6 +308,11 @@ def update_v(data: TrialSet, params: Params, G, config: Config, dist: Dist = Dis
     wz = _zmajor(data.w) * data.mask[None]
     vz = _marginal_variance(G, wz, iters=config.ns_iters) * data.mask[None]
     return data.replace(v=_zminor(vz))
+
+
+def _solve(A, B):
+    """``torch.linalg.solve`` without the host read of its LU's info."""
+    return torch.linalg.solve_ex(A, B, check_errors=False)[0]
 
 
 def _masked_var(resid, mask, dist: Dist):
@@ -385,9 +406,11 @@ def mstep(data: TrialSet, params: Params, config: Config,
                     + an[:, :, None] * an[:, None, :] * E3
                     + C2.T[:, :, None] * Iz
                 )
-                delta_a = torch.linalg.solve(nhess + eps * Iz, grad_a.T[..., None])[..., 0].T
+                # solve_ex: the LU of solve without its host check of info
+                # (a singular system gives NaN, as jnp.linalg.solve does)
+                delta_a = _solve(nhess + eps * Iz, grad_a.T[..., None])[..., 0].T
                 # ---- Poisson regression update (core.py:205-218) ----
-                delta_b = torch.linalg.solve(nhess_b + eps * Ix, grad_b.T[..., None])[..., 0].T
+                delta_b = _solve(nhess_b + eps * Ix, grad_b.T[..., None])[..., 0].T
             else:
                 # gradient mode (core.py:196-197, 215-216)
                 delta_a = config.learning_rate * grad_a
@@ -400,10 +423,10 @@ def mstep(data: TrialSet, params: Params, config: Config,
         if need_gauss:
             # ---- Gaussian closed form (core.py:221-235) ----
             rhs_a = _psum(torch.einsum("zst,sty->zy", mum, y - _xb(x, b)), dist, "data")
-            a_gauss = torch.linalg.solve(Mg, rhs_a)
+            a_gauss = _solve(Mg, rhs_a)
             resid = ym - _eta(mum, a_gauss, torch.zeros_like(y))
             rhs_b = _psum(torch.einsum("stxy,sty->yx", x, resid), dist, "data")
-            b_gauss = torch.linalg.solve(xtx + eps * Ix, rhs_b[..., None])[..., 0].T
+            b_gauss = _solve(xtx + eps * Ix, rhs_b[..., None])[..., 0].T
             # zero the history-filter rows, keep the bias (core.py:235)
             b_gauss = b_gauss * (torch.arange(xdim, device=b.device) == 0)[:, None].to(b.dtype)
 
@@ -427,15 +450,19 @@ def mstep(data: TrialSet, params: Params, config: Config,
             db = torch.where(act, db, torch.zeros_like(db))
         return a_new, b_new, noise, da, db
 
-    a, b, noise, da, db = params.a, params.b, params.noise, params.da, params.db
     mtol = config.mstep_tol
-    for i in range(niter):
-        if mtol > 0 and i >= 2:
-            nda, na, ndb, nb = _psum((torch.sum(da * da), torch.sum(a * a),
-                                      torch.sum(db * db), torch.sum(b * b)), dist, "model")
-            if not bool((nda > mtol * mtol * na) | (ndb > mtol * mtol * nb)):
-                break
-        a, b, noise, da, db = iteration(a, b, noise)
+
+    def keep_going(i, carry):
+        if not (mtol > 0 and i >= 2):
+            return None
+        a, b, _, da, db = carry
+        nda, na, ndb, nb = _psum((torch.sum(da * da), torch.sum(a * a),
+                                  torch.sum(db * db), torch.sum(b * b)), dist, "model")
+        return (nda > mtol * mtol * na) | (ndb > mtol * mtol * nb)
+
+    a, b, noise, da, db = control.bounded_while(
+        niter, keep_going, lambda c: iteration(c[0], c[1], c[2]),
+        (params.a, params.b, params.noise, params.da, params.db), name="mstep_iters")
     return params.replace(a=a, b=b, noise=noise, da=da, db=db)
 
 
@@ -452,6 +479,8 @@ def constrain_loading(data: TrialSet, params: Params, config: Config,
     if c == "svd":
         if dist.model is not None:
             raise NotImplementedError("svd loading constraint under model sharding")
+        if control.mode() == "capture":
+            raise NotImplementedError(SVD_CAPTURE)
         _, _, vh = torch.linalg.svd(a, full_matrices=False)
         us = a @ vh.T
         mu = torch.einsum("stz,zk->stk", data.mu, us)

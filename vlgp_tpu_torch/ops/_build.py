@@ -24,7 +24,7 @@ __all__ = ["build", "load_library", "BUILD_SECONDS", "SOURCES"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("ns_inverse", "sweep", "spd_inverse")
+SOURCES = ("ns_inverse", "sweep", "spd_inverse", "graph_cond")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -42,6 +42,11 @@ _SIGNATURES = {
     },
     "spd_inverse": {
         "spd_inverse": ([_p, _p, _i, _i, _p], _i),
+    },
+    "graph_cond": {
+        "vlgp_cond_handle": ([_p, _p, _i, _p], _i),
+        "vlgp_if_begin": ([_p, _p, _p, _i], _i),
+        "vlgp_if_end": ([_p], _i),
     },
 }
 

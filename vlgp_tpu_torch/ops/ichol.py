@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import control
+
 __all__ = ["ichol_gauss", "ichol_gauss_batch", "ichol", "nystrom_gauss_batch"]
 
 
@@ -46,7 +48,7 @@ def ichol_gauss_batch(n: int, omega, rank: int, dt: float = 1.0,
     d = torch.ones((Z, n), dtype=dtype, device=device)
     pvec = rows.expand(Z, n).clone()
     zero = torch.zeros((), dtype=dtype, device=device)
-    neg_inf = torch.tensor(-float("inf"), dtype=dtype, device=device)
+    neg_inf = torch.full((), -float("inf"), dtype=dtype, device=device)
     for i in range(min(rank, n)):
         # greedy pivot: largest remaining diagonal (math.py:106-110)
         jast = torch.argmax(torch.where(rows >= i, d, neg_inf), dim=1)  # (Z,)
@@ -95,7 +97,8 @@ def nystrom_gauss_batch(n: int, omega, rank: int, dt: float = 1.0,
     package's docstring for the accuracy analysis).
 
     A latent whose landmark Cholesky fails or whose factor is not finite
-    falls back to the exact pivoted ichol (``vlgp_tpu/ops/ichol.py:143-158``).
+    falls back to the exact pivoted ichol (``vlgp_tpu/ops/ichol.py:143-158``);
+    the check is a ``control.cond``, an IF node under a CUDA graph capture.
     omega: (Z,) -> (Z, n, rank).
     """
     omega = _as_omega(omega)
@@ -112,10 +115,9 @@ def nystrom_gauss_batch(n: int, omega, rank: int, dt: float = 1.0,
     # G = K_nJ L^{-T}: solve X L' = K_nJ
     G = torch.linalg.solve_triangular(L.mT, K_nJ, upper=True, left=False)
     finite = torch.isfinite(G).all(dim=(1, 2)) & (info == 0)  # (Z,)
-    if bool(finite.all()):
-        return G
-    return torch.where(finite[:, None, None], G,
-                       ichol_gauss_batch(n, omega, rank, dt))
+    return control.cond(finite.all(), lambda: G,
+                        lambda: torch.where(finite[:, None, None], G,
+                                            ichol_gauss_batch(n, omega, rank, dt)))
 
 
 def ichol(A, rank: int | None = None, tol: float = 1e-10) -> torch.Tensor:
@@ -136,7 +138,7 @@ def ichol(A, rank: int | None = None, tol: float = 1e-10) -> torch.Tensor:
     d = diagA.clone()
     pvec = rows.clone()
     zero = torch.zeros((), dtype=dtype, device=device)
-    neg_inf = torch.tensor(-float("inf"), dtype=dtype, device=device)
+    neg_inf = torch.full((), -float("inf"), dtype=dtype, device=device)
     for i in range(min(rank, n)):
         # greedy pivot: largest remaining diagonal, swapped into place i
         jast = torch.argmax(torch.where(rows >= i, d, neg_inf))

@@ -25,9 +25,13 @@ Routing mirrors the JAX package's eligibility: float32 with R <= 128 takes
 the Newton-Schulz route; float64, and R > 128, take the exact Cholesky
 route.  Every exit of the Newton-Schulz route is residual-checked
 (``_checked``), with the JAX package's fallback net: cold -> one escalation
--> exact Cholesky; warm -> probe -> refine -> cold.  Those checks are
-host-synced branches.  ``FALLBACKS`` counts every branch of the net that
-fires and ``KERNEL_LAUNCHES`` every kernel launch, as plain integers.
+-> exact Cholesky; warm -> probe -> refine -> cold.  Those checks go
+through ``ops.control.cond``: host branches when run eagerly, IF nodes of a
+CUDA graph under a capture (``vlgp_tpu/ops/spd.py:252-256``, ``:957``).
+``FALLBACKS`` counts every branch of the net that fires and
+``KERNEL_LAUNCHES`` every kernel launch, as plain integers; under a capture
+they count once per capture, not per replay (``ops/control.py``), and the
+device counters of the capture count the fallbacks that the replays took.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ import os
 from typing import Optional
 
 import torch
+
+from . import control
 
 __all__ = ["inv_one_plus_psd", "inv_one_plus_gram", "ns_gram", "ns_packed",
            "spd_inverse", "spd_solve",
@@ -56,7 +62,8 @@ _LANE = 64
 _FUSED_PROBE = os.environ.get("VLGP_FUSED_PROBE", "0") == "1"
 
 # Launch, route and fallback counters of every kernel of the port, the
-# fused E-step sweep's (ops/sweep.py) included.
+# fused E-step sweep's (ops/sweep.py) included.  Host integers: under a CUDA
+# graph capture they count the capture, not the replays (ops/control.py).
 KERNEL_LAUNCHES = {"ns_gram": 0, "ns_packed": 0, "probe_skip": 0,
                    "spd_inverse": 0, "sweep": 0}
 ROUTE_CALLS = {"gram": 0, "packed": 0, "sweep": 0}
@@ -70,7 +77,7 @@ FALLBACKS = {
 
 
 def reset_counters() -> None:
-    for d in (KERNEL_LAUNCHES, ROUTE_CALLS, FALLBACKS):
+    for d in (KERNEL_LAUNCHES, ROUTE_CALLS, FALLBACKS, control.TRIPS):
         for k in d:
             d[k] = 0
 
@@ -353,14 +360,16 @@ def ns_gram(G, w, iters: int = 16, x0=None, resid_only: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def _converged(resid: torch.Tensor) -> bool:
-    return bool(torch.isfinite(resid) & (resid < _RESID_TOL))
+def _ok(resid: torch.Tensor) -> torch.Tensor:
+    """The residual contract as a 0-d device bool: finite and below
+    tolerance (NaN fails)."""
+    return torch.isfinite(resid) & (resid < _RESID_TOL)
 
 
 def _checked(X, resid, fallback):
-    """Accept X when its Newton-Schulz residual converged, else take
-    ``fallback`` (a host-synced branch)."""
-    return X if _converged(resid) else fallback()
+    """Accept X (fresh from a kernel) when its Newton-Schulz residual
+    converged, else take ``fallback`` (``control.cond``)."""
+    return control.cond(_ok(resid), lambda: X, fallback)
 
 
 def inv_one_plus_psd(A, iters: int = 16, force: Optional[str] = None,
@@ -394,14 +403,14 @@ def _ns_auto(A, iters, force, warm, warm_iters, probe=True):
     flat = A.reshape(-1, R, R).contiguous()
 
     def exact():
-        FALLBACKS["packed_exact"] += 1
+        control.tally(FALLBACKS, "packed_exact")
         return _spd_inverse_exact(flat + _eye(R, flat))
 
     def cold():
         X, resid = ns_packed(flat, iters)
 
         def escalate():
-            FALLBACKS["packed_escalate"] += 1
+            control.tally(FALLBACKS, "packed_escalate")
             X2, r2 = ns_packed(flat, iters, x0=X)
             return _checked(X2, r2, exact)
 
@@ -415,7 +424,7 @@ def _ns_auto(A, iters, force, warm, warm_iters, probe=True):
         Xw, resid = ns_packed(flat, warm_iters, x0=x0w)
 
         def refine_failed():
-            FALLBACKS["packed_refine_fail"] += 1
+            control.tally(FALLBACKS, "packed_refine_fail")
             return cold()
 
         return _checked(Xw.reshape(shape), resid, refine_failed)
@@ -428,15 +437,18 @@ def _ns_auto(A, iters, force, warm, warm_iters, probe=True):
         Xw, resid = ns_packed(flat, warm_iters, x0=x0w, probe_skip=True)
 
         def fused_failed():
-            FALLBACKS["packed_refine_fail"] += 1
+            control.tally(FALLBACKS, "packed_refine_fail")
             return cold()
 
         return _checked(Xw.reshape(shape), resid, fused_failed)
     _, resid0 = ns_packed(flat, 0, x0=x0w, resid_only=True)
-    if _converged(resid0):
-        return x0w.reshape(shape)
-    FALLBACKS["packed_probe_reject"] += 1
-    return refine()
+
+    def probe_rejected():
+        control.tally(FALLBACKS, "packed_probe_reject")
+        return refine()
+
+    return control.cond(_ok(resid0), lambda: control.private(x0w).reshape(shape),
+                        probe_rejected)
 
 
 def inv_one_plus_gram(G, w, iters: int = 16, force: Optional[str] = None,
@@ -479,7 +491,7 @@ def _gram_auto(G, w, iters, warm, warm_iters, probe, want_v):
                        want_v=want_v)
 
     def exact():
-        FALLBACKS["gram_exact"] += 1
+        control.tally(FALLBACKS, "gram_exact")
         A = torch.einsum("ztr,zst,ztq->zsrq", G, w, G)
         Xe = _spd_inverse_exact(A + _eye(R, A))
         if want_v:
@@ -490,7 +502,7 @@ def _gram_auto(G, w, iters, warm, warm_iters, probe, want_v):
         X, resid, v = kern(iters)
 
         def escalate():
-            FALLBACKS["gram_escalate"] += 1
+            control.tally(FALLBACKS, "gram_escalate")
             X2, r2, v2 = kern(iters, x0=X)
             return _checked(pack(X2, v2), r2, exact)
 
@@ -504,7 +516,7 @@ def _gram_auto(G, w, iters, warm, warm_iters, probe, want_v):
         Xw, resid, vw = kern(warm_iters, x0=warm)
 
         def refine_failed():
-            FALLBACKS["gram_refine_fail"] += 1
+            control.tally(FALLBACKS, "gram_refine_fail")
             return cold()
 
         return _checked(pack(Xw, vw), resid, refine_failed)
@@ -512,10 +524,12 @@ def _gram_auto(G, w, iters, warm, warm_iters, probe, want_v):
     if not probe:
         return refine()
     _, resid0, v0 = kern(0, x0=warm, resid_only=True)
-    if _converged(resid0):
-        return pack(warm, v0)
-    FALLBACKS["gram_probe_reject"] += 1
-    return refine()
+
+    def probe_rejected():
+        control.tally(FALLBACKS, "gram_probe_reject")
+        return refine()
+
+    return control.cond(_ok(resid0), lambda: pack(control.private(warm), v0), probe_rejected)
 
 
 # ---------------------------------------------------------------------------

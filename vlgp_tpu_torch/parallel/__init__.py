@@ -14,7 +14,7 @@ from .mesh import (
     shard_data,
     trim_channels,
 )
-from .spmd import DIST, sharded_em_step, sharded_infer
+from .spmd import DIST, sharded_em_scan, sharded_em_step, sharded_infer
 
 __all__ = [
     "make_mesh",
@@ -27,6 +27,7 @@ __all__ = [
     "pad_channels",
     "trim_channels",
     "sharded_em_step",
+    "sharded_em_scan",
     "sharded_infer",
     "DIST",
 ]

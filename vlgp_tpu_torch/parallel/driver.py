@@ -21,12 +21,13 @@ import torch.distributed as tdist
 from ..api import FitResult, _prepare
 from ..config import Config, default_config
 from ..data import TrialSet, cut_trials, scatter_segments
-from ..models.driver import _elbo_record, _iter_converged, _track_elbo, xinv_zeros
+from ..models.driver import (NORM_KEYS, _converged, _elbo_record, _iter_converged, _track_elbo,
+                             check_capturable, xinv_zeros)
 from ..models.gp import effective_rank, hstep, make_cholesky
 from ..models.vlgp import update_v, update_w
 from .mesh import (Mesh, gather, make_mesh, pad_channels, pad_segments, replicate,
                    shard_data, trim_channels)
-from .spmd import sharded_em_step, sharded_infer
+from .spmd import DIST, sharded_em_scan, sharded_em_step, sharded_infer
 
 __all__ = ["fit_sharded", "initialize_distributed"]
 
@@ -84,13 +85,17 @@ def fit_sharded(
     segments without the inverse carry (``fit`` passes it, so the two
     agree bit for bit through the EM loop, not after it); the final
     full-length inference is split over trials.  ``path=`` snapshots as
-    in ``fit``, from rank 0 only.  ``block > 1`` (several EM iterations per
-    dispatch) is ROADMAP item 7 and raises.
+    in ``fit``, from rank 0 only.
+
+    ``block=k`` (k > 1) runs k EM iterations per call of
+    :func:`~vlgp_tpu_torch.parallel.spmd.sharded_em_scan`, with one host
+    read of their stacked norms per block; the boundary work runs per
+    block, and ``runtime["converged_at"]`` records the first converged
+    iteration while ``runtime["it"]`` counts the whole block
+    (``vlgp_tpu/parallel/driver.py:173-206``).  On the card, with an
+    ``nccl`` group, the k steps are replays of a captured CUDA graph; a
+    ``gloo`` group with CUDA tensors raises a ValueError naming nccl.
     """
-    if block > 1:
-        raise NotImplementedError(
-            "fit_sharded(block>1) needs the fused EM step and its CUDA-graph scan, "
-            "queued in ROADMAP.md (Queue 1, item 7)")
     config_keys = {f.name for f in dataclasses.fields(Config)}
     config = default_config(**{k: v for k, v in kwargs.items() if k in config_keys})
     prep_kwargs = {k: v for k, v in kwargs.items() if k not in config_keys}
@@ -98,6 +103,8 @@ def fit_sharded(
         mesh = make_mesh(device=device)
     elif device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    if block > 1:
+        check_capturable(config, mesh.dist(DIST), mesh.device)
     callbacks = list(callbacks)
     # whether the boundaries gather is decided from arguments that every
     # rank shares (the Saver lives on rank 0 only): a gather is a collective
@@ -151,20 +158,48 @@ def fit_sharded(
             except RuntimeError:
                 pass
 
-    step = sharded_em_step(mesh, config, seg, params_s)
     xinv = xinv_zeros(seg, G_seg)
-    for it in range(config.max_iter):
-        runtime["it"] += 1
-        tic = time.perf_counter()
-        seg, params_s, G_seg, norms, xinv = step(seg, params_s, G_seg, xinv, it)
-        norms = {k: float(v) for k, v in norms.items()}
-        runtime["em_elapsed"].append(time.perf_counter() - tic)
-        if verbose and mesh.rank == 0:
-            print(f"Iteration {it + 1}, EM {runtime['em_elapsed'][-1]:.2f}s")
-        boundary(seg, params_s, G_seg)
-        if _iter_converged(runtime, norms, config) and it + 1 >= config.min_iter:
-            runtime["converged_at"] = runtime["it"]
-            break
+    if block > 1:
+        run = sharded_em_scan(mesh, config, seg, params_s, block)
+        done = False
+        while runtime["it"] < config.max_iter and not done:
+            k = min(block, config.max_iter - runtime["it"])
+            step = run if k == block else sharded_em_scan(mesh, config, seg, params_s, k)
+            tic = time.perf_counter()
+            seg, params_s, G_seg, xinv, norms_k = step(seg, params_s, G_seg, xinv,
+                                                       runtime["it"])
+            # one host read per block: the stacked norms
+            rows = torch.stack([norms_k[key] for key in NORM_KEYS], 1).tolist()
+            elapsed = time.perf_counter() - tic
+            for row in rows:
+                runtime["it"] += 1
+                runtime["em_elapsed"].append(elapsed / k)
+                if (config.convergence == "norms" and _converged(dict(zip(NORM_KEYS, row)),
+                                                                  config.tol)
+                        and runtime["it"] >= config.min_iter and not done):
+                    runtime["converged_at"] = runtime["it"]
+                    done = True
+            boundary(seg, params_s, G_seg)
+            if (config.convergence == "elbo" and not done and runtime["it"] >= config.min_iter
+                    and _iter_converged(runtime, {}, config)):
+                runtime["converged_at"] = runtime["it"]
+                done = True
+            if verbose and mesh.rank == 0:
+                print(f"Iteration {runtime['it']}, EM {elapsed / k:.2f}s/it (block {k})")
+    else:
+        step = sharded_em_step(mesh, config, seg, params_s)
+        for it in range(config.max_iter):
+            runtime["it"] += 1
+            tic = time.perf_counter()
+            seg, params_s, G_seg, norms, xinv = step(seg, params_s, G_seg, xinv, it)
+            norms = {k: float(v) for k, v in norms.items()}
+            runtime["em_elapsed"].append(time.perf_counter() - tic)
+            if verbose and mesh.rank == 0:
+                print(f"Iteration {it + 1}, EM {runtime['em_elapsed'][-1]:.2f}s")
+            boundary(seg, params_s, G_seg)
+            if _iter_converged(runtime, norms, config) and it + 1 >= config.min_iter:
+                runtime["converged_at"] = runtime["it"]
+                break
 
     seg_all = gather(seg, mesh, static=seg_full)
     interval = int(config.hyper_interval)

@@ -17,11 +17,11 @@ from typing import Callable, Optional
 
 from ..config import Config, Params
 from ..data import TrialSet
-from ..models.driver import make_em_step
+from ..models.driver import make_em_step, make_steps
 from ..models.vlgp import Dist, estep
 from .mesh import Mesh
 
-__all__ = ["sharded_em_step", "sharded_infer", "DIST"]
+__all__ = ["sharded_em_step", "sharded_em_scan", "sharded_infer", "DIST"]
 
 # the axes the step shards, by name; ``Mesh.dist`` binds them to a group
 DIST = Dist(data="data", model="model")
@@ -41,7 +41,8 @@ def sharded_em_step(mesh: Mesh, config: Config, data: TrialSet, params: Params) 
     (unused at ``hyper_interval=1``; the signature stays fixed).  ``norms``
     are summed over the ranks (the posterior's over the data axis, the
     params' over the model axis), so every rank takes the same convergence
-    decision.
+    decision.  (:func:`sharded_em_scan` returns ``norms`` after ``xinv``,
+    as ``vlgp_tpu``'s does.)
     """
     em = make_em_step(config, mesh.dist(DIST), carry_xinv=True)
     with_it = config.hyper_interval > 1
@@ -50,6 +51,35 @@ def sharded_em_step(mesh: Mesh, config: Config, data: TrialSet, params: Params) 
         return em(data, params, G, xinv, it=it if with_it else None)
 
     return step
+
+
+def sharded_em_scan(mesh: Mesh, config: Config, data: TrialSet, params: Params,
+                    k: int) -> Callable:
+    """k EM steps over ``mesh`` per call, with one set of norms per step
+    (``vlgp_tpu/parallel/spmd.py:105-154``; ``data`` and ``params`` are its
+    signature, as in :func:`sharded_em_step`).
+
+    Returns (data, params, G, xinv, it0) -> (data, params, G, xinv, norms):
+    ``it0`` is the 0-based iteration of the first step (the
+    ``hyper_interval`` cadence), and ``norms`` maps each key to a (k,)
+    tensor of the steps' norms, summed over the ranks as in the step.  The
+    output order is ``vlgp_tpu``'s, which puts ``norms`` last, unlike
+    :func:`sharded_em_step`.  On the CPU the steps run eagerly.  On CUDA
+    tensors with ``nccl`` groups they are replays of the step captured as
+    CUDA graphs (``models.driver.make_steps``), enqueued with no host read
+    between them; the returned tensors are copies.  A ``gloo`` group with
+    CUDA tensors raises a ValueError: gloo's CUDA collectives synchronize
+    with the host, which a capture refuses.
+    """
+    dist = mesh.dist(DIST)
+
+    def scan(data, params, G, xinv, it0):
+        steps = make_steps(config, dist, data, params, G, xinv, k)
+        steps.run(int(it0), k)
+        data, params, G, xinv = steps.state()
+        return data, params, G, xinv, steps.norm_tensors()
+
+    return scan
 
 
 def sharded_infer(mesh: Mesh, config: Config, data: TrialSet, params: Params,
