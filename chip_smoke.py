@@ -5,7 +5,7 @@
 Phases, each of which raises on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the four sources of vlgp_tpu_torch/csrc/ with nvcc
+2. build: compiles the six sources of vlgp_tpu_torch/csrc/ with nvcc
    (sm_90a), one process each, all at once;
 3. ns_gram against its plain PyTorch version on the card, at the two
    main-path shapes (E/H-step segments and the final full-length
@@ -30,6 +30,16 @@ Phases, each of which raises on failure:
    probe_skip at B500 R50 (a ragged last group) with converged, drifted
    and NaN-carrying groups, all groups converged, all drifted, and at R17
    with only its ragged last group drifted;
+   svd_loading (the loading's SVD) against its plain version (torch.linalg.svd,
+   the same order and sign convention) at the flagship loading 5 x 100
+   and at 1 x 1, 2 x 3, 17 x 1000, 64 x 64 and 128 x 10000, in float32 and
+   float64: orthonormal rows, a vh' vh = a, descending order, the sign
+   convention, the same bits on a second call, and each row against the
+   plain version's where its singular value is separated; a zero row, a
+   zero matrix and orthonormal rows (fully degenerate) by the invariants,
+   a NaN entry NaN out; timed at 5 x 100; lorenz's kernel against the
+   CPU's loop bit for bit over 20,000 steps in float64 and float32, timed
+   at 101,000 steps against one call of the plain loop on the card;
 7. a small fit (4 trials x 120 bins x 10 neurons x 2 latents) on the card
    in float32 against the same fit on the CPU in float64 (exact route);
 8. the main paths, each with the launch counters set to 0 just before it
@@ -50,8 +60,8 @@ Phases, each of which raises on failure:
    (9d) sample_posterior, 1000 samples of trial 0; (9e) fastfit (GPFA warm
    start) and gmap_speckled_cv over 3, 5 and 7 factors; (9f)
    examples/tutorial_lorenz.py's recipe at the flagship widths with the
-   port's lorenz and spike, fitted from factor analysis (R^2 >=
-   R2_LORENZ_MIN);
+   port's lorenz (one kernel launch) and spike, fitted from factor
+   analysis (R^2 >= R2_LORENZ_MIN);
 10. save, load, checkpoint and the command line, each sub-phase with the
    counters set to 0 just before it: (10a) save the last default fit of
    phase 8, load it on the card (every tensor, the config and the runtime
@@ -106,7 +116,12 @@ Phases, each of which raises on failure:
    card's eager fit (bit for bit) and the CPU's (GRAPH64_RTOL); (12f)
    fit_sharded(block=3) over an nccl group of one rank against block=1,
    and fit_sharded(block=2) over a gloo group on CUDA tensors, which must
-   raise a ValueError naming nccl; then one eager and one fused fit under
+   raise a ValueError naming nccl; (12g) the flagship fit with
+   constrain_loading="svd" eagerly, with fused=True and with block=5
+   (replays under set_sync_debug_mode("error")): params equal bit for bit
+   at every boundary, the same decision counts, R^2 >= R2_MIN, the EM loop
+   beside the "fro" fit's; and fit_sharded(block=3) with "svd" over nccl
+   at world 1 against block=1, bit for bit; then one eager and one fused fit under
    torch.profiler (kernels, busy and idle share, launch calls and host
    syncs, for the fit and its EM loop).
 
@@ -759,6 +774,181 @@ def check_probe_skip(device, gen):
     return err, ms, pms, lms, b_ms, b_by
 
 
+# svd_loading's edge shapes (Z, Y) beside the flagship loading: one entry,
+# Y just above Z, an odd Z with long rows, a square matrix (its smallest
+# singular values near 0), and the Z limit with long rows
+SVD_SHAPES = ((ZDIM, YDIM), (1, 1), (2, 3), (17, 1000), (64, 64), (128, 10000))
+# the kernel's rows: max |vh vh' - I| and max |a vh' vh - a| / max |a|, by
+# dtype (the kernel works in float64 and rounds its rows once or twice)
+SVD_ORTH_TOL = {torch.float32: 1e-5, torch.float64: 1e-10}
+# the kernel against torch.linalg.svd row by row only where a row's singular
+# value stands more than SVD_GAP_MIN of the largest from its neighbours (a
+# singular vector moves by ~ eps s_max / gap); both within SVD_DIRECT_TOL
+SVD_GAP_MIN = 1e-2
+SVD_DIRECT_TOL = {torch.float32: 1e-4, torch.float64: 1e-9}
+# NVIDIA H100 SXM float64 outside the tensor cores (data sheet, 700 W): the
+# svd_loading kernel computes in float64
+PEAK_FLOPS64 = 34e12
+
+
+def svd_invariants(a, vh, tag):
+    """Raise unless the kernel's vh holds its invariants for a: shape,
+    dtype, finite, orthonormal rows, a vh' vh = a, descending |a vh_k'|, the
+    largest entry of each row positive.  Returns (orthonormality,
+    projection) errors."""
+    Z, Y = a.shape
+    K = min(Z, Y)
+    tol = SVD_ORTH_TOL[a.dtype]
+    if tuple(vh.shape) != (K, Y) or vh.dtype != a.dtype or not bool(torch.isfinite(vh).all()):
+        raise AssertionError(f"svd_loading {tag}: {tuple(vh.shape)} {vh.dtype}, or not finite")
+    v, a64 = vh.double(), a.double()
+    orth = float((v @ v.T - torch.eye(K, dtype=torch.float64, device=v.device)).abs().max())
+    proj = float((a64 @ v.T @ v - a64).abs().max() / a64.abs().max().clamp_min(1e-300))
+    s = torch.linalg.norm(a64 @ v.T, dim=0)
+    desc = bool((s[:-1] >= s[1:] - tol * s[0]).all())
+    pos = bool((v[torch.arange(K, device=v.device), v.abs().argmax(dim=1)] > 0).all())
+    if not (orth <= tol and proj <= tol and desc and pos):
+        raise AssertionError(f"svd_loading {tag}: orthonormality {orth:.2e}, projection "
+                             f"{proj:.2e} (tol {tol:.0e}), descending {desc}, sign "
+                             f"convention {pos}")
+    return orth, proj
+
+
+def svd_direct(a, vh, ref):
+    """(max |kernel - plain| over the rows whose singular value is
+    separated, number of such rows)."""
+    sv = torch.linalg.svdvals(a.double()).tolist()
+    K, floor = len(sv), SVD_GAP_MIN * sv[0]
+    rows = [k for k in range(K) if sv[k] > floor
+            and (k == 0 or sv[k - 1] - sv[k] > floor) and (k == K - 1 or sv[k] - sv[k + 1] > floor)]
+    if not rows:
+        return 0.0, 0
+    return float((vh[rows].double() - ref[rows].double()).abs().max()), len(rows)
+
+
+def check_svd_loading(device, gen):
+    """svd_loading (the kernel) against its plain version (torch.linalg.svd
+    with the same order and sign convention) at the flagship loading and
+    the edge shapes in float32 and float64, random normal entries; then a
+    zero row, a zero matrix, orthonormal rows (fully degenerate singular
+    values) and a NaN entry.  Times the flagship shape.  Returns (max
+    |kernel - plain| over the direct comparisons, kernel, plain and
+    torch.linalg.svd times, bound ms, what binds)."""
+    from vlgp_tpu_torch.ops.linalg import _svd_loading_plain, svd_loading
+
+    err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for Z, Y in SVD_SHAPES:
+            a = torch.randn((Z, Y), generator=gen, device=device, dtype=dtype)
+            vh = svd_loading(a)
+            torch.cuda.synchronize()
+            orth, proj = svd_invariants(a, vh, f"{Z}x{Y} {dtype}")
+            d, nrows = svd_direct(a, vh, _svd_loading_plain(a))
+            if d > SVD_DIRECT_TOL[dtype]:
+                raise AssertionError(f"svd_loading {Z}x{Y} {dtype}: {d:.2e} from the plain "
+                                     f"version over {nrows} separated rows")
+            if not torch.equal(svd_loading(a), vh):
+                raise AssertionError(f"svd_loading {Z}x{Y} {dtype}: two calls differ")
+            err = max(err, d)
+            log(f"  svd_loading {Z}x{Y} {str(dtype)[6:]}: orthonormality {orth:.2e}, "
+                f"projection {proj:.2e}, |kernel - plain| {d:.2e} over {nrows} of "
+                f"{vh.shape[0]} rows (separated), repeat bit for bit")
+        special = {}
+        a = torch.randn((ZDIM, YDIM), generator=gen, device=device, dtype=dtype)
+        a[2] = 0.0
+        special["zero row 2 of 5x100"] = a
+        a = torch.randn((2, 3), generator=gen, device=device, dtype=dtype)
+        a[0] = 0.0
+        special["zero row 0 of 2x3"] = a
+        special["zero 3x7"] = torch.zeros((3, 7), device=device, dtype=dtype)
+        q, _ = torch.linalg.qr(torch.randn((YDIM, ZDIM), generator=gen, device=device,
+                                           dtype=torch.float64))
+        special["orthonormal rows 5x100"] = q.T.contiguous().to(dtype)
+        for tag, a in special.items():
+            vh = svd_loading(a)
+            torch.cuda.synchronize()
+            orth, proj = svd_invariants(a, vh, f"{tag} {dtype}")
+            log(f"  svd_loading {tag} {str(dtype)[6:]}: finite, orthonormality {orth:.2e}, "
+                f"projection {proj:.2e}")
+        a = torch.randn((ZDIM, YDIM), generator=gen, device=device, dtype=dtype)
+        a[1, 3] = float("nan")
+        vh = svd_loading(a)
+        torch.cuda.synchronize()
+        if not bool(torch.isnan(vh).all()):
+            raise AssertionError(f"svd_loading: a NaN entry did not give a NaN vh ({dtype})")
+        log(f"  svd_loading NaN at (1, 3) {str(dtype)[6:]}: returned, vh all NaN")
+    a = torch.randn((ZDIM, YDIM), generator=gen, device=device)
+    ms = time_ms(lambda: svd_loading(a))
+    pms = time_ms(lambda: _svd_loading_plain(a))
+    lms = time_ms(lambda: torch.linalg.svd(a, full_matrices=False))
+    # the work every route needs, float64 FMAs: the Gram, the rows V' a and
+    # their norms; bytes: a read once, vh written once
+    fma = ZDIM * (ZDIM + 1) // 2 * YDIM + ZDIM * ZDIM * YDIM + ZDIM * YDIM
+    t_ops, t_bytes = 2.0 * fma / PEAK_FLOPS64, 4 * 2 * ZDIM * YDIM / PEAK_BYTES
+    b_ms, b_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    log(f"  svd_loading {ZDIM}x{YDIM} float32: kernel {fmt_ms(ms)}, plain {fmt_ms(pms)}, "
+        f"torch.linalg.svd {fmt_ms(lms)}, bound {b_ms:.2e} ms ({b_by})")
+    return err, ms, pms, lms, b_ms, b_by
+
+
+# lorenz: steps held bit for bit against the CPU's loop, and the steps of
+# phase 9f's trajectory (examples/tutorial_lorenz.py's recipe)
+LORENZ_CHECK_STEPS = 20000
+LORENZ_STEPS = NTRIAL * LENGTH + 1000
+# dependent rounded operations per Euler step: r x, - y, - x z, dt *, x +
+LORENZ_CHAIN = 5
+
+
+def check_lorenz(device):
+    """The lorenz kernel against the CPU's loop, bit for bit, over
+    LORENZ_CHECK_STEPS steps in float64 and float32 (and 1000 steps from a
+    given start, and n = 1); then the kernel's time at LORENZ_STEPS in
+    float64 (median of 10) and one call of the plain loop on the card.
+    Returns (max |kernel - plain|, kernel ms, plain ms, bound ms, what
+    binds)."""
+    from vlgp_tpu_torch.simulation import _lorenz_cuda, _lorenz_plain, lorenz
+
+    err = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for n, x0 in ((LORENZ_CHECK_STEPS, None), (1000, (1.0, -2.0, 20.0)), (1, None)):
+            got = lorenz(n, x0=x0, dtype=dtype, device=device).cpu()
+            ref = lorenz(n, x0=x0, dtype=dtype, device="cpu")
+            err = max(err, float((got - ref).abs().max()))
+            if not torch.equal(got, ref):
+                bad = int((got != ref).any(dim=1).nonzero()[0])
+                raise AssertionError(f"lorenz {dtype} n={n} x0={x0}: the kernel leaves the "
+                                     f"CPU's loop at step {bad}")
+        log(f"  lorenz {str(dtype)[6:]}: the kernel equals the CPU's loop bit for bit over "
+            f"{LORENZ_CHECK_STEPS} steps, 1000 steps from (1, -2, 20), and n = 1")
+    n = LORENZ_STEPS
+    xs = torch.empty((n, 3), dtype=torch.float64, device=device)
+    xs[0] = torch.tensor((0.0, 1.0, 1.05), dtype=torch.float64)
+    consts = (0.01, 10.0, 28.0, 2.667)
+    ms = time_ms(lambda: _lorenz_cuda(xs, *consts))
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True).stdout.strip().splitlines()[0]
+    _lorenz_plain(xs[:100].clone(), *consts)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    plain = xs.clone()
+    start.record()
+    _lorenz_plain(plain, *consts)
+    end.record()
+    torch.cuda.synchronize()
+    pms = start.elapsed_time(end)
+    if not torch.equal(plain, xs):
+        raise AssertionError("lorenz: the plain loop on the card differs from the kernel")
+    # bytes: the trajectory written once; operations: 15 float64 flops a step
+    t_ops, t_bytes = 15.0 * (n - 1) / PEAK_FLOPS64, 24.0 * n / PEAK_BYTES
+    b_ms, b_by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    chain = LORENZ_CHAIN * (n - 1)
+    ns_op = ms[0] * 1e6 / chain
+    log(f"  lorenz {n} steps float64: kernel {fmt_ms(ms)}, plain loop on the card (one call) "
+        f"{pms:.1f} ms, equal bit for bit; bound {b_ms:.2e} ms ({b_by}: {24 * n} bytes); "
+        f"the chain of {chain} dependent operations takes {ns_op:.2f} ns each, "
+        f"{ns_op * float(clock) * 1e-3:.1f} cycles at the SM clock of {clock} MHz")
+    return err, ms, pms, b_ms, b_by
+
+
 def make_workload(seed=0, ntrial=NTRIAL, a=None, length=LENGTH, ydim=YDIM):
     """bench.py's flagship workload (seed 0): (trials, loading, true
     latents).  Another seed with the flagship's loading `a` gives fresh
@@ -1214,16 +1404,20 @@ def run_lorenz(device):
     card: one normalised Lorenz trajectory, trial i reading it from bin 1000 +
     1000 i, latents x 2, a ~ N(0, 0.6^2) and bias -2.5 (NumPy seed 0), spikes
     from a generator seeded 0; fit with 3 factors and no a or b (factor
-    analysis on the card), 30 EM iterations.  Returns (simulation s, fit s,
-    R^2)."""
+    analysis on the card), 30 EM iterations.  The trajectory is one launch of
+    the lorenz kernel, counted from 0 just before.  Returns (simulation s,
+    fit s, R^2, lorenz launches)."""
     import vlgp_tpu_torch
+    from vlgp_tpu_torch.ops import spd
     from vlgp_tpu_torch.simulation import lorenz, spike
 
+    spd.reset_counters()
     torch.cuda.synchronize()
     tic = time.perf_counter()
-    traj = lorenz(NTRIAL * LENGTH + 1000, normalized=True, device=device)
+    traj = lorenz(LORENZ_STEPS, normalized=True, device=device)
     torch.cuda.synchronize()
     lorenz_s = time.perf_counter() - tic
+    launches = spd.KERNEL_LAUNCHES["lorenz"]
     rng = np.random.default_rng(0)
     a = rng.normal(size=(3, YDIM)) * 0.6
     b = np.full((1, YDIM), -2.5)
@@ -1241,12 +1435,15 @@ def run_lorenz(device):
     fit_s = time.perf_counter() - tic
     r2 = r2_aligned(res.data.mu.cpu().numpy().reshape(-1, 3), z.cpu().numpy().reshape(-1, 3))
     log(f"9f Lorenz -> Poisson ({NTRIAL} x {LENGTH} x {YDIM}, 3 factors): simulation "
-        f"{sim_s:.2f} s (lorenz {lorenz_s:.2f} s for {NTRIAL * LENGTH + 1000} steps), spike "
-        f"rate {float(y.mean()):.4f} per bin; fit {fit_s:.2f} s, {res.runtime['it']} EM "
+        f"{sim_s:.4f} s (lorenz {lorenz_s:.4f} s for {LORENZ_STEPS} steps in {launches} "
+        f"launch(es) of its kernel; spike and the rest {sim_s - lorenz_s:.4f} s), spike rate "
+        f"{float(y.mean()):.4f} per bin; fit {fit_s:.2f} s, {res.runtime['it']} EM "
         f"iterations, R^2 (lstsq-aligned) {r2:.4f}")
+    if launches != 1:
+        raise AssertionError(f"9f: lorenz made {launches} kernel launches, not 1")
     if not (y.device.type == res.data.mu.device.type == device.type and r2 >= R2_LORENZ_MIN):
         raise AssertionError(f"9f: Lorenz fit R^2 {r2:.4f} < {R2_LORENZ_MIN}, or off the card")
-    return sim_s, fit_s, r2
+    return sim_s, fit_s, r2, launches
 
 
 def result_diff(a, b):
@@ -1469,6 +1666,15 @@ def param_recorder():
     return seen, record
 
 
+def same_boundaries(seen, ref):
+    """Indices of the boundaries where two param records differ (every
+    boundary when their lengths differ)."""
+    if len(seen) != len(ref):
+        return list(range(max(len(seen), len(ref))))
+    return [i for i, (x, y) in enumerate(zip(seen, ref))
+            if any(not torch.equal(x[f], y[f]) for f in PARAM_FIELDS)]
+
+
 def free_port():
     import socket
 
@@ -1552,10 +1758,8 @@ def run_sharded_world1(card):
         f"{got.runtime.get('final_hstep', False)}), R^2 {r2:.4f}, launches {launches}, "
         f"collectives {coll} ({coll['all_reduce'] / it:.1f} all_reduce per EM iteration, "
         f"{BOUNDARY_BYTES} bytes gathered per boundary)")
-    if len(seen) != len(seen_fit) or any(
-            not torch.equal(x[f], y[f]) for x, y in zip(seen, seen_fit) for f in PARAM_FIELDS):
-        diff = [i for i, (x, y) in enumerate(zip(seen, seen_fit))
-                if any(not torch.equal(x[f], y[f]) for f in PARAM_FIELDS)]
+    diff = same_boundaries(seen, seen_fit)
+    if diff:
         raise AssertionError(f"11a: {len(seen)} vs {len(seen_fit)} boundaries; params differ "
                              f"from fit's at boundaries {diff}")
     if got.runtime.get("converged_at") != ref.runtime.get("converged_at"):
@@ -1856,7 +2060,8 @@ def run_graph_fits(card, r2_eager, walls_eager):
     """12a (second part) and 12b: the 30-iteration flagship fit with
     fused=True, block=5 and block=7, each replay run under
     torch.cuda.set_sync_debug_mode("error") (the norms reads excepted),
-    R^2 within R2_GRAPH_GAP of the eager fit's, the host reads counted."""
+    R^2 within R2_GRAPH_GAP of the eager fit's, the host reads counted.
+    Returns the EM loop seconds of each fit, by tag ("eager" first)."""
     from vlgp_tpu_torch.models import driver
 
     reads = [0]
@@ -1867,6 +2072,7 @@ def run_graph_fits(card, r2_eager, walls_eager):
         return norms(self)
 
     res, wall, r2, launches, mem = graph_fit()
+    em_loops = {"eager": sum(res.runtime["em_elapsed"])}
     log(f"12a eager default fit [{card}]: {wall:.2f} s wall, EM loop "
         f"{sum(res.runtime['em_elapsed']):.3f} s (E {sum(res.runtime['e_elapsed']):.3f}, M "
         f"{sum(res.runtime['m_elapsed']):.3f}, H {sum(res.runtime['h_elapsed']):.3f}), peak "
@@ -1893,12 +2099,14 @@ def run_graph_fits(card, r2_eager, walls_eager):
             if abs(r2 - r2_eager) > R2_GRAPH_GAP or r2 < R2_MIN:
                 raise AssertionError(f"{tag}: R^2 {r2:.4f} against the eager fit's {r2_eager:.4f}")
             out[tag] = res
+            em_loops[tag] = em
     finally:
         driver._GraphSteps.norms = norms
         driver.CHECK_REPLAY_SYNCS = False
     ca = [r.runtime.get("converged_at") for r in out.values()]
     if len(set(ca)) != 1:
         raise AssertionError(f"12b: converged_at differs between the drivers: {ca}")
+    return em_loops
 
 
 def run_graph_fused_sweep(card, r2_fused_sweep):
@@ -2037,6 +2245,73 @@ def run_graph_sharded(card):
         tdist.destroy_process_group()
 
 
+def run_graph_svd(card, fro_em):
+    """12g: the flagship fit with constrain_loading="svd" eagerly, then with
+    fused=True and with block=5 (each replay under
+    torch.cuda.set_sync_debug_mode("error")): the params equal the eager
+    fit's bit for bit at every boundary, the replays' device decision
+    counts equal the eager fit's host counts, R^2 >= R2_MIN, one
+    svd_loading launch per eager EM iteration, the EM loops beside the
+    "fro" fits' of 12a and 12b; then fit_sharded(block=3) against block=1
+    over an nccl group of one rank, bit for bit at the block boundaries.
+    Returns the eager fit's svd_loading launches."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    from vlgp_tpu_torch.models import driver
+
+    svd = dict(constrain_loading="svd")
+    seen_e, rec_e = param_recorder()
+    eager, wall_e, r2_e, launch_e, _ = graph_fit(rec_e, **svd)
+    em_e = sum(eager.runtime["em_elapsed"])
+    log(f"12g eager svd fit [{card}]: {wall_e:.2f} s wall, EM loop {em_e:.3f} s (the 'fro' "
+        f"eager fit of 12a: {fro_em['eager']:.3f} s), R^2 {r2_e:.4f}, svd_loading launches "
+        f"{launch_e['svd_loading']}, counts {eager.runtime['counts']}")
+    if launch_e["svd_loading"] != eager.runtime["it"] or r2_e < R2_MIN:
+        raise AssertionError(f"12g: the eager svd fit made {launch_e['svd_loading']} "
+                             f"svd_loading launches in {eager.runtime['it']} iterations, R^2 "
+                             f"{r2_e:.4f}")
+    driver.CHECK_REPLAY_SYNCS = True
+    try:
+        for tag, kw, fro_tag in (("fused=True", dict(fused=True), "12a fused"),
+                                 ("block=5", dict(block=5), "12b block=5")):
+            seen, rec = param_recorder()
+            res, wall, r2, launches, _ = graph_fit(rec, **svd, **kw)
+            k = kw.get("block", 1)
+            diff = same_boundaries(seen, seen_e[k - 1::k])
+            em = sum(res.runtime["em_elapsed"])
+            log(f"12g {tag} svd fit [{card}]: {wall:.2f} s wall, EM loop {em:.3f} s (the 'fro' "
+                f"fit: {fro_em[fro_tag]:.3f} s), capture {res.runtime['capture_s']:.2f} s, R^2 "
+                f"{r2:.4f}; params equal to the eager fit's bit for bit at all {len(seen)} "
+                f"boundaries: {not diff}; counts equal: "
+                f"{res.runtime['counts'] == eager.runtime['counts']}; svd_loading launches "
+                f"{launches['svd_loading']} (captures)")
+            if diff or res.runtime["counts"] != eager.runtime["counts"]:
+                raise AssertionError(f"12g {tag}: params differ at boundaries {diff}, or counts "
+                                     f"{res.runtime['counts']}")
+            if r2 < R2_MIN or launches["svd_loading"] == 0:
+                raise AssertionError(f"12g {tag}: R^2 {r2:.4f}, or no svd_loading captured")
+    finally:
+        driver.CHECK_REPLAY_SYNCS = False
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                             world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        seen1, rec1 = param_recorder()
+        _, wall1, _, _, r2_1 = sharded_fit(rec1, **svd)
+        seen3, rec3 = param_recorder()
+        _, wall3, launches, _, r2_3 = sharded_fit(rec3, block=3, **svd)
+    finally:
+        tdist.destroy_process_group()
+    diff = same_boundaries(seen3, seen1[2::3])
+    log(f"12g fit_sharded svd, nccl world 1 [{card}]: block=1 {wall1:.2f} s, R^2 {r2_1:.4f}; "
+        f"block=3 {wall3:.2f} s, R^2 {r2_3:.4f}; params equal bit for bit at all "
+        f"{len(seen3)} block boundaries: {not diff}")
+    if diff or launches["svd_loading"] == 0:
+        raise AssertionError(f"12g: fit_sharded(block=3) differs from block=1 at {diff}")
+    return launch_e["svd_loading"]
+
+
 def run_graph_traces(card):
     """12, the trace: one eager and one fused flagship fit under
     torch.profiler, each after an untraced fit with the same settings (so
@@ -2049,14 +2324,17 @@ def run_graph_traces(card):
 
 
 def run_phase12(card, device, gen, r2_eager, walls_eager, r2_fused_sweep):
-    """Phase 12, each sub-phase with its counters set to 0 just before."""
+    """Phase 12, each sub-phase with its counters set to 0 just before.
+    Returns 12g's svd_loading launches."""
     run_graph_decisions(card)
-    run_graph_fits(card, r2_eager, walls_eager)
+    fro_em = run_graph_fits(card, r2_eager, walls_eager)
     run_graph_fused_sweep(card, r2_fused_sweep)
     run_graph_fallback(card, device, gen)
     run_graph_float64(card)
     run_graph_sharded(card)
+    n_svd = run_graph_svd(card, fro_em)
     run_graph_traces(card)
+    return n_svd
 
 
 def main():
@@ -2097,6 +2375,8 @@ def main():
     sw_err, sw_ms, sw_pms, sw_bms, sw_by = check_sweep(device, seeded())
     si_err, si_ms, si_pms, si_lms, si_bms, si_by = check_spd_inverse(device, seeded())
     ps_err, ps_ms, ps_pms, ps_lms, ps_bms, ps_by = check_probe_skip(device, seeded())
+    sv_err, sv_ms, sv_pms, sv_lms, sv_bms, sv_by = check_svd_loading(device, seeded())
+    lz_err, lz_ms, lz_pms, lz_bms, lz_by = check_lorenz(device)
 
     check_small_fit_against_cpu()
     # the main paths, in turns: default, fused, fused, default
@@ -2122,7 +2402,7 @@ def main():
     run_leave_one_neuron_out(fits[3][6])
     run_sample_posterior(fits[3][6], device)
     run_gpfa_warm_start_and_cv(device)
-    run_lorenz(device)
+    n_lorenz = run_lorenz(device)[3]
 
     # 10, save / load, the checkpointed fit and the command line, each
     # sub-phase with its own counters; files in a directory of the checkout
@@ -2139,7 +2419,8 @@ def main():
     run_sharded_gloo(card, r2_world1, "11d", (1, 2), ydim=YDIM - 1)
 
     # 12, the fused and scanned EM drivers as CUDA graphs
-    run_phase12(card, device, seeded(), fits[0][5], (fits[0][3], fits[3][3]), fits[1][5])
+    n_svd = run_phase12(card, device, seeded(), fits[0][5], (fits[0][3], fits[3][3]),
+                        fits[1][5])
 
     g_cold = next(r for r in g_rows if r[0] == "cold")
     p_cold = next(r for r in p_rows if r[0] == "cold")
@@ -2167,6 +2448,14 @@ def main():
          "replaces": "vlgp_tpu/ops/spd.py:558", "launches": n_probe,
          "max_abs_err": ps_err, "ms": ps_ms[0], "plain_ms": ps_pms[0],
          "bound_ms": ps_bms, "bound_by": ps_by, "library_ms": ps_lms[0]},
+        {"name": "svd_loading", "route": "cuda", "source": "vlgp_tpu_torch/csrc/svd_loading.cu",
+         "replaces": "vlgp_tpu/models/vlgp.py:512", "launches": n_svd,
+         "max_abs_err": sv_err, "ms": sv_ms[0], "plain_ms": sv_pms[0],
+         "bound_ms": sv_bms, "bound_by": sv_by, "library_ms": sv_lms[0]},
+        {"name": "lorenz", "route": "cuda", "source": "vlgp_tpu_torch/csrc/lorenz.cu",
+         "replaces": "vlgp_tpu/simulation.py:107", "launches": n_lorenz,
+         "max_abs_err": lz_err, "ms": lz_ms[0], "plain_ms": lz_pms,
+         "bound_ms": lz_bms, "bound_by": lz_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

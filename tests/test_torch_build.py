@@ -14,7 +14,8 @@ import pytest
 
 from vlgp_tpu_torch.ops import _build
 
-_KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+_KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float",
+         ctypes.c_double: "double"}
 
 
 def _kind(param: str) -> str:
@@ -22,7 +23,7 @@ def _kind(param: str) -> str:
     if "*" in param:
         return "pointer"
     base = param.split()[-2] if len(param.split()) > 1 else param
-    return {"int": "int", "float": "float"}[base]
+    return {"int": "int", "float": "float", "double": "double"}[base]
 
 
 def _extern_c_functions(text: str) -> dict:

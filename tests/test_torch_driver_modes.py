@@ -10,17 +10,20 @@ params and the posterior agree to 1e-10 relative: both run the same exact
 float64 routes and differ only in the order of their sums (measured gaps
 ~1e-12 after 7 iterations).
 """
+import datetime
 import functools
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as tdist
 
 import vlgp_tpu
 import vlgp_tpu_torch
 from vlgp_tpu_torch.models import driver as tdriver
 from vlgp_tpu_torch.ops import control
 
+from _torch_dist_worker import free_port
 from _torch_parity import np_of, pin_trials
 
 torch.set_num_threads(1)
@@ -129,13 +132,21 @@ def test_block_driver_hyper_interval_across_boundaries():
 
 def test_capture_refusals_are_checked_before_the_fit():
     """On a CUDA device a step that cannot be captured raises before any
-    work: the svd loading constraint (torch.linalg.svd reads the host) and
-    a gloo group (its CUDA collectives read the host).  The checks need no
-    card; on the CPU the same configurations run."""
+    work: a gloo group (its CUDA collectives read the host).  The svd
+    loading constraint passes the check: on the card it runs the
+    svd_loading kernel, which reads nothing back (ops/linalg.py).  The
+    checks need no card; on the CPU the same configurations run."""
     svd = vlgp_tpu_torch.default_config(constrain_loading="svd")
-    with pytest.raises(NotImplementedError, match="svd"):
-        tdriver.check_capturable(svd, tdriver.Dist(), torch.device("cuda"))
+    tdriver.check_capturable(svd, tdriver.Dist(), torch.device("cuda"))
     tdriver.check_capturable(svd, tdriver.Dist(), torch.device("cpu"))
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                             world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        with pytest.raises(ValueError, match="nccl"):
+            tdriver.check_capturable(svd, tdriver.Dist(data=tdist.group.WORLD),
+                                     torch.device("cuda"))
+    finally:
+        tdist.destroy_process_group()
     trials, a, _ = pin_trials(ntrial=1, length=60)
     res = vlgp_tpu_torch.fit(trials, 2, device="cpu", fused=True,
                              **_kw(a, max_iter=2, constrain_loading="svd"))

@@ -172,7 +172,7 @@ def fit(
     each EM iteration as one step with one host read of its convergence
     norms, and ``block=k`` k iterations per read (``models.driver.vem``):
     on the card as replays of a captured CUDA graph, raising when the step
-    cannot be captured (``constrain_loading="svd"``).
+    cannot be captured (a process group that is not nccl).
 
     Passing ``path=...`` snapshots the parameters every ``saving_interval``
     seconds during VEM and once more at the end, as ``vlgp_tpu.fit`` does,

@@ -35,8 +35,7 @@ from ..ops import spd
 from ..utils.profiling import annotate
 from . import vlgp
 from .gp import hstep, make_cholesky
-from .vlgp import (COLLECTIVES, SVD_CAPTURE, Dist, constrain_latent, constrain_loading,
-                   em_norms, estep, mstep)
+from .vlgp import COLLECTIVES, Dist, constrain_latent, constrain_loading, em_norms, estep, mstep
 
 __all__ = ["vem", "infer", "make_em_step", "xinv_zeros"]
 
@@ -508,8 +507,6 @@ def check_capturable(config: Config, dist: Dist, device: torch.device) -> None:
     a CUDA graph on ``device``."""
     if device.type != "cuda":
         return
-    if config.constrain_loading == "svd":
-        raise NotImplementedError(SVD_CAPTURE)
     for axis in ("data", "model"):
         group = getattr(dist, axis)
         if group is not None and tdist.get_backend(group) != "nccl":

@@ -29,6 +29,7 @@ import torch.distributed as tdist
 from ..config import Config, Params
 from ..data import TrialSet
 from ..ops import control
+from ..ops.linalg import svd_loading
 from ..ops.math import trunc_exp
 from ..ops.spd import FALLBACKS, _ok, inv_one_plus_gram, inv_one_plus_psd
 from ..ops.sweep import sweep as fused_sweep
@@ -109,13 +110,6 @@ def _psum(x, dist: Dist, axis: str):
 def _pmax(x, dist: Dist, axis: str):
     """Max over the ranks of ``dist``'s ``axis`` (``lax.pmax``)."""
     return _all_reduce(x, dist, axis, tdist.ReduceOp.MAX)
-
-
-# torch.linalg.svd reads its solver's info on the host, which a CUDA graph
-# capture refuses
-SVD_CAPTURE = ("constrain_loading='svd' cannot run inside a CUDA graph: torch.linalg.svd "
-               "synchronizes with the host on CUDA.  Use fused=False and block=1, or "
-               "constrain_loading='fro' (ROADMAP.md, Queue 1, item 20)")
 
 
 def _zmajor(x):
@@ -470,8 +464,11 @@ def constrain_loading(data: TrialSet, params: Params, config: Config,
                       dist: Dist = Dist()) -> Tuple[TrialSet, Params]:
     """Normalize the loading, compensating the latents (core.py:392-416);
     the loading is replicated over the data axis, and its norms are summed
-    over the model axis's channels.  ``"svd"`` under a model axis raises, as
-    in ``vlgp_tpu`` (``models/vlgp.py:510-511``)."""
+    over the model axis's channels.  ``"svd"`` takes ``vh`` from
+    ``ops.linalg.svd_loading`` (the kernel on CUDA, eagerly and under a
+    capture; its rows' signs follow that module's convention, not LAPACK's)
+    and raises under a model axis, as in ``vlgp_tpu``
+    (``models/vlgp.py:510-511``)."""
     c = config.constrain_loading
     if not c or c == "none":
         return data, params
@@ -479,9 +476,7 @@ def constrain_loading(data: TrialSet, params: Params, config: Config,
     if c == "svd":
         if dist.model is not None:
             raise NotImplementedError("svd loading constraint under model sharding")
-        if control.mode() == "capture":
-            raise NotImplementedError(SVD_CAPTURE)
-        _, _, vh = torch.linalg.svd(a, full_matrices=False)
+        vh = svd_loading(a)
         us = a @ vh.T
         mu = torch.einsum("stz,zk->stk", data.mu, us)
         return data.replace(mu=mu), params.replace(a=vh)

@@ -24,12 +24,12 @@ __all__ = ["build", "load_library", "BUILD_SECONDS", "SOURCES"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("ns_inverse", "sweep", "spd_inverse", "graph_cond")
+SOURCES = ("ns_inverse", "sweep", "spd_inverse", "graph_cond", "svd_loading", "lorenz")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_p, _i, _f, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # exported C functions of each library: (argument types, result type)
 _SIGNATURES = {
     "ns_inverse": {
@@ -47,6 +47,12 @@ _SIGNATURES = {
         "vlgp_cond_handle": ([_p, _p, _i, _p], _i),
         "vlgp_if_begin": ([_p, _p, _p, _i], _i),
         "vlgp_if_end": ([_p], _i),
+    },
+    "svd_loading": {
+        "svd_loading": ([_p, _p, _i, _i, _i, _p], _i),
+    },
+    "lorenz": {
+        "lorenz": ([_p, _i, _i, _d, _d, _d, _d, _p], _i),
     },
 }
 

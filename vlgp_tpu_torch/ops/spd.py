@@ -61,11 +61,13 @@ _LANE = 64
 # drifted (vlgp_tpu/ops/spd.py:68-73).
 _FUSED_PROBE = os.environ.get("VLGP_FUSED_PROBE", "0") == "1"
 
-# Launch, route and fallback counters of every kernel of the port, the
-# fused E-step sweep's (ops/sweep.py) included.  Host integers: under a CUDA
-# graph capture they count the capture, not the replays (ops/control.py).
+# Launch, route and fallback counters of every kernel of the port, those of
+# the fused E-step sweep (ops/sweep.py), the loading's SVD (ops/linalg.py)
+# and the Lorenz trajectory (simulation.py) included.  Host integers: under
+# a CUDA graph capture they count the capture, not the replays
+# (ops/control.py).
 KERNEL_LAUNCHES = {"ns_gram": 0, "ns_packed": 0, "probe_skip": 0,
-                   "spd_inverse": 0, "sweep": 0}
+                   "spd_inverse": 0, "sweep": 0, "svd_loading": 0, "lorenz": 0}
 ROUTE_CALLS = {"gram": 0, "packed": 0, "sweep": 0}
 FALLBACKS = {
     "gram_probe_reject": 0, "gram_refine_fail": 0,

@@ -5,14 +5,19 @@ The reference's per-bin loops with spike-history feedback
 (simulation.py:47-58, 95-104) run as a loop over time steps, vectorised
 over trials, on the target device: the device of the latents when they are
 a tensor, else ``device`` (the current CUDA device when None).  Random
-draws come from a ``torch.Generator`` on that device.
+draws come from a ``torch.Generator`` on that device.  :func:`lorenz` runs
+its step loop on the host for a CPU tensor and as one launch of the
+``lorenz`` kernel (``csrc/lorenz.cu``) on the card.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .config import _resolve_device
 from .ops.math import identity, trunc_exp
+from .ops.spd import KERNEL_LAUNCHES, _ptr, _raise_on
 
 __all__ = ["spike", "lfp", "lorenz"]
 
@@ -85,21 +90,45 @@ def lfp(x, a, b, K, generator: torch.Generator, link=identity, device=None):
     return _simulate(x, a, b, draw, link)
 
 
+def _lorenz_plain(xs, dt, s, r, b) -> None:
+    """Plain version of the ``lorenz`` kernel: the Euler steps from xs[0],
+    one torch op at a time, into xs (n, 3)."""
+    for i in range(xs.shape[0] - 1):
+        x, y, z = xs[i]
+        xs[i + 1] = xs[i] + dt * torch.stack([s * (y - x), r * x - y - x * z, x * y - b * z])
+
+
+def _lorenz_cuda(xs, dt, s, r, b) -> None:
+    """Launch the ``lorenz`` kernel (``csrc/lorenz.cu``, one thread) on the
+    current stream: the Euler steps from xs[0] into xs (n, 3)."""
+    from .ops._build import load_library
+
+    if xs.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the lorenz kernel takes float32 or float64, got {xs.dtype}")
+    lib = load_library("lorenz")
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        rc = lib.lorenz(_ptr(xs), xs.shape[0], int(xs.dtype == torch.float64), dt, s, r, b,
+                        ctypes.c_void_p(stream))
+    _raise_on(rc, lib, "lorenz")
+    KERNEL_LAUNCHES["lorenz"] += 1
+
+
 def lorenz(n: int, dt: float = 0.01, s: float = 10.0, r: float = 28.0,
            b: float = 2.667, x0=None, normalized: bool = False, *,
            dtype: torch.dtype = torch.float64, device=None):
     """Euler-integrated Lorenz attractor trajectory (simulation.py:108-151),
     (n, 3) on ``device`` (the current CUDA device when None).  With
     ``normalized`` it is centred and divided by each column's uncentred
-    inf-norm, as the reference does."""
+    inf-norm, as the reference does.  On a CUDA device the steps run in one
+    launch of the ``lorenz`` kernel, bit for bit the CPU's loop."""
     device = _resolve_device(device, "simulation.lorenz")
     if x0 is None:
         x0 = (0.0, 1.0, 1.05)
     xs = torch.empty((n, 3), dtype=dtype, device=device)
     xs[0] = torch.as_tensor(x0, dtype=dtype)
-    for i in range(n - 1):
-        x, y, z = xs[i]
-        xs[i + 1] = xs[i] + dt * torch.stack([s * (y - x), r * x - y - x * z, x * y - b * z])
+    if n > 1:
+        (_lorenz_cuda if xs.is_cuda else _lorenz_plain)(xs, dt, s, r, b)
     if normalized:
         xs = (xs - xs.mean(dim=0)) / xs.abs().amax(dim=0)
     return xs
