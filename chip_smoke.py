@@ -12,7 +12,9 @@ Phases, each of which raises on failure:
    inference), in the cold, warm, probe and want_v modes, plus a NaN warm
    start that must be rejected;
 4. ns_packed the same way at the update_v shape and at elbo_terms' shape
-   on the segments (B10000 R40, T = 50), then both kernels at
+   on the segments (B10000 R40, T = 50); both kernels at the shapes of a
+   leave_one_neuron_out chunk of 25 neurons (ns_gram Z5 S2500 T1000 R50,
+   ns_packed B12500 R50); then both kernels at
    edge shapes in every mode (R = 1, 3, 8, 17, 40, 50, 100, 127, 128 with
    T off the 32-row chunk; iters = 0 with x0);
 5. sweep (the fused E-step) against its plain version at the flagship
@@ -56,7 +58,14 @@ Phases, each of which raises on failure:
    1e-6) and the wall time of each record; (9b) elbo_terms of that fit's
    segments and full-length state on the card in float32 against the CPU
    in float64 (within ELBO_RTOL); (9c) leave_one_neuron_out over all 100
-   neurons of the last default fit, against the latent-free baseline;
+   neurons of the last default fit at batch 1, 25 and 7 (chunks of the
+   held-out neurons folded into the segment axis), each with the counters
+   and the peak memory statistic set to 0 just before: wall, launches, peak
+   memory, each chunk's member sweeps and rounds; 100 finite scores that
+   beat the latent-free baseline for most neurons, the batched scores
+   within LONO_TOL of batch 1's, ns_gram and ns_packed launched, fewer
+   ns_gram launches at batch 25 than at 1, peak memory rising with batch;
+   then one batch-25 call under torch.profiler (kernel time by kind);
    (9d) sample_posterior, 1000 samples of trial 0; (9e) fastfit (GPFA warm
    start) and gmap_speckled_cv over 3, 5 and 7 factors; (9f)
    examples/tutorial_lorenz.py's recipe at the flagship widths with the
@@ -129,8 +138,9 @@ Times are per call, each between its own pair of CUDA events, over 10
 calls after a warm-up, printed as median [min-max].  Ends with one JSON
 line of per-kernel results (launches on their path, the worst |kernel -
 plain|, the median kernel, plain and library times, and the bound computed
-from this run's shapes and counts) and, last, one JSON line naming the
-device.  Imports nothing of JAX.
+from this run's shapes and counts; ns_gram and ns_packed also at 9c's
+chunk shapes, with 9c's launches at batch 25) and, last, one JSON line
+naming the device.  Imports nothing of JAX.
 """
 import collections
 import json
@@ -188,6 +198,19 @@ R2_CLI_MIN = 0.93
 # reduction order moves the H-step's omega basin choice, and with it R^2 by
 # about +-0.004 under float noise (vlgp_tpu/config.py:64-73)
 R2_SHARD_GAP = 0.004
+# 9c: leave_one_neuron_out's batches (the default 25, one at a time, and an
+# uneven 7: 14 chunks and one of 2), and the largest |score(batch) -
+# score(batch=1)| allowed, in float32 on the card.  Measured on the NVIDIA
+# H100 80GB HBM3 / 700 W card: 8.94e-8 per bin at batch 25 and 7 (2.1e-7
+# relative, scores ~0.45), in two runs, every neuron sweeping as often as
+# alone; a member stopping one sweep apart from its count alone moved a
+# float32 score by up to ~1e-4 relative on the CPU (tests/
+# test_torch_lono_batched.py's state), so this bound also holds the exits
+LONO_BATCHES = (1, 25, 7)
+LONO_TOL = 1e-5
+# 9c's trace: kernel names by kind (a name goes to the first kind it matches)
+LONO_KERNEL_KINDS = (("ns_gram", ("ns_gram_kernel",)), ("ns_packed", ("ns_packed_kernel",)),
+                     ("gemm", ("gemm", "Kernel2")), ("elementwise", ("elementwise", "reduce")))
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
@@ -1307,35 +1330,100 @@ def check_elbo_card_vs_cpu(result):
     return out
 
 
-def run_leave_one_neuron_out(result):
-    """9c: leave_one_neuron_out over every neuron of a fit's result, counters
-    set to 0 just before; each score against the latent-free baseline of
-    tests/test_model_selection.py.  Returns (launches, wall s, wins)."""
-    from vlgp_tpu_torch.model_selection import leave_one_neuron_out
-    from vlgp_tpu_torch.ops import spd
+def run_leave_one_neuron_out(result, card):
+    """9c: leave_one_neuron_out over every neuron of a fit's result at each
+    batch of LONO_BATCHES, counters and the peak memory statistic set to 0
+    just before each run; each score against the latent-free baseline of
+    tests/test_model_selection.py, and the batched scores against batch 1's
+    within LONO_TOL.  Returns {batch: (launches, wall s, peak bytes)}."""
+    from vlgp_tpu_torch import model_selection as ms
+    from vlgp_tpu_torch.ops import control, spd
 
-    spd.reset_counters()
-    torch.cuda.synchronize()
-    tic = time.perf_counter()
-    scores = leave_one_neuron_out(result)
-    wall = time.perf_counter() - tic
-    launches = dict(spd.KERNEL_LAUNCHES)
     d, b = result.data, result.params.b
     m = d.mask
     eta0 = torch.einsum("stxn,xn->stn", d.x, b)
     ll0 = (((d.y * eta0 - torch.exp(eta0)) * m[..., None]).sum((0, 1)) / m.sum()).cpu()
-    wins = sum(scores[n] > float(ll0[n]) for n in range(YDIM))
-    log(f"9c leave_one_neuron_out ({len(scores)} neurons): {wall:.2f} s wall, kernel launches "
-        f"{launches}; {wins} of {YDIM} neurons beat the latent-free baseline; scores "
-        f"{min(scores.values()):.4f} to {max(scores.values()):.4f} per bin")
-    if not (len(scores) == YDIM and all(np.isfinite(v) for v in scores.values())):
-        raise AssertionError("9c: leave_one_neuron_out gave missing or non-finite scores")
-    if not wins > YDIM // 2:
-        raise AssertionError(f"9c: only {wins} of {YDIM} neurons beat the baseline")
-    for name in ("ns_gram", "ns_packed"):
-        if launches[name] == 0:
-            raise AssertionError(f"9c: leave_one_neuron_out never launched {name}")
-    return launches, wall, wins
+    base = torch.cuda.memory_allocated()
+    runs, scores_of, sweeps_of = {}, {}, {}
+    for batch in LONO_BATCHES:
+        spd.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        scores = ms.leave_one_neuron_out(result, batch=batch)  # ends in a host read
+        wall = time.perf_counter() - tic
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(spd.KERNEL_LAUNCHES)
+        chunks = list(ms.LONO_CHUNKS)
+        wins = sum(scores[n] > float(ll0[n]) for n in range(YDIM))
+        per_chunk = " ".join(f"{min(c['sweeps'])}/{max(c['sweeps'])}/{sum(c['sweeps'])}:"
+                             f"{c['rounds']}" for c in chunks)
+        log(f"9c leave_one_neuron_out batch={batch} [{card}]: {len(scores)} neurons in "
+            f"{len(chunks)} chunks, {wall:.3f} s wall, peak memory {peak / 2**30:.3f} GiB "
+            f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before), "
+            f"kernel launches {launches}, rounds {control.TRIPS['lono_rounds']}; {wins} of "
+            f"{YDIM} neurons beat the latent-free baseline; scores "
+            f"{min(scores.values()):.4f} to {max(scores.values()):.4f} per bin")
+        log(f"  member sweeps min/max/sum:rounds per chunk: {per_chunk}")
+        if not (len(scores) == YDIM and all(np.isfinite(v) for v in scores.values())):
+            raise AssertionError(f"9c batch={batch}: missing or non-finite scores")
+        if not wins > YDIM // 2:
+            raise AssertionError(f"9c batch={batch}: only {wins} of {YDIM} neurons beat the "
+                                 f"baseline")
+        for name in ("ns_gram", "ns_packed"):
+            if launches[name] == 0:
+                raise AssertionError(f"9c batch={batch}: never launched {name}")
+        runs[batch] = (launches, wall, peak)
+        scores_of[batch] = scores
+        sweeps_of[batch] = {n: s for c in chunks for n, s in zip(c["neurons"], c["sweeps"])}
+    one = scores_of[1]
+    for batch in LONO_BATCHES[1:]:
+        gap = max(abs(scores_of[batch][n] - one[n]) for n in one)
+        rel = max(abs(scores_of[batch][n] - one[n]) / abs(one[n]) for n in one)
+        moved = sum(sweeps_of[batch][n] != sweeps_of[1][n] for n in one)
+        log(f"9c batch={batch} against batch=1 [{card}]: max |d score| {gap:.3e} (relative "
+            f"{rel:.3e}, tolerance {LONO_TOL:.1e}); {moved} of {YDIM} neurons swept another "
+            f"count; wall {runs[batch][1]:.3f} s against {runs[1][1]:.3f} s; ns_gram launches "
+            f"{runs[batch][0]['ns_gram']} against {runs[1][0]['ns_gram']}")
+        if not gap <= LONO_TOL:
+            raise AssertionError(f"9c batch={batch}: scores differ from batch=1's by {gap:.3e} "
+                                 f"> {LONO_TOL}")
+    # where the time goes at the largest batch: one more call, traced
+    wall, busy, by_name = trace_kernels(lambda: ms.leave_one_neuron_out(
+        result, batch=max(LONO_BATCHES)))
+    groups = collections.Counter()
+    for name, t in by_name.items():
+        kind = next((k for k, keys in LONO_KERNEL_KINDS if any(x in name for x in keys)),
+                    "other")
+        groups[kind] += t
+    log(f"9c traced batch={max(LONO_BATCHES)} [{card}]: {wall:.3f} s wall, kernels busy "
+        f"{busy:.3f} s ({1 - busy / wall:.1%} of the wall without a kernel); kernel s by kind "
+        + ", ".join(f"{k} {groups[k]:.3f}" for k, _ in LONO_KERNEL_KINDS + (("other", ()),)))
+    if not runs[max(LONO_BATCHES)][0]["ns_gram"] < runs[1][0]["ns_gram"]:
+        raise AssertionError("9c: the largest batch made no fewer ns_gram launches than batch=1")
+    peaks = [runs[batch][2] for batch in sorted(LONO_BATCHES)]
+    if not all(p < q for p, q in zip(peaks, peaks[1:])):
+        raise AssertionError(f"9c: peak memory {peaks} does not grow with the batch")
+    return runs
+
+
+def trace_kernels(fn):
+    """fn() under torch.profiler: (wall s, seconds covered by device kernels,
+    {kernel name: device s})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+    spans, by_name = [], collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            by_name[e.name()] += e.duration_ns() * 1e-9
+    return wall, _union_s(spans), by_name
 
 
 def run_sample_posterior(result, device, nsamples=1000):
@@ -1941,8 +2029,9 @@ def trace_fit(fn):
     kernels that ran (copies and sets apart), their busy time (the union of
     their intervals), the idle share of the window, the host launch calls
     (kernel launches; cudaGraphLaunch apart) and the host syncs
-    (SYNC_CALLS), and the eight kernels that took the most device time in
-    the loop.  The loop's window runs from the first E-step annotation to
+    (SYNC_CALLS), the set-condition kernels of the IF nodes (count, mean
+    us), and the eight kernels that took the most device time in the
+    loop.  The loop's window runs from the first E-step annotation to
     the end of the last M- or H-step annotation of an eager fit, and from
     the first cudaGraphLaunch to the first host sync after the last one of
     a fused fit."""
@@ -1977,7 +2066,12 @@ def trace_fit(fn):
         for a, b, name in d:
             by_name[name] += b - a
         busy = _union_s([(a, b) for a, b, _ in d])
+        conds = [b - a for a, b, name in d if "set_conditional_kernel" in name]
         return dict(device_kernels=sum(not x[2].startswith(("Memcpy", "Memset")) for x in d),
+                    # csrc/graph_cond.cu's set-condition kernels: count and
+                    # mean device time of one, in microseconds
+                    set_condition=(len(conds), round(statistics.fmean(conds) * 1e-3, 3)
+                                   if conds else None),
                     busy_s=busy, window_s=(hi - lo) * 1e-9,
                     idle_share=1 - busy / ((hi - lo) * 1e-9),
                     launch_calls=sum(lo <= h[0] < hi and h[2] in LAUNCH_CALLS for h in host),
@@ -2371,6 +2465,11 @@ def main():
     B, RP = ZDIM * NTRIAL, 50
     p_err, p_rows, p_lms = check_ns_packed(B, RP, device, seeded())
     p_err_elbo, _, _ = check_ns_packed(10000, 40, device, seeded(), T=50)  # elbo_terms
+    # a chunk of leave_one_neuron_out at its default batch (9c): 25 x 100 trials
+    lono_S = max(LONO_BATCHES) * NTRIAL
+    log(f"ns_gram and ns_packed at a leave_one_neuron_out chunk's shapes [{card}]:")
+    g_err_l, g_rows_l = check_ns_gram(ZDIM, lono_S, LENGTH, 50, device, seeded())
+    p_err_l, p_rows_l, p_lms_l = check_ns_packed(ZDIM * lono_S, RP, device, seeded())
     e_err = check_edge_shapes(device, seeded())
     sw_err, sw_ms, sw_pms, sw_bms, sw_by = check_sweep(device, seeded())
     si_err, si_ms, si_pms, si_lms, si_bms, si_by = check_spd_inverse(device, seeded())
@@ -2399,7 +2498,7 @@ def main():
     # 9, the model-selection path, each sub-phase with its own counters
     result_elbo = run_fit_elbo((fits[0][3], fits[3][3]))[2]
     check_elbo_card_vs_cpu(result_elbo)
-    run_leave_one_neuron_out(fits[3][6])
+    lono = run_leave_one_neuron_out(fits[3][6], card)
     run_sample_posterior(fits[3][6], device)
     run_gpfa_warm_start_and_cv(device)
     n_lorenz = run_lorenz(device)[3]
@@ -2457,6 +2556,26 @@ def main():
          "max_abs_err": lz_err, "ms": lz_ms[0], "plain_ms": lz_pms,
          "bound_ms": lz_bms, "bound_by": lz_by, "library_ms": None},
     ]
+    # the kernels at the shapes of a leave_one_neuron_out chunk, launches of
+    # 9c's run at the default batch
+    lono_launches = lono[max(LONO_BATCHES)][0]
+    for mode in ("warm+v", "probe+v"):
+        row = next(r for r in g_rows_l if r[0] == mode)
+        b_ms, b_by = ns_gram_bound(ZDIM, lono_S, LENGTH, 50, mode)
+        kernels.append(
+            {"name": f"ns_gram (9c chunk, {mode}, Z{ZDIM} S{lono_S} T{LENGTH} R50)",
+             "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
+             "replaces": "vlgp_tpu/ops/spd.py:796", "launches": lono_launches["ns_gram"],
+             "max_abs_err": g_err_l, "ms": row[3][0], "plain_ms": row[4][0],
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    row = next(r for r in p_rows_l if r[0] == "cold")
+    BL = ZDIM * lono_S
+    b_ms, b_by = bound(BL * 33 * RP ** 3, 4 * (2 * BL * RP * RP + BL))
+    kernels.append(
+        {"name": f"ns_packed (9c chunk, cold, B{BL} R{RP})", "route": "cuda",
+         "source": "vlgp_tpu_torch/csrc/ns_inverse.cu", "replaces": "vlgp_tpu/ops/spd.py:558",
+         "launches": lono_launches["ns_packed"], "max_abs_err": p_err_l, "ms": row[3][0],
+         "plain_ms": row[4][0], "bound_ms": b_ms, "bound_by": b_by, "library_ms": p_lms_l[0]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,16 @@ from .data import cut_trials, pack_trials
 from .init import initialize
 from .models import gpfa
 from .models.gp import make_cholesky
-from .models.vlgp import estep, update_v, update_w
+from .models.vlgp import infer_members
 
-__all__ = ["speckled_cv", "gmap_speckled_cv", "elementwise_error", "leave_one_neuron_out"]
+__all__ = ["speckled_cv", "gmap_speckled_cv", "elementwise_error", "leave_one_neuron_out",
+           "LONO_CHUNKS"]
+
+# one record per chunk of the last leave_one_neuron_out call: its neurons,
+# each member's E-step sweeps and the rounds the chunk ran (every member
+# sweeps in the first round, and a round runs while one is still sweeping,
+# so the rounds are the members' most)
+LONO_CHUNKS: list = []
 
 
 def elementwise_error(yhat, y):
@@ -102,48 +109,66 @@ def leave_one_neuron_out(result, neurons: Sequence[int] | None = None, batch: in
     For each held-out channel n: infer latents from the *other* channels
     under the fitted parameters, then score channel n's observations under
     the model prediction (Poisson log-likelihood up to the y! constant, or
-    Gaussian negative squared error).  The held-out channel is excluded by
-    zeroing its loading column, which removes its influence exactly from
-    every posterior update (``vlgp_tpu.model_selection._lono_scorer``).
+    Gaussian negative squared error).  The held-out channel's residual and
+    weight are zeroed, which is what zeroing its loading column does in
+    ``vlgp_tpu.model_selection._lono_scorer``: its influence on the
+    posterior is removed exactly.
 
     result: :class:`~vlgp_tpu_torch.api.FitResult`.  Returns
-    {neuron: mean predictive log-likelihood per bin}.  ``batch`` is kept
-    for signature compatibility: the port scores the neurons one after
-    another (the kernel launches cannot be vmapped).
+    {neuron: mean predictive log-likelihood per bin}.
+
+    The neurons are scored in chunks of ``B = max(1, min(batch, ydim))``,
+    as ``vlgp_tpu`` maps them in vmapped chunks: a chunk's B problems run as
+    one inference over B x S segments, member-major
+    (:func:`~vlgp_tpu_torch.models.vlgp.infer_members`), so every kernel
+    launch serves the whole chunk and peak memory is about B x one
+    inference's.  Each member leaves its E-step on its own norms, so its
+    score is the one it gets alone, up to the order of sums; in float32 the
+    inverse routes' residual checks decide once per chunk, within the
+    Newton-Schulz contract.  The last chunk may be shorter.  The fused sweep
+    (``VLGP_SWEEP_FUSED``) is not used.  ``LONO_CHUNKS`` holds one record
+    per chunk of the last call: its neurons, each member's sweeps and the
+    rounds it ran.  A chunk reads the host once per round for its exit
+    test, in the inverse routes' checks, and once for its scores.
     """
     data, params, config = result.data, result.params, result.config
     ydim = params.ydim
     neurons = [int(n) for n in (range(ydim) if neurons is None else neurons)]
+    LONO_CHUNKS.clear()
     if not neurons:
         return {}
 
     G = make_cholesky(data.nbin, params)
-    d0 = data.replace(mu=torch.zeros_like(data.mu), w=torch.zeros_like(data.w),
-                      v=torch.zeros_like(data.v), dmu=torch.zeros_like(data.dmu))
-    m = d0.mask
+    B = max(1, min(batch, ydim))
+    m = data.mask
+    S, T = m.shape
     nvalid = torch.clamp(torch.sum(m), min=1.0)
+    device = params.a.device
     scores = {}
-    for n in neurons:
-        cmask = (torch.arange(ydim, device=params.a.device) != n).to(params.a.dtype)
-        p_n = params.replace(a=params.a * cmask)
-        d_n = update_w(d0, p_n, config)
-        d_n = update_v(d_n, p_n, G, config)
-        d_n = estep(d_n, p_n, G, config, niter=config.max_iter)
+    for k in range(0, len(neurons), B):
+        chunk = neurons[k:k + B]
+        idx = torch.tensor(chunk, device=device)
+        cmask = (torch.arange(ydim, device=device)[None] != idx[:, None]).to(params.a.dtype)
+        muz, vz, sweeps = infer_members(data, params, G, config, cmask, niter=config.max_iter)
 
-        # predict the held-out channel from the inferred latents, under the
+        # predict each held-out channel from its member's latents, under the
         # full fitted parameters
-        a_n = params.a[:, n]  # (z,)
-        eta = torch.einsum("stz,z->st", d_n.mu, a_n) + torch.einsum(
-            "stx,x->st", d0.x[..., n], params.b[:, n])
-        y_n = d0.y[..., n]
-        if bool(params.poisson[n]):
-            ll = torch.sum((y_n * eta - torch.exp(eta)) * m) / nvalid
-        else:
-            noise_n = params.noise[n]
-            quad = 0.5 * torch.einsum("stz,z->st", d_n.v, a_n * a_n)
-            resid = (y_n - eta) * m
-            ll = (-0.5 * torch.sum(resid * resid / noise_n
-                                   + torch.log(2 * math.pi * noise_n) * m) / nvalid
-                  - torch.sum(quad * m) / nvalid / noise_n)
-        scores[n] = float(ll)
+        a_n = params.a[:, idx]  # (z, b)
+        eta = (torch.einsum("zbst,zb->bst", muz.reshape(-1, len(chunk), S, T), a_n)
+               + torch.einsum("stxb,xb->bst", data.x[..., idx], params.b[:, idx]))
+        y_n = data.y[..., idx].permute(2, 0, 1)
+        ll_pois = torch.sum((y_n * eta - torch.exp(eta)) * m, dim=(1, 2)) / nvalid
+        noise_n = params.noise[idx]
+        noise3 = noise_n[:, None, None]
+        quad = 0.5 * torch.einsum("zbst,zb->bst", vz.reshape(-1, len(chunk), S, T), a_n * a_n)
+        resid = (y_n - eta) * m
+        ll_gauss = (-0.5 * torch.sum(resid * resid / noise3
+                                     + torch.log(2 * math.pi * noise3) * m, dim=(1, 2)) / nvalid
+                    - torch.sum(quad * m, dim=(1, 2)) / nvalid / noise_n)
+        ll = torch.where(params.poisson[idx], ll_pois, ll_gauss)
+        host = torch.cat([ll, sweeps.to(ll.dtype)]).tolist()  # the chunk's one read
+        scores.update(zip(chunk, host[:len(chunk)]))
+        member_sweeps = [int(n) for n in host[len(chunk):]]
+        LONO_CHUNKS.append({"neurons": chunk, "sweeps": member_sweeps,
+                            "rounds": max(member_sweeps)})
     return scores

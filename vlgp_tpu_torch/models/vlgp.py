@@ -45,6 +45,8 @@ __all__ = [
     "Dist",
     "COLLECTIVES",
     "estep",
+    "estep_members",
+    "infer_members",
     "mstep",
     "update_w",
     "update_v",
@@ -302,6 +304,134 @@ def update_v(data: TrialSet, params: Params, G, config: Config, dist: Dist = Dis
     wz = _zmajor(data.w) * data.mask[None]
     vz = _marginal_variance(G, wz, iters=config.ns_iters) * data.mask[None]
     return data.replace(v=_zminor(vz))
+
+
+# ---------------------------------------------------------------------------
+# B held-out problems at once, folded into the segment axis
+# (vlgp_tpu/model_selection.py:_lono_scorer's vmap)
+# ---------------------------------------------------------------------------
+
+
+def _eta_rates_members(muz, vz, a, xb):
+    """eta and the Poisson rates (B, S, T, Y) of B members whose latent-major
+    mu and v are (Z, B*S, T), member-major (segment b*S + s is member b's
+    segment s); xb (S, T, Y) broadcasts over the members.  The einsums and
+    adds of ``_eta`` and ``_rates``."""
+    shape = (-1,) + tuple(xb.shape)
+    eta = torch.einsum("zst,zy->sty", muz, a).reshape(shape) + xb
+    r = trunc_exp(eta + torch.einsum("zst,zy->sty", vz, 0.5 * a * a).reshape(shape))
+    return eta, r
+
+
+def _member_weights(muz, vz, params: Params, xb, cm, maskz):
+    """The weights (Z, B*S, T) of every member under its channel weights
+    ``cm`` (B, 1, 1, Y)."""
+    _, r = _eta_rates_members(muz, vz, params.a, xb)
+    U = torch.where(params.poisson, r, 1.0 / _safe_noise(params.noise)) * cm
+    return _weights(U.reshape(-1, *U.shape[-2:]), params.a, Dist()) * maskz
+
+
+def estep_members(data: TrialSet, params: Params, G: torch.Tensor, config: Config,
+                  cmask: torch.Tensor, state: Tuple[torch.Tensor, ...],
+                  niter: Optional[int] = None):
+    """The E-step of B problems at once, on one device: member b runs on
+    ``data``'s S segments with the channel weights ``cmask[b]`` (B, Y), 0 on
+    the channels it holds out.  ``state`` is its (mu, w, v, dmu), each
+    latent-major (Z, B*S, T) and member-major, so every kernel sees B*S
+    segments.  Returns the state after the sweeps and each member's sweep
+    count (B,).
+
+    A zero channel weight multiplies that channel's residual and weight,
+    which is all a zero loading column changes in the posterior
+    (``vlgp_tpu/model_selection.py:150-155``).  With ``estep_tol > 0`` each
+    member stops on its own norms, |dmu|^2 <= tol^2 |mu|^2 after at least 2
+    sweeps, as ``vmap`` of ``vlgp_tpu``'s while loop does: a stopped
+    member's state is kept while the others sweep on, and the loop ends when
+    none is left or at ``niter`` (one host read per sweep; rounds in
+    ``control.TRIPS["lono_rounds"]``).  The inverse routes decide once for
+    all members.  The fused sweep (``ops/sweep.py``) is never used: its
+    kernel has no channel weights.
+    """
+    niter = config.Eniter if niter is None else niter
+    B = cmask.shape[0]
+    T, Y = data.y.shape[1:]
+    y, a = data.y, params.a
+    xb = _xb(data.x, params.b)
+    vb = config.method == "VB"
+    m = data.mask[..., None]
+    cm = cmask[:, None, None, :]
+    maskz = data.mask.repeat(B, 1)[None]
+
+    def sweep(muz, wz, vz, X):
+        eta, r = _eta_rates_members(muz, vz, a, xb)
+        residual = _residual(y, eta, r, params) * m * cm
+        s = torch.einsum("sty,zy->zst", residual.reshape(-1, T, Y), a)
+        delta = _woodbury_delta(G, s, muz, wz * maskz, X)
+        delta = torch.clamp(delta, -config.dmu_bound, config.dmu_bound) * maskz
+        muz = muz + delta
+        wz = _member_weights(muz, vz, params, xb, cm, maskz)
+        if vb:
+            X, vz = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=X,
+                                      warm_iters=config.ns_warm_iters, want_v=True)
+            vz = vz * maskz
+        else:
+            X = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=X,
+                                  warm_iters=config.ns_warm_iters)
+        return muz, wz, vz, delta, X
+
+    muz, wz, vz, dmuz = state
+    wz = wz * maskz
+    X = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm_iters=config.ns_warm_iters)
+    tol = config.estep_tol
+    alive = torch.ones(B, dtype=torch.bool, device=y.device)
+    sweeps = torch.zeros(B, dtype=torch.int64, device=y.device)
+
+    def by_member(t):
+        return t.reshape(t.shape[0], B, -1)
+
+    def sq(t):
+        t = by_member(t)
+        return torch.sum(t * t, dim=(0, 2))
+
+    def keep_going(i, carry):
+        nonlocal alive
+        if not (tol > 0 and i >= 2):
+            return None
+        alive = alive & (sq(carry[3]) > tol * tol * sq(carry[0]))
+        return alive.any()
+
+    def body(carry):
+        nonlocal sweeps
+        new = sweep(carry[0], carry[1], carry[2], carry[4])
+        sweeps = sweeps + alive
+        keep = alive.view(1, B, 1)
+        return tuple(torch.where(keep, by_member(n), by_member(o)).reshape(o.shape)
+                     for n, o in zip(new, carry))
+
+    muz, wz, vz, dmuz, _ = control.bounded_while(niter, keep_going, body,
+                                                 (muz, wz, vz, dmuz, X), name="lono_rounds")
+    return (muz, wz, vz, dmuz), sweeps
+
+
+def infer_members(data: TrialSet, params: Params, G: torch.Tensor, config: Config,
+                  cmask: torch.Tensor, niter: Optional[int] = None):
+    """``update_w``, ``update_v`` and :func:`estep_members` from a zero
+    posterior, for B members at once (``vlgp_tpu/model_selection.py:150-155``
+    per held-out channel).  ``data`` holds the S segments the members share;
+    ``cmask`` (B, Y) their channel weights.  Returns mu and v latent-major
+    (Z, B*S, T), member-major, and each member's sweep count (B,)."""
+    B = cmask.shape[0]
+    S, T = data.mask.shape
+    maskz = data.mask.repeat(B, 1)[None]
+    zeros = data.y.new_zeros((params.zdim, B * S, T))
+    wz = _member_weights(zeros, zeros, params, _xb(data.x, params.b),
+                         cmask[:, None, None, :], maskz)
+    vz = zeros
+    if config.method == "VB":
+        vz = _marginal_variance(G, wz, iters=config.ns_iters) * maskz
+    (muz, _, vz, _), sweeps = estep_members(data, params, G, config, cmask,
+                                            (zeros, wz, vz, zeros), niter=niter)
+    return muz, vz, sweeps
 
 
 def _solve(A, B):

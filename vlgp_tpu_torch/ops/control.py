@@ -44,8 +44,10 @@ import torch
 __all__ = ["cond", "bounded_while", "private", "tally", "mode", "Capturer", "TRIPS"]
 
 # trip counts of the bounded loops, by loop name: sweeps of the E-step's
-# per-sweep composition and Newton iterations of the M-step
-TRIPS = {"estep_sweeps": 0, "mstep_iters": 0}
+# per-sweep composition, Newton iterations of the M-step, and rounds of the
+# leave-one-neuron-out E-step (models.vlgp.estep_members), each round one
+# sweep of every member still sweeping
+TRIPS = {"estep_sweeps": 0, "mstep_iters": 0, "lono_rounds": 0}
 
 # nested IF bodies a capture may open (each depth has a stream and a pool)
 _MAX_DEPTH = 16
