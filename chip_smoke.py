@@ -10,13 +10,24 @@ Phases, each of which raises on failure:
 3. ns_gram against its plain PyTorch version on the card, at the two
    main-path shapes (E/H-step segments and the final full-length
    inference), in the cold, warm, probe and want_v modes, plus a NaN warm
-   start that must be rejected;
+   start that must be rejected; each shape in the design that
+   ops/spd.py:_ns_gram_design picks for its (T, R) (per matrix at T = 50,
+   the long-T "pairs" design at T = 1000);
 4. ns_packed the same way at the update_v shape and at elbo_terms' shape
    on the segments (B10000 R40, T = 50); both kernels at the shapes of a
    leave_one_neuron_out chunk of 25 neurons (ns_gram Z5 S2500 T1000 R50,
    ns_packed B12500 R50); then both kernels at
    edge shapes in every mode (R = 1, 3, 8, 17, 40, 50, 100, 127, 128 with
-   T off the 32-row chunk; iters = 0 with x0);
+   T off the 32-row chunk; iters = 0 with x0); then both designs of
+   ns_gram on both sides of the crossover (T = _PAIRS_MIN_T - 1 and
+   _PAIRS_MIN_T, S = 131, a ragged last GEMM tile, R = 1, 17, 50, 127,
+   128) in every mode; the first 100 segments of the S2500 chunk call and
+   of an S2000 segment call equal, bit for bit, a call on those 100 rows
+   alone (X, residual and v); and a NaN planted in one segment's w leaves
+   that segment's residual NaN and every other segment finite, in both
+   designs; inv_one_plus_gram at Z5 S100 T1000 R50 (the long-T design)
+   captured in a CUDA graph and replayed from a good and a NaN carry,
+   equal to the eager call bit for bit;
 5. sweep (the fused E-step) against its plain version at the flagship
    E-step shape (Z5 S2000 T50 Y100 R40, exit groups of 16) cold, from a
    real carry, from the zeros carry and with the adaptive exit (the mode
@@ -209,7 +220,7 @@ R2_SHARD_GAP = 0.004
 LONO_BATCHES = (1, 25, 7)
 LONO_TOL = 1e-5
 # 9c's trace: kernel names by kind (a name goes to the first kind it matches)
-LONO_KERNEL_KINDS = (("ns_gram", ("ns_gram_kernel",)), ("ns_packed", ("ns_packed_kernel",)),
+LONO_KERNEL_KINDS = (("ns_gram", ("ns_gram",)), ("ns_packed", ("ns_packed_kernel",)),
                      ("gemm", ("gemm", "Kernel2")), ("elementwise", ("elementwise", "reduce")))
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -249,13 +260,16 @@ def bound(fma, nbytes):
 def ns_gram_bound(Z, S, T, R, mode):
     """(ms, binds) of one ns_gram call in `mode` ("cold", "cold+v", "warm+v",
     "probe+v"; cold runs 16 Newton-Schulz iterations, warm 4), FMAs counted
-    as the kernel's algorithm runs them per matrix: the Gram build T R^2,
-    2 R^3 per iteration, R^3 for the residual, T R^2 + T R for v; bytes of
-    G, w and the residuals, x0 read in warm and probe modes, X written
-    except in probe mode, v written with +v."""
+    as the least work of the function per matrix, in either design: the
+    Gram's T P over the P = R (R + 1) / 2 pairs of its upper triangle,
+    2 R^3 per iteration, R^3 for the residual, T P for v (sum over the
+    pairs of Xp[p] G[t, i] G[t, j]); bytes of G, w and the residuals, x0
+    read in warm and probe modes, X written except in probe mode, v written
+    with +v."""
     iters = {"cold": 16, "cold+v": 16, "warm+v": 4, "probe+v": 0}[mode]
     want_v = mode.endswith("+v")
-    fma = T * R * R + (2 * iters + 1) * R ** 3 + (T * R * R + T * R if want_v else 0)
+    P = R * (R + 1) // 2
+    fma = T * P + (2 * iters + 1) * R ** 3 + (T * P if want_v else 0)
     n_x = (mode in ("warm+v", "probe+v")) + (mode != "probe+v")
     nbytes = 4 * (Z * T * R + Z * S * T + Z * S + n_x * Z * S * R * R
                   + (Z * S * T if want_v else 0))
@@ -369,7 +383,8 @@ def check_ns_gram(Z, S, T, R, device, gen):
     r_ill = resid64(G, w_ill, X_ill)
     if not r_ill < RESID_TOL:
         raise AssertionError(f"ill-conditioned (lambda {lam_ill:.3g}): residual {r_ill}")
-    log(f"ns_gram Z={Z} S={S} T={T} R={R}: lambda_max {lam:.3g}; "
+    log(f"ns_gram Z={Z} S={S} T={T} R={R}, {spd._ns_gram_design(T, R)} design: "
+        f"lambda_max {lam:.3g}; "
         f"ill-conditioned lambda_max {lam_ill:.3g} residual (f64) {r_ill:.3g}")
     for mode, rk, err, ms, pms in rows:
         b_ms, b_by = ns_gram_bound(Z, S, T, R, mode)
@@ -500,6 +515,164 @@ def check_edge_shapes(device, gen):
     log(f"edge shapes (R, T) {EDGE_SHAPES}, ns_gram cold+v/warm+v/probe+v/iters=0 and "
         f"ns_packed cold/warm/probe: max |kernel - plain| {worst:.3e}")
     return worst
+
+
+# ns_gram's designs at the crossover: S one past the long-T design's 128-row
+# GEMM tile plus 3 (a ragged last tile), the R that the GEMM's pair map and
+# tiles meet (1, odd, the fit's, the 128 limit)
+CROSS_S, CROSS_R = 131, (1, 17, 50, 127, 128)
+
+
+def check_ns_gram_crossover(device, gen):
+    """Both designs of ns_gram (whichever the rule picks and the other) at
+    T = _PAIRS_MIN_T - 1 and _PAIRS_MIN_T, S = CROSS_S, every R of CROSS_R,
+    against the plain version in cold+v, warm+v, probe+v and iters = 0 with
+    x0 (x0 written back bit for bit)."""
+    from vlgp_tpu_torch.ops import spd
+
+    worst, Z = 0.0, 2
+    T_star = spd._PAIRS_MIN_T
+    for R in CROSS_R:
+        for T in (T_star - 1, T_star):
+            G = (torch.randn((Z, T, R), generator=gen, device=device) * 0.3).contiguous()
+            w0 = torch.rand((Z, CROSS_S, T), generator=gen, device=device)
+            w = (w0 * (1e2 / max(lambda_max(G, w0), 1.0))).contiguous()
+            w_warm = (w * (1 + 0.02 * torch.rand(w.shape, generator=gen, device=device))
+                      ).contiguous()
+            x0 = spd._ns_gram_plain(G, w, 16)[0].contiguous()
+            scale = float(x0.abs().amax())
+            plain = {"cold+v": spd._ns_gram_plain(G, w, 16, want_v=True),
+                     "warm+v": spd._ns_gram_plain(G, w_warm, 4, x0=x0, want_v=True),
+                     "probe+v": spd._ns_gram_plain(G, w, 0, x0=x0, resid_only=True, want_v=True),
+                     "iters=0": spd._ns_gram_plain(G, w, 0, x0=x0, want_v=True)}
+            for design in ("per_matrix", "pairs"):
+                kern = {"cold+v": spd._ns_gram_cuda(G, w, 16, want_v=True, design=design),
+                        "warm+v": spd._ns_gram_cuda(G, w_warm, 4, x0=x0, want_v=True,
+                                                    design=design),
+                        "probe+v": spd._ns_gram_cuda(G, w, 0, x0=x0, resid_only=True,
+                                                     want_v=True, design=design),
+                        "iters=0": spd._ns_gram_cuda(G, w, 0, x0=x0, want_v=True,
+                                                     design=design)}
+                torch.cuda.synchronize()
+                for mode, k in kern.items():
+                    p = plain[mode]
+                    rk = float(k[1].amax())
+                    err = max(float((a - b).abs().amax()) for a, b in zip(k, p)
+                              if a is not None and a.ndim > 1)
+                    if not (rk < RESID_TOL and err <= AGREE_TOL * scale):
+                        raise AssertionError(
+                            f"ns_gram {design} {mode} at Z={Z} S={CROSS_S} T={T} R={R}: "
+                            f"residual {rk}, |kernel - plain| {err} (limit {AGREE_TOL * scale})")
+                    worst = max(worst, err)
+                if kern["probe+v"][0] is not None:
+                    raise AssertionError(f"ns_gram {design} probe wrote X")
+                if not torch.equal(kern["iters=0"][0], x0):
+                    raise AssertionError(f"ns_gram {design} iters=0 did not write x0 back at "
+                                         f"T={T} R={R}")
+    log(f"ns_gram crossover, T {T_star - 1} ({spd._ns_gram_design(T_star - 1, 50)} by the rule) "
+        f"and {T_star} ({spd._ns_gram_design(T_star, 50)}), S={CROSS_S}, R {CROSS_R}, both "
+        f"designs cold+v/warm+v/probe+v/iters=0: max |kernel - plain| {worst:.3e}")
+    return worst
+
+
+def check_ns_gram_invariance(device, gen):
+    """Bit for bit: the first 100 segments of an ns_gram call at the 9c
+    chunk's shapes (Z5 S2500 T1000 R50) and at the segments' (Z5 S2000 T50
+    R40), each in the design the rule picks, against a call on those 100
+    rows alone, for X, the residual and v in cold+v, warm+v and probe+v.
+    Then a NaN in one segment's w at Z5 S100 T1000 R50 in both designs: its
+    residual NaN (and X and v, but a probe's v, which comes from x0), every
+    other segment's finite."""
+    from vlgp_tpu_torch.ops import spd
+
+    n = NTRIAL
+    for S, T, R in ((25 * NTRIAL, LENGTH, 50), (2000, 50, 40)):
+        Z = ZDIM
+        G = realistic_factor(Z, T, R, device)
+        w0 = torch.rand((Z, S, T), generator=gen, device=device)
+        w = (w0 * (1e2 / lambda_max(G, w0))).contiguous()
+        x0 = spd._ns_gram_plain(G, w, 16)[0].contiguous()
+        w_h, x0_h = w[:, :n].contiguous(), x0[:, :n].contiguous()
+        calls = {"cold+v": lambda ww, xx: spd._ns_gram_cuda(G, ww, 16, want_v=True),
+                 "warm+v": lambda ww, xx: spd._ns_gram_cuda(G, ww, 4, x0=xx, want_v=True),
+                 "probe+v": lambda ww, xx: spd._ns_gram_cuda(G, ww, 0, x0=xx, resid_only=True,
+                                                             want_v=True)}
+        for mode, call in calls.items():
+            full, head = call(w, x0), call(w_h, x0_h)
+            torch.cuda.synchronize()
+            same = [torch.equal(full[1].view(Z, S)[:, :n], head[1].view(Z, n)),
+                    torch.equal(full[2][:, :n], head[2])]
+            if full[0] is not None:
+                same.append(torch.equal(full[0][:, :n], head[0]))
+            if not all(same):
+                raise AssertionError(f"ns_gram {mode} at Z={Z} S={S} T={T} R={R}: the first "
+                                     f"{n} segments differ from a call on them alone "
+                                     f"(resid, v, X equal: {same})")
+        log(f"ns_gram Z={Z} S={S} T={T} R={R} ({spd._ns_gram_design(T, R)} design): the first "
+            f"{n} segments equal an S={n} call bit for bit (X, residual, v) in cold+v, warm+v "
+            f"and probe+v")
+
+    Z, S, T, R = ZDIM, NTRIAL, LENGTH, 50
+    G = realistic_factor(Z, T, R, device)
+    w0 = torch.rand((Z, S, T), generator=gen, device=device)
+    w = (w0 * (1e2 / lambda_max(G, w0))).contiguous()
+    x0 = spd._ns_gram_plain(G, w, 16)[0].contiguous()
+    w[1, 7, 3] = float("nan")
+    bad = torch.zeros((Z, S), dtype=torch.bool, device=device)
+    bad[1, 7] = True
+    for design in ("per_matrix", "pairs"):
+        for mode, (X, r, v) in (
+                ("cold+v", spd._ns_gram_cuda(G, w, 16, want_v=True, design=design)),
+                ("warm+v", spd._ns_gram_cuda(G, w, 4, x0=x0, want_v=True, design=design)),
+                ("probe+v", spd._ns_gram_cuda(G, w, 0, x0=x0, resid_only=True, want_v=True,
+                                              design=design))):
+            torch.cuda.synchronize()
+            r = r.view(Z, S)
+            # a probe's v comes from x0, which holds no NaN
+            ok = (bool(torch.isnan(r[bad]).all()) and bool(torch.isfinite(r[~bad]).all())
+                  and bool(torch.isfinite(v[~bad]).all())
+                  and (mode == "probe+v" or bool(torch.isnan(v[bad]).all()))
+                  and (X is None or (bool(torch.isnan(X[bad]).all())
+                                     and bool(torch.isfinite(X[~bad]).all()))))
+            if not ok:
+                raise AssertionError(f"ns_gram {design} {mode}: a NaN in w[1, 7] did not stay "
+                                     f"in segment (1, 7)")
+    log(f"ns_gram Z={Z} S={S} T={T} R={R}, NaN in w[1, 7, 3]: residual NaN in segment (1, 7) "
+        f"only, both designs, cold+v/warm+v/probe+v")
+
+
+def check_ns_gram_pairs_capture(device, gen):
+    """The long-T design inside a CUDA graph: inv_one_plus_gram at Z5 S100
+    T1000 R50 with a warm carry and v (the final inference's route, its
+    probe and checks as IF nodes), captured once and replayed from a good
+    and a NaN carry, each replay equal bit for bit to the eager call."""
+    from vlgp_tpu_torch.ops import control, spd
+
+    G = realistic_factor(ZDIM, LENGTH, 50, device)
+    w0 = torch.rand((ZDIM, NTRIAL, LENGTH), generator=gen, device=device)
+    w = (w0 * (1e2 / lambda_max(G, w0))).contiguous()
+    X0 = spd.inv_one_plus_gram(G, w, iters=16)
+    warm = X0.clone()
+    cap = control.Capturer(device)
+
+    def f():
+        return spd.inv_one_plus_gram(G, w, iters=16, warm=warm, warm_iters=4, want_v=True)
+
+    cap.warmup(f)
+    before = spd.KERNEL_LAUNCHES["ns_gram"]
+    graph, out = cap.capture(f)
+    captured = spd.KERNEL_LAUNCHES["ns_gram"] - before
+    for case, carry in (("good carry", X0), ("NaN carry", torch.full_like(X0, float("nan")))):
+        warm.copy_(carry)
+        graph.replay()
+        X, v = f()
+        if not (torch.equal(out[0], X) and torch.equal(out[1], v)):
+            raise AssertionError(f"ns_gram pairs design captured, {case}: the replay differs "
+                                 f"from the eager call")
+    cap.close()
+    log(f"ns_gram Z={ZDIM} S={NTRIAL} T={LENGTH} R=50 ({spd._ns_gram_design(LENGTH, 50)} "
+        f"design) in inv_one_plus_gram, captured ({captured} ns_gram launches) and replayed "
+        f"from a good and a NaN carry: equal to the eager call bit for bit")
 
 
 def sweep_inputs(Z, S, T, Y, R, device, gen, ragged=False):
@@ -2471,6 +2644,9 @@ def main():
     g_err_l, g_rows_l = check_ns_gram(ZDIM, lono_S, LENGTH, 50, device, seeded())
     p_err_l, p_rows_l, p_lms_l = check_ns_packed(ZDIM * lono_S, RP, device, seeded())
     e_err = check_edge_shapes(device, seeded())
+    c_err = check_ns_gram_crossover(device, seeded())
+    check_ns_gram_invariance(device, seeded())
+    check_ns_gram_pairs_capture(device, seeded())
     sw_err, sw_ms, sw_pms, sw_bms, sw_by = check_sweep(device, seeded())
     si_err, si_ms, si_pms, si_lms, si_bms, si_by = check_spd_inverse(device, seeded())
     ps_err, ps_ms, ps_pms, ps_lms, ps_bms, ps_by = check_probe_skip(device, seeded())
@@ -2525,10 +2701,14 @@ def main():
     p_cold = next(r for r in p_rows if r[0] == "cold")
     g_bms, g_by = ns_gram_bound(Z, S, T, R, "cold")
     p_bms, p_by = bound(B * 33 * RP ** 3, 4 * (2 * B * RP * RP + B))
+    from vlgp_tpu_torch.ops.spd import _ns_gram_design
+
     kernels = [
-        {"name": "ns_gram", "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
+        {"name": f"ns_gram ({_ns_gram_design(T, R)} design, cold, Z{Z} S{S} T{T} R{R})",
+         "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
          "replaces": "vlgp_tpu/ops/spd.py:796", "launches": default[0]["ns_gram"],
-         "max_abs_err": max(g_err_a, g_err_b, e_err), "ms": g_cold[3][0], "plain_ms": g_cold[4][0],
+         "max_abs_err": max(g_err_a, g_err_b, e_err, c_err), "ms": g_cold[3][0],
+         "plain_ms": g_cold[4][0],
          "bound_ms": g_bms, "bound_by": g_by, "library_ms": None},
         {"name": "ns_packed", "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
          "replaces": "vlgp_tpu/ops/spd.py:558", "launches": default[0]["ns_packed"],
@@ -2563,7 +2743,8 @@ def main():
         row = next(r for r in g_rows_l if r[0] == mode)
         b_ms, b_by = ns_gram_bound(ZDIM, lono_S, LENGTH, 50, mode)
         kernels.append(
-            {"name": f"ns_gram (9c chunk, {mode}, Z{ZDIM} S{lono_S} T{LENGTH} R50)",
+            {"name": f"ns_gram ({_ns_gram_design(LENGTH, 50)} design, 9c chunk, {mode}, "
+                     f"Z{ZDIM} S{lono_S} T{LENGTH} R50)",
              "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
              "replaces": "vlgp_tpu/ops/spd.py:796", "launches": lono_launches["ns_gram"],
              "max_abs_err": g_err_l, "ms": row[3][0], "plain_ms": row[4][0],

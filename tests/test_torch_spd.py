@@ -271,6 +271,12 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take():
     G, w, _ = _gram_problem()
     with pytest.raises(ValueError, match="CUDA"):
         tspd._ns_gram_cuda(torch.tensor(G), torch.tensor(w))
+    # both designs of ns_gram, whichever the (T, R) rule would pick
+    for design in ("per_matrix", "pairs"):
+        with pytest.raises(ValueError, match="CUDA"):
+            tspd._ns_gram_cuda(torch.tensor(G), torch.tensor(w), want_v=True, design=design)
+    with pytest.raises(ValueError, match="unknown ns_gram design"):
+        tspd._ns_gram_cuda(torch.tensor(G), torch.tensor(w), design="plain")
     with pytest.raises(ValueError, match="CUDA"):
         tspd._ns_packed_cuda(torch.tensor(_psd((2,), 8)))
     with pytest.raises(ValueError, match="R <= 128"):

@@ -1,12 +1,17 @@
 """Time the CUDA kernels of one checkout of vlgp_tpu_torch on the card, so
 that two trees can be compared in turns within one machine:
 
-    python3 tools/torch_kernel_ab.py [ROOT] [--spd-only]    # ROOT: a checkout (default: this one)
+    python3 tools/torch_kernel_ab.py [ROOT] [--spd-only | --designs]    # ROOT: a checkout (default: this one)
 
 Builds ROOT's ``csrc/`` and prints one JSON line with the card's name and
 power limit and, per case, [median, min, max] ms over 10 calls, each
 between its own pair of CUDA events (``chip_smoke.time_ms``): ``ns_gram`` at
-the E-step shape (Z5 S2000 T50 R40) cold 16, warm 4 + v and probe + v;
+the E-step shape (Z5 S2000 T50 R40) cold 16, warm 4 + v and probe + v, and
+at the final inference's (Z5 S100 T1000 R50) and a leave-one-neuron-out
+chunk's (Z5 S2500 T1000 R50) cold 16 + v, warm 4 + v and probe + v, each in
+the design the checkout picks for it, with ``torch.matmul(w, K)`` at the
+chunk in full FP32 (K[z, t, p] = G[z, t, i] G[z, t, j] over the pairs
+i <= j: the Gram GEMM of the long-T design, as the yardstick of its GEMMs);
 ``ns_packed`` cold 16 and ``probe_skip`` (odd groups drifted, 4 rounds) at
 B500 R50, and ``torch.linalg.inv_ex(I + A)`` on the same A; ``spd_inverse``
 at B10000 R40, B10000 R64 and B2000 R128 (only these with ``--spd-only``);
@@ -16,9 +21,13 @@ with its summed sweep, pass and round counts and the slowest group's
 passes, timed per call and also as the mean of 3 back-to-back calls between
 one pair of events; and on draw 0 with every group live (``tol=0``) for
 niter = 0, 2, 4 and 6 sweeps, whose differences give the time of a fully
-live sweep.  The inputs are made with ``chip_smoke.py``'s helpers,
-from seed 0 (the sweep's from the seed of its draw).  Needs a
-CUDA device.
+live sweep.  ``--designs`` times instead both designs of ``ns_gram`` of
+this checkout (``_ns_gram_cuda(..., design=...)``) in those three modes at
+T = 50, 100, 200, 500 and 1000 with S = 100000 / T (100 trials of 1000
+bins cut into segments of T), R = 40 and 50, and at the chunk: the
+measurements behind ``ops/spd.py:_PAIRS_MIN_T``.  The inputs are made with
+``chip_smoke.py``'s helpers, from seed 0 (the sweep's from the seed of its
+draw).  Needs a CUDA device.
 """
 import importlib.util
 import json
@@ -29,6 +38,7 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parents[1]
 ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 SPD_ONLY = "--spd-only" in sys.argv[1:]
+DESIGNS = "--designs" in sys.argv[1:]
 ROOT = pathlib.Path(ARGS[0]).resolve() if ARGS else HERE
 sys.path.insert(0, str(ROOT))
 
@@ -54,8 +64,15 @@ def main():
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     out = {"root": str(ROOT), "card": smi.splitlines()[0]}
+    if DESIGNS:
+        time_designs(device, gen, out)
+        print(json.dumps(out))
+        return
     if not SPD_ONLY:
         time_ns(device, gen, out)
+        for S in (cs.NTRIAL, 25 * cs.NTRIAL):
+            time_gram_modes(device, gen, out, S, cs.LENGTH, 50, f"ns_gram S{S} T1000 R50")
+        time_gram_yardstick(device, gen, out)
     for B, R in ((10000, 40), (10000, 64), (2000, 128)):
         A = cs.spd_batch(B, R, device, gen)
         out[f"spd_inverse B{B} R{R}"] = cs.time_ms(lambda: spd._spd_inverse_cuda(A))
@@ -67,12 +84,8 @@ def main():
 def time_ns(device, gen, out):
     from vlgp_tpu_torch.ops import spd
 
-    Z, S, T, R = cs.ZDIM, 2000, 50, 40
-    G = cs.realistic_factor(Z, T, R, device)
-    w0 = torch.rand((Z, S, T), generator=gen, device=device)
-    w = (w0 * (1e2 / cs.lambda_max(G, w0))).contiguous()
-    w_warm = (w * (1 + 0.02 * torch.rand(w.shape, generator=gen, device=device))).contiguous()
-    X = spd._ns_gram_plain(G, w, 16)[0].contiguous()
+    Z = cs.ZDIM
+    G, w, w_warm, X = gram_inputs(device, gen, 2000, 50, 40)
     out["ns_gram cold 16"] = cs.time_ms(lambda: spd._ns_gram_cuda(G, w, 16))
     out["ns_gram warm 4 + v"] = cs.time_ms(
         lambda: spd._ns_gram_cuda(G, w_warm, 4, x0=X, want_v=True))
@@ -91,6 +104,57 @@ def time_ns(device, gen, out):
     out["ns_packed cold 16"] = cs.time_ms(lambda: spd._ns_packed_cuda(A, 16))
     out["probe_skip"] = cs.time_ms(lambda: spd._ns_packed_cuda(A, 4, x0=x0, probe_skip=True))
     out["inv_ex(I + A)"] = cs.time_ms(lambda: torch.linalg.inv_ex(eye + A))
+
+
+def gram_inputs(device, gen, S, T, R):
+    """G, w (lambda_max ~1e2), a 2% drifted w and the cold plain X, as
+    chip_smoke.check_ns_gram makes them."""
+    from vlgp_tpu_torch.ops import spd
+
+    G = cs.realistic_factor(cs.ZDIM, T, R, device)
+    w0 = torch.rand((cs.ZDIM, S, T), generator=gen, device=device)
+    w = (w0 * (1e2 / cs.lambda_max(G, w0))).contiguous()
+    w_warm = (w * (1 + 0.02 * torch.rand(w.shape, generator=gen, device=device))).contiguous()
+    X = spd._ns_gram_plain(G, w, 16)[0].contiguous()
+    return G, w, w_warm, X
+
+
+def time_gram_modes(device, gen, out, S, T, R, tag, **kw):
+    """ns_gram cold 16 + v, warm 4 + v and probe + v at Z5 S T R; ``kw``
+    goes to _ns_gram_cuda (``design=``)."""
+    from vlgp_tpu_torch.ops import spd
+
+    G, w, w_warm, X = gram_inputs(device, gen, S, T, R)
+    out[f"{tag} cold 16 + v"] = cs.time_ms(lambda: spd._ns_gram_cuda(G, w, 16, want_v=True, **kw))
+    out[f"{tag} warm 4 + v"] = cs.time_ms(
+        lambda: spd._ns_gram_cuda(G, w_warm, 4, x0=X, want_v=True, **kw))
+    out[f"{tag} probe + v"] = cs.time_ms(
+        lambda: spd._ns_gram_cuda(G, w, 0, x0=X, resid_only=True, want_v=True, **kw))
+
+
+def time_gram_yardstick(device, gen, out, S=25 * cs.NTRIAL, T=cs.LENGTH, R=50):
+    """torch.matmul(w, K) in full FP32 at Z5 S T R, K the pairs' products."""
+    G = cs.realistic_factor(cs.ZDIM, T, R, device)
+    w = torch.rand((cs.ZDIM, S, T), generator=gen, device=device)
+    i, j = torch.triu_indices(R, R, device=device)
+    K = (G[:, :, i] * G[:, :, j]).contiguous()
+    out[f"torch.matmul(w, K) S{S} T{T} P{K.shape[-1]}"] = cs.time_ms(lambda: torch.matmul(w, K))
+
+
+def time_designs(device, gen, out):
+    """Both ns_gram designs of this checkout, for its (T, R) rule."""
+    for R in (40, 50):
+        for T in (50, 100, 200, 500, 1000):
+            S = 100000 // T
+            for design in ("per_matrix", "pairs"):
+                gen.manual_seed(0)
+                time_gram_modes(device, gen, out, S, T, R, f"{design} S{S} T{T} R{R}",
+                                design=design)
+    for design in ("per_matrix", "pairs"):
+        gen.manual_seed(0)
+        time_gram_modes(device, gen, out, 25 * cs.NTRIAL, cs.LENGTH, 50,
+                        f"{design} S2500 T1000 R50", design=design)
+    time_gram_yardstick(device, gen, out)
 
 
 def time_sweep(device, gen):

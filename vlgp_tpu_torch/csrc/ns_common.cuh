@@ -3,7 +3,9 @@
 // the register-tiled Newton-Schulz pieces X <- X (2I - M X), the Gram build
 // M = I + G' diag(w) G streamed over T and v = diag(G X G'): a thread owns
 // a 4 x 4 tile of a padded product in 16 registers and reads two 16-byte
-// words per 16 FMAs (see "Register-tiled routines" below).
+// words per 16 FMAs (see "Register-tiled routines" below).  Then the pair
+// index map and the GEMM tile of ns_gram's long-T design ("Pair-form GEMM
+// routines").
 //
 // Every routine is called by all threads of the block with block-uniform
 // arguments, so each __syncthreads is reached by all of them.  Every
@@ -292,6 +294,119 @@ __device__ inline void marginal_v_tiled(const float* Gz, const float* X, int T, 
       float s = 0.f;
       for (int j = 0; j < nb; ++j) s += part[j * TC + t];
       v[t0 + t] = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Pair-form GEMM routines (ns_gram's long-T design, ns_inverse.cu)
+//
+// A symmetric R x R matrix is held by its P = R (R + 1) / 2 upper-triangle
+// pairs p = (i <= j), row-major: row i holds (i, i), (i, i + 1), ...,
+// (i, R - 1), the order of torch.triu_indices.  With K[t, p] =
+// G[t, i] G[t, j], the Gram is A[s, p] = sum_t w[s, t] K[t, p] and
+// v[s, t] = sum_p Xp[s, p] K[t, p] with Xp = X_ii on the diagonal and
+// X_ij + X_ji off it: two products with the small K as the B operand.
+//
+// The GEMM tile: GEMM_THREADS threads as a 16 x 16 grid (ty, tx) compute a
+// BM x BN tile of C = A B, BM, BN in {64, 128}; thread (ty, tx) owns rows
+// g 64 + 4 ty + i and columns h 64 + 4 tx + j (g < BM / 64, h < BN / 64,
+// i, j < 4), (BM / 16) x (BN / 16) sums in registers.  Per step of GEMM_BK
+// k, A's tile sits transposed in As (BK rows of stride BM + 4: the pad
+// makes the transposing store conflict-free) and B's in Bs (BK rows of
+// BN); per k a thread reads one 16-byte word of As per 4 rows and of Bs per
+// 4 columns.  Each sum runs over k in increasing order from 0 in one FMA
+// chain, and k past K adds 0 * 0: an output's bits depend only on K and its
+// inputs, not on the tile shape or where its row falls in a tile.
+// ---------------------------------------------------------------------------
+
+constexpr int GEMM_THREADS = 256;
+constexpr int GEMM_BK = 8;
+
+__host__ __device__ inline int num_pairs(int R) { return R * (R + 1) / 2; }
+
+// p of the pair (i, j), i <= j
+__host__ __device__ inline int pair_index(int i, int j, int R) {
+  return i * R - i * (i - 1) / 2 + (j - i);
+}
+
+// (i, j) of every pair p < P into pi[p], pj[p] (R <= 128 fits a byte); the
+// caller synchronises after.
+__device__ inline void pair_table(int R, unsigned char* pi, unsigned char* pj) {
+  for (int i = 0; i < R; ++i) {
+    const int base = pair_index(i, i, R) - i;
+    for (int j = i + threadIdx.x; j < R; j += blockDim.x) {
+      pi[base + j] = (unsigned char)i;
+      pj[base + j] = (unsigned char)j;
+    }
+  }
+}
+
+// This thread's share of a BM x GEMM_BK tile of a row-major M x K matrix
+// (rows m0.., columns k0..) copied into As transposed, 0 outside: element
+// e = tid + q GEMM_THREADS is (e / BK, e % BK), so eight threads read 32
+// contiguous bytes of a row.  The copies are cp.async (4 bytes each, a
+// source size of 0 zero-fills), so the tile bypasses the registers;
+// atile_wait() makes this thread's copies complete, and the barrier after
+// it makes them visible to the block.
+template <int BM>
+__device__ __forceinline__ void atile_copy(float* As, const float* __restrict__ A, int M, int K,
+                                           int m0, int k0) {
+#pragma unroll
+  for (int q = 0; q < BM * GEMM_BK / GEMM_THREADS; ++q) {
+    const int e = threadIdx.x + q * GEMM_THREADS;
+    const int m = m0 + e / GEMM_BK, k = k0 + e % GEMM_BK;
+    const bool ok = m < M && k < K;
+    const float* src = ok ? A + (size_t)m * K + k : A;
+    const unsigned dst =
+        (unsigned)__cvta_generic_to_shared(As + (e % GEMM_BK) * (BM + 4) + e / GEMM_BK);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+                 "r"(ok ? 4 : 0));
+  }
+  asm volatile("cp.async.commit_group;" ::);
+}
+
+__device__ __forceinline__ void atile_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// acc += As' Bs over the GEMM_BK rows of one step, thread (ty, tx).
+template <int BM, int BN>
+__device__ __forceinline__ void gemm_tile_step(const float* As, const float* Bs, int ty, int tx,
+                                               float (&acc)[BM / 16][BN / 16]) {
+#pragma unroll
+  for (int k = 0; k < GEMM_BK; ++k) {
+    float a[BM / 16], b[BN / 16];
+#pragma unroll
+    for (int g = 0; g < BM / 64; ++g) {
+      const float4 x = *reinterpret_cast<const float4*>(As + k * (BM + 4) + g * 64 + 4 * ty);
+      a[4 * g] = x.x; a[4 * g + 1] = x.y; a[4 * g + 2] = x.z; a[4 * g + 3] = x.w;
+    }
+#pragma unroll
+    for (int h = 0; h < BN / 64; ++h) {
+      const float4 x = *reinterpret_cast<const float4*>(Bs + k * BN + h * 64 + 4 * tx);
+      b[4 * h] = x.x; b[4 * h + 1] = x.y; b[4 * h + 2] = x.z; b[4 * h + 3] = x.w;
+    }
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// C[m0 + row, n0 + col] = acc for the rows < M and columns < N of the tile
+// (C row-major M x N).
+template <int BM, int BN>
+__device__ __forceinline__ void gemm_tile_store(float* C, int M, int N, int m0, int n0, int ty,
+                                                int tx, const float (&acc)[BM / 16][BN / 16]) {
+#pragma unroll
+  for (int i = 0; i < BM / 16; ++i) {
+    const int m = m0 + (i / 4) * 64 + 4 * ty + i % 4;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      const int n = n0 + (j / 4) * 64 + 4 * tx + j % 4;
+      if (n < N) C[(size_t)m * N + n] = acc[i][j];
     }
   }
 }

@@ -1,15 +1,17 @@
 // Newton-Schulz inverses X = (I + A)^{-1} of small SPD systems, for Hopper.
 //
-// Three entry points share the register-tiled routines of ns_common.cuh:
+// Four entry points share the register-tiled routines of ns_common.cuh:
 //
 //   ns_gram    replaces vlgp_tpu/ops/spd.py:_ns_gram_pallas (kernel body
-//              _make_ns_gram_kernel).  Per (latent z, segment s) it builds
-//              A = G_z' diag(w_zs) G_z in shared memory, streaming rows of
-//              G_z and w_zs over T in chunks of TC rows (T reaches 1000 in
-//              the final full-length inference), runs Newton-Schulz
-//              X <- X (2I - (I+A) X), writes X, one residual
-//              max|(I+A)X - I| per matrix and, when asked, v = diag(G X G')
-//              computed from the X the block still holds.
+//              _make_ns_gram_kernel), the per-matrix design.  Per (latent
+//              z, segment s) it builds A = G_z' diag(w_zs) G_z in shared
+//              memory, streaming rows of G_z and w_zs over T in chunks of
+//              TC rows, runs Newton-Schulz X <- X (2I - (I+A) X), writes X,
+//              one residual max|(I+A)X - I| per matrix and, when asked,
+//              v = diag(G X G') computed from the X the block still holds.
+//   ns_gram_pairs  the same function for long T (the long-T design; the
+//              rule that picks it is ops/spd.py:_ns_gram_design, by (T, R)
+//              alone).  Three launches, see "The long-T design" below.
 //   ns_packed  replaces vlgp_tpu/ops/spd.py:_ns_packed_pallas (kernel body
 //              _make_ns_packed_kernel): the same iteration on a given
 //              A (B, R, R).
@@ -57,6 +59,37 @@
 // ns_gram's 16 cold rounds at R = 40 ran at 36% of the FP32 bound, with
 // 59-64 registers per thread, the 64 that __launch_bounds__(1024) allows
 // (8 bytes of ns_gram spilled).
+//
+// The long-T design.  At T = 1000 the per-matrix design streams all of G_z
+// (T x R, 200 KB at R = 50) through every block's shared memory twice, for
+// the Gram and for v, with two barriers per 32-row chunk, and reuses no row
+// of G across segments: ~5 GB of L2 reads at 12,500 matrices, and it lost
+// to its own plain version there (PERF.md, Findings).  The TPU kernel shares
+// one G block among per_block segments (vlgp_tpu/ops/spd.py:807-817), so
+// its Gram is a matrix product with G reused.  ns_gram_pairs does that
+// with the card's FP32 SIMT units, over the P = R (R + 1) / 2 pairs of the
+// upper triangle (A is symmetric):
+//   1. ns_gram_pairs_kernel: A[z, s, p] = sum_t w[z, s, t] K_z[t, p],
+//      K_z[t, p] = G_z[t, i] G_z[t, j], a register-tiled GEMM (M = S,
+//      N = P, K = T) whose B tile is formed from G as it is staged: one
+//      multiply per element of Bs against BM FMAs that read it.  The pairs
+//      go to a (Z, S, P) scratch from torch's allocator (64 MB at Z5 S2500
+//      R50).
+//   2. ns_gram_solve_kernel: one block per matrix unpacks I + A into Mt and
+//      runs ns_solve as ns_packed does (cold, warm, probe); with want_v it
+//      writes Xp (X_ii, X_ij + X_ji) over its own row of the scratch.
+//   3. ns_gram_v_kernel: v[z, s, t] = sum_p Xp[z, s, p] K_z[t, p], the same
+//      GEMM with N = T and K = P; the block's rows of G stay in shared
+//      memory for the whole K loop.
+// Each GEMM output is one FMA chain over k in increasing order, with no
+// split-K and no atomics, so a segment's X, residual and v are the same
+// bits whatever S is and wherever the segment falls in a tile; the tile
+// (128 x 128, or 128 x 64 when the grid would not give every SM two blocks)
+// changes nothing but speed.  What bounds it: T P FMAs per matrix per
+// GEMM (2.55 M at T1000 R50, each a full float32 FMA: no TF32, no wgmma),
+// against 2 R^3 per Newton-Schulz round; w and Xp are read from device
+// memory once per column of tiles (10 at P = 1275), consecutive blocks
+// sharing them through L2.
 //
 // probe_skip takes two launches of one block per matrix, in stream order:
 // the probe (ns_packed_kernel in probe mode) writes every x0's residual to
@@ -229,6 +262,203 @@ cudaError_t launch_packed(const float* A, const float* x0, float* X, float* resi
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// ns_gram's long-T design: three launches on one stream (see the note at
+// the top; the pair form and the GEMM tile are in ns_common.cuh)
+// ---------------------------------------------------------------------------
+
+// Launch 1: Ap[z, s, p] = sum_t w[z, s, t] G_z[t, i] G_z[t, j], M = S, N = P,
+// K = T.  Grid (tiles of P fastest, then tiles of S; Z), so the blocks that
+// share a slice of w run together and it is read from device memory once.
+// Per step the BK x BN tile of K is formed from G: thread (n, kb) owns the
+// pair n0 + n and multiplies G[t, i] G[t, j] for its BK / KSTEP rows t, one
+// multiply per element of Bs against BM FMAs that read it.  The next step's
+// tile of w is copied into the other buffer (cp.async) and its rows of G
+// loaded into registers before the step's products, and its Bs is stored
+// after them: two buffers, one barrier per step.
+template <int BM, int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+ns_gram_pairs_kernel(const float* __restrict__ G, const float* __restrict__ w,
+                     float* __restrict__ Ap, int S, int T, int R) {
+  __shared__ __align__(16) float As[2][GEMM_BK * (BM + 4)];
+  __shared__ __align__(16) float Bs[2][GEMM_BK * BN];
+  constexpr int KSTEP = GEMM_THREADS / BN;  // rows of Bs between a thread's elements
+  constexpr int KB = GEMM_BK / KSTEP;       // a thread's elements of Bs per step
+  const int P = num_pairs(R);
+  const int ntn = (P + BN - 1) / BN;
+  const int n0 = (blockIdx.x % ntn) * BN, m0 = (blockIdx.x / ntn) * BM, z = blockIdx.y;
+  const float* Gz = G + (size_t)z * T * R;
+  const float* wz = w + (size_t)z * S * T;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int n = threadIdx.x % BN, kb = threadIdx.x / BN;
+  const bool live = n0 + n < P;
+  int pi = 0, rem = live ? n0 + n : 0;  // the pair (pi, pj) of column n
+  while (rem >= R - pi) rem -= R - pi++;
+  const int pj = pi + rem;
+
+  float g1[KB], g2[KB];
+  auto fetch = [&](int k0, int buf) {
+    atile_copy<BM>(As[buf], wz, S, T, m0, k0);
+#pragma unroll
+    for (int q = 0; q < KB; ++q) {
+      const int t = k0 + kb + q * KSTEP;
+      const bool ok = live && t < T;
+      g1[q] = ok ? __ldg(Gz + (size_t)t * R + pi) : 0.f;
+      g2[q] = ok ? __ldg(Gz + (size_t)t * R + pj) : 0.f;
+    }
+  };
+  auto stage = [&](int buf) {
+    atile_wait();
+#pragma unroll
+    for (int q = 0; q < KB; ++q) Bs[buf][(kb + q * KSTEP) * BN + n] = __fmul_rn(g1[q], g2[q]);
+  };
+
+  float acc[BM / 16][BN / 16];
+#pragma unroll
+  for (int i = 0; i < BM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) acc[i][j] = 0.f;
+  const int nk = (T + GEMM_BK - 1) / GEMM_BK;
+  fetch(0, 0);
+  stage(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const bool more = kt + 1 < nk;
+    if (more) fetch((kt + 1) * GEMM_BK, (kt + 1) & 1);
+    gemm_tile_step<BM, BN>(As[kt & 1], Bs[kt & 1], ty, tx, acc);
+    if (more) stage((kt + 1) & 1);
+    __syncthreads();
+  }
+  gemm_tile_store<BM, BN>(Ap + (size_t)z * S * P, S, P, m0, n0, ty, tx, acc);
+}
+
+// Launch 2, one block per matrix b = z S + s: M = I + A unpacked from its
+// pairs into Mt, ns_solve as ns_packed_kernel runs it (cold, warm or probe),
+// then with want_v the pairs of Xp, from the X the block holds (x0 in probe
+// mode), written over the block's own row of Ap, which it no longer reads.
+__global__ void __launch_bounds__(NT_MAX)
+ns_gram_solve_kernel(float* __restrict__ Ap, const float* __restrict__ x0,
+                     float* __restrict__ Xo, float* __restrict__ resid,
+                     int R, int iters, int resid_only, int want_v) {
+  extern __shared__ float4 sm4[];
+  const Layout L(R);
+  float* Mt = reinterpret_cast<float*>(sm4);
+  float* X = Mt + L.n;
+  float* Xt = X + L.n;
+  float* red = Xt + L.n;
+  const int RR = R * R, P = num_pairs(R);
+  const int b = blockIdx.x;
+  float* Ab = Ap + (size_t)b * P;
+  zero_shared(Mt, 3 * L.n);
+  __syncthreads();
+  for (int e = threadIdx.x; e < RR; e += blockDim.x) {
+    const int r = e / R, q = e - r * R;
+    const int p = r <= q ? pair_index(r, q, R) : pair_index(q, r, R);
+    Mt[q * L.ld + r] = Ab[p] + (r == q ? 1.f : 0.f);
+  }
+  __syncthreads();
+  ns_solve(Mt, X, Xt, red, x0 ? x0 + (size_t)b * RR : nullptr,
+           Xo ? Xo + (size_t)b * RR : nullptr, resid + b, R, L.ld, iters, resid_only);
+  // X is final: ns_solve's last write of it precedes the residual's barriers
+  if (want_v) {
+    for (int e = threadIdx.x; e < RR; e += blockDim.x) {
+      const int r = e / R, q = e - r * R;
+      if (r <= q)
+        Ab[pair_index(r, q, R)] = r == q ? X[r * L.ld + r] : X[r * L.ld + q] + X[q * L.ld + r];
+    }
+  }
+}
+
+// Launch 3: v[z, s, t] = sum_p Xp[z, s, p] G_z[t, i] G_z[t, j], M = S, N = T,
+// K = P, on the same tile.  The block's N range is fixed, so its rows of G
+// are read once into Gs, transposed (R rows of BN + 1: conflict-free both
+// ways), with the pair table beside them; each step forms Bs from Gs.
+template <int BM, int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+ns_gram_v_kernel(const float* __restrict__ G, const float* __restrict__ Xp,
+                 float* __restrict__ v, int S, int T, int R) {
+  __shared__ __align__(16) float As[2][GEMM_BK * (BM + 4)];
+  __shared__ __align__(16) float Bs[2][GEMM_BK * BN];
+  extern __shared__ float4 dyn4[];
+  constexpr int KSTEP = GEMM_THREADS / BN;
+  constexpr int KB = GEMM_BK / KSTEP;
+  const int P = num_pairs(R);
+  const int ntn = (T + BN - 1) / BN;
+  const int n0 = (blockIdx.x % ntn) * BN, m0 = (blockIdx.x / ntn) * BM, z = blockIdx.y;
+  const float* Gz = G + (size_t)z * T * R;
+  const float* Xz = Xp + (size_t)z * S * P;
+  float* Gs = reinterpret_cast<float*>(dyn4);  // Gs[r (BN + 1) + c] = G_z[n0 + c, r], 0 past T
+  unsigned char* pi = reinterpret_cast<unsigned char*>(Gs + R * (BN + 1));
+  unsigned char* pj = pi + P;
+  for (int e = threadIdx.x; e < R * BN; e += GEMM_THREADS) {
+    const int c = e / R, r = e - c * R;
+    Gs[r * (BN + 1) + c] = n0 + c < T ? __ldg(Gz + (size_t)(n0 + c) * R + r) : 0.f;
+  }
+  pair_table(R, pi, pj);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int n = threadIdx.x % BN, kb = threadIdx.x / BN;
+  const float* gcol = Gs + n;
+
+  auto stage = [&](int buf, int k0) {
+    atile_wait();
+#pragma unroll
+    for (int q = 0; q < KB; ++q) {
+      const int p = k0 + kb + q * KSTEP;
+      Bs[buf][(kb + q * KSTEP) * BN + n] =
+          p < P ? __fmul_rn(gcol[pi[p] * (BN + 1)], gcol[pj[p] * (BN + 1)]) : 0.f;
+    }
+  };
+
+  float acc[BM / 16][BN / 16];
+#pragma unroll
+  for (int i = 0; i < BM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) acc[i][j] = 0.f;
+  const int nk = (P + GEMM_BK - 1) / GEMM_BK;
+  atile_copy<BM>(As[0], Xz, S, P, m0, 0);
+  __syncthreads();  // Gs and the pair table are complete
+  stage(0, 0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const bool more = kt + 1 < nk;
+    if (more) atile_copy<BM>(As[(kt + 1) & 1], Xz, S, P, m0, (kt + 1) * GEMM_BK);
+    gemm_tile_step<BM, BN>(As[kt & 1], Bs[kt & 1], ty, tx, acc);
+    if (more) stage((kt + 1) & 1, (kt + 1) * GEMM_BK);
+    __syncthreads();
+  }
+  gemm_tile_store<BM, BN>(v + (size_t)z * S * T, S, T, m0, n0, ty, tx, acc);
+}
+
+// 128 x 128 tiles when a Z x M x N product has enough of them to give every
+// SM two blocks, else 128 x 64: at Z5 S100 T1000 R50 the 128 x 64 tiles of
+// both GEMMs took 55-66% of the 128 x 128 tiles' time and 94-97% of 64 x
+// 64's, at Z5 S2500 the 128 x 128 tiles 87-90% of 128 x 64's (NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md, Findings).  Either shape gives the same bits
+// (ns_common.cuh).  `nsm`: the card's SMs.
+bool wide_tiles(int Z, int M, int N, int nsm) {
+  return (long long)Z * ((M + 127) / 128) * ((N + 127) / 128) >= 2LL * nsm;
+}
+
+template <int BM, int BN>
+cudaError_t launch_gram_pairs(const float* G, const float* w, float* Ap, int Z, int S, int T,
+                              int R, cudaStream_t st) {
+  const dim3 grid(((num_pairs(R) + BN - 1) / BN) * ((S + BM - 1) / BM), Z);
+  ns_gram_pairs_kernel<BM, BN><<<grid, GEMM_THREADS, 0, st>>>(G, w, Ap, S, T, R);
+  return cudaGetLastError();
+}
+
+template <int BM, int BN>
+cudaError_t launch_v_pairs(const float* G, const float* Xp, float* v, int Z, int S, int T,
+                           int R, cudaStream_t st) {
+  const size_t smem = sizeof(float) * R * (BN + 1) + 2 * num_pairs(R);
+  cudaError_t err = cudaFuncSetAttribute(
+      ns_gram_v_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((T + BN - 1) / BN) * ((S + BM - 1) / BM), Z);
+  ns_gram_v_kernel<BM, BN><<<grid, GEMM_THREADS, smem, st>>>(G, Xp, v, S, T, R);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -253,6 +483,38 @@ int ns_gram(const float* G, const float* w, const float* x0, float* X, float* re
   ns_gram_kernel<<<Z * S, nt, smem, (cudaStream_t)stream>>>(G, w, x0, X, resid, v, S, T, R,
                                                             iters, resid_only, want_v);
   return (int)cudaGetLastError();
+}
+
+// ns_gram's long-T design, with ns_gram's arguments, `pairs` (Z,S,P)
+// float32 scratch, P = R (R + 1) / 2: the Gram's pairs, overwritten in place
+// by Xp when want_v, and the card's SM count `nsm` for the tile shape.
+// Three launches on `stream`: the Gram as a GEMM, the Newton-Schulz solve,
+// and with want_v the product for v.
+int ns_gram_pairs(const float* G, const float* w, const float* x0, float* X, float* resid,
+                  float* v, float* pairs, int Z, int S, int T, int R, int iters, int use_x0,
+                  int resid_only, int want_v, int nsm, void* stream) {
+  if (R < 1 || R > RMAX || T < 1 || Z < 1 || Z > 65535 || S < 1 || iters < 0 || nsm < 1 ||
+      pairs == nullptr || (resid_only && !use_x0) || (!resid_only && X == nullptr) ||
+      (want_v && v == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (!use_x0) x0 = nullptr;
+  if (resid_only) X = nullptr;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int P = num_pairs(R);
+  cudaError_t err = wide_tiles(Z, S, P, nsm) ? launch_gram_pairs<128, 128>(G, w, pairs, Z, S, T, R, st)
+                                        : launch_gram_pairs<128, 64>(G, w, pairs, Z, S, T, R, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = packed_smem(R);
+  err = cudaFuncSetAttribute(ns_gram_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ns_gram_solve_kernel<<<Z * S, tiled_threads(R), smem, st>>>(pairs, x0, X, resid, R, iters,
+                                                              resid_only, want_v);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !want_v) return (int)err;
+  err = wide_tiles(Z, S, T, nsm) ? launch_v_pairs<128, 128>(G, pairs, v, Z, S, T, R, st)
+                            : launch_v_pairs<128, 64>(G, pairs, v, Z, S, T, R, st);
+  return (int)err;
 }
 
 // A (B,R,R), x0 (B,R,R) or null; X (B,R,R) or null in probe mode; resid (B,).

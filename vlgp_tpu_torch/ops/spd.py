@@ -4,8 +4,13 @@ Counterpart of ``vlgp_tpu/ops/spd.py``.  Hand-written CUDA kernels carry
 the float32 path:
 
   * ``ns_gram``   replaces ``_ns_gram_pallas``: builds A = G_z' diag(w_zs) G_z
-    per (latent, segment) in shared memory, runs Newton-Schulz
-    X <- X (2I - (I+A) X), and optionally emits v = diag(G X G').
+    per (latent, segment), runs Newton-Schulz X <- X (2I - (I+A) X), and
+    optionally emits v = diag(G X G').  Two hand-written designs, chosen
+    by (T, R) alone (``_ns_gram_design``): per matrix, one block builds
+    its Gram in shared memory (the segments, T = 50), or for long T the
+    Gram and v as two GEMMs over the pairs of the upper triangle with a
+    Newton-Schulz launch between them (``_ns_gram_pairs_plain`` mirrors
+    its arithmetic).
   * ``ns_packed`` replaces ``_ns_packed_pallas``: the same Newton-Schulz on
     a given A (B, R, R); with ``probe_skip`` its fused probe + refine mode
     (``VLGP_FUSED_PROBE=1``), decided per group of matrices.
@@ -54,6 +59,30 @@ _RESID_TOL = 1e-2
 _R_MAX = 128
 # largest R of spd_inverse's automatic kernel route (vlgp_tpu/ops/spd.py:_LANE)
 _LANE = 64
+
+# ns_gram's design by (T, R) alone, never by S, so a segment's bits do not
+# depend on how many segments share the call (9c's batches, fit_sharded
+# against fit).  "per_matrix": one block per (latent, segment) streams G
+# over T through shared memory to build its Gram and v.  "pairs": the Gram
+# A[s, p] = sum_t w[s, t] G[t, i] G[t, j] over the pairs p = (i <= j) and
+# v[s, t] = sum_p Xp[s, p] G[t, i] G[t, j] as two register-tiled FP32 GEMMs
+# that share each row of G among 128 segments, with one Newton-Schulz
+# block per matrix between them (csrc/ns_inverse.cu:ns_gram_pairs).
+# Crossover, from both designs timed at T = 50, 100, 200, 500 and 1000 with
+# S = 100000 / T, R40 and R50, cold 16 + v, warm 4 + v and probe + v
+# (tools/torch_kernel_ab.py --designs on an NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md, Findings): at T50 the pairs design took 0.98-1.16x the per-matrix
+# time (slower in warm and probe, the E-step's modes), at T100 0.90-0.97x,
+# at T200 0.68-0.92x, at T1000 0.62-0.75x (S100) and 0.32-0.57x (S2500),
+# the same at both R.  So the rule reads T alone, and the segments (T50)
+# keep the per-matrix design.
+_PAIRS_MIN_T = 100
+
+
+def _ns_gram_design(T: int, R: int) -> str:
+    """``"pairs"`` (the long-T design) or ``"per_matrix"`` for G (Z, T, R)."""
+    return "pairs" if T >= _PAIRS_MIN_T else "per_matrix"
+
 
 # Warm-start probe architecture of the Newton-Schulz route: "0" (default) =
 # probe launch + host-synced check + refine launch; "1" = the fused
@@ -181,6 +210,32 @@ def _ns_gram_plain(G, w, iters: int = 16, x0=None, resid_only: bool = False,
     return (None if resid_only else X), resid, v
 
 
+def _ns_gram_pairs_plain(G, w, iters: int = 16, x0=None, resid_only: bool = False,
+                         want_v: bool = False):
+    """The ``"pairs"`` design of ``ns_gram`` step by step, for the tests:
+    K[z, t, p] = G[z, t, i] G[z, t, j] over the pairs p = (i <= j) of
+    ``torch.triu_indices``, the Gram's pairs w @ K, Newton-Schulz on
+    I + A unpacked, then v = Xp @ K' with Xp = X_ii on the diagonal and
+    X_ij + X_ji off it.  Same arguments and results as ``_ns_gram_plain``."""
+    Z, T, R = G.shape
+    S = w.shape[1]
+    i, j = torch.triu_indices(R, R, device=G.device)
+    K = G[:, :, i] * G[:, :, j]
+    Ap = w @ K
+    A = Ap.new_zeros((Z, S, R, R))
+    A[..., i, j] = Ap
+    A[..., j, i] = Ap
+    M = (A + _eye(R, A)).reshape(Z * S, R, R)
+    xf = None if x0 is None else x0.reshape(Z * S, R, R)
+    X, resid = _ns_core(M, iters, xf, resid_only)
+    X = X.reshape(Z, S, R, R)
+    v = None
+    if want_v:
+        Xp = torch.where(i == j, X[..., i, j], X[..., i, j] + X[..., j, i])
+        v = Xp @ K.mT
+    return (None if resid_only else X), resid, v
+
+
 def _spd_inverse_plain(A):
     """Plain version of the ``spd_inverse`` kernel, the TPU kernel's
     algorithm step by step (``vlgp_tpu/ops/spd.py:76-119``): Cholesky by
@@ -296,12 +351,18 @@ def _spd_inverse_cuda(A):
 
 
 def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
-                  want_v: bool = False):
-    """Launch the ``ns_gram`` kernel: one thread block per (latent, segment)."""
+                  want_v: bool = False, design: Optional[str] = None):
+    """Launch ``ns_gram`` in ``design`` (default ``_ns_gram_design(T, R)``):
+    ``"per_matrix"``, one thread block per (latent, segment), or
+    ``"pairs"``, the Gram GEMM, the Newton-Schulz launch and the v GEMM on
+    a (Z, S, R (R + 1) / 2) scratch (counted as one launch)."""
     from ._build import load_library
 
     Z, T, R = G.shape
     S = w.shape[1]
+    design = _ns_gram_design(T, R) if design is None else design
+    if design not in ("per_matrix", "pairs"):
+        raise ValueError(f"unknown ns_gram design {design!r}")
     if not 1 <= R <= _R_MAX:
         raise ValueError(f"ns_gram takes 1 <= R <= {_R_MAX}, got R={R}")
     if iters < 0:
@@ -321,10 +382,17 @@ def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
         return X, resid, v
     lib = load_library("ns_inverse")
     with torch.cuda.device(G.device):
-        stream = torch.cuda.current_stream(G.device).cuda_stream
-        rc = lib.ns_gram(_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid), _ptr(v),
-                         Z, S, T, R, iters, int(x0 is not None), int(resid_only),
-                         int(want_v), ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(G.device).cuda_stream)
+        flags = (Z, S, T, R, iters, int(x0 is not None), int(resid_only), int(want_v))
+        if design == "pairs":
+            pairs = torch.empty((Z, S, R * (R + 1) // 2), dtype=torch.float32,
+                                device=G.device)
+            nsm = torch.cuda.get_device_properties(G.device).multi_processor_count
+            rc = lib.ns_gram_pairs(_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid), _ptr(v),
+                                   _ptr(pairs), *flags, nsm, stream)
+        else:
+            rc = lib.ns_gram(_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid), _ptr(v),
+                             *flags, stream)
     _raise_on(rc, lib, "ns_gram")
     KERNEL_LAUNCHES["ns_gram"] += 1
     return X, resid, v
