@@ -5,7 +5,7 @@
 Phases, each of which raises on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the six sources of vlgp_tpu_torch/csrc/ with nvcc
+2. build: compiles the eight sources of vlgp_tpu_torch/csrc/ with nvcc
    (sm_90a), one process each, all at once;
 3. ns_gram against its plain PyTorch version on the card, at the two
    main-path shapes (E/H-step segments and the final full-length
@@ -53,6 +53,21 @@ Phases, each of which raises on failure:
    a NaN entry NaN out; timed at 5 x 100; lorenz's kernel against the
    CPU's loop bit for bit over 20,000 steps in float64 and float32, timed
    at 101,000 steps against one call of the plain loop on the card;
+   (6c, run after phase 8, whose last default fit gives it a real state)
+   mstep_stats and mstep_update (csrc/mstep.cu) against their plain
+   versions at the flagship segments (Z5 S2000 T50 Y100 X1, the fit's
+   state), X3 (history 2), Z1, Z12, a ragged mask, inert channels, the
+   gradient mode and a NaN in one channel's y (which must stay in that
+   channel), in float32 and float64: each statistic and output within
+   MSTEP_TOL, the whole iteration within MSTEP_ITER_TOL, both routes (the
+   update reducing the partial sums, and the reduce launch of a sharded
+   fit) and a second call bit for bit; hstep_search (csrc/hstep.cu) on the
+   flagship C recorded from one H-step of the fit, polish and the
+   profiled sigma on and off, at T = 1, 17, 128 and 200 (global scratch),
+   with failing Cholesky candidates and an all-NaN latent: the kernel's x
+   as good as the plain version's under the plain objective (HSTEP_FTOL)
+   and in the same grid cell where that cell is determined; each timed
+   at the flagship;
 7. a small fit (4 trials x 120 bins x 10 neurons x 2 latents) on the card
    in float32 against the same fit on the CPU in float64 (exact route);
 8. the main paths, each with the launch counters set to 0 just before it
@@ -62,6 +77,8 @@ Phases, each of which raises on failure:
    E-step time, counters and the lstsq-aligned recovery R^2, the last fit
    with its ns_gram launches split by caller and mode; transform of 10
    fresh trials under the last fit's result; spd_solve at B10000 R40;
+   every fit of phase 8 must launch mstep_stats, mstep_update and
+   hstep_search;
    inv_one_plus_psd from a drifted carry with the fused probe;
 9. the model-selection path, each sub-phase with the counters set to 0
    just before it: (9a) fit with track_elbo=True, its ELBO series (first,
@@ -146,7 +163,9 @@ Phases, each of which raises on failure:
    syncs, for the fit and its EM loop).
 
 Times are per call, each between its own pair of CUDA events, over 10
-calls after a warm-up, printed as median [min-max].  Ends with one JSON
+calls after a warm-up, printed as median [min-max] (mstep_update and its
+plain version as replays of a captured call, whose device time is shorter
+than a launch's host cost).  Ends with one JSON
 line of per-kernel results (launches on their path, the worst |kernel -
 plain|, the median kernel, plain and library times, and the bound computed
 from this run's shapes and counts; ns_gram and ns_packed also at 9c's
@@ -221,6 +240,7 @@ LONO_BATCHES = (1, 25, 7)
 LONO_TOL = 1e-5
 # 9c's trace: kernel names by kind (a name goes to the first kind it matches)
 LONO_KERNEL_KINDS = (("ns_gram", ("ns_gram",)), ("ns_packed", ("ns_packed_kernel",)),
+                     ("mstep", ("mstep_",)), ("hstep_search", ("hstep_search",)),
                      ("gemm", ("gemm", "Kernel2")), ("elementwise", ("elementwise", "reduce")))
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -244,6 +264,22 @@ def time_ms(fn, reps=10):
     torch.cuda.synchronize()
     ms = sorted(start.elapsed_time(end) for start, end in pairs)
     return statistics.median(ms), ms[0], ms[-1]
+
+
+def graph_ms(fn, reps=10):
+    """Device time of fn() in ms without the host's launch cost: fn captured
+    once in a CUDA graph, the graph replayed `reps` times, each replay
+    between its own pair of CUDA events (time_ms): (median, min, max)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps)
 
 
 def fmt_ms(t):
@@ -1145,6 +1181,370 @@ def check_lorenz(device):
     return err, ms, pms, b_ms, b_by
 
 
+# ---------------------------------------------------------------------------
+# 6c: the M-step's Newton iteration and the H-step's search
+# ---------------------------------------------------------------------------
+
+# mstep_stats / mstep_update against their plain versions: each statistic
+# and each output within MSTEP_TOL of the plain version's, relative to the
+# largest |value| of its tensor.  Both sum the same terms in other orders
+# (the kernel per channel over chunks of rows, the plain version in GEMMs
+# and pairwise sums) over ~1e5 rows, and the update's solve carries that
+# into da by the Hessian's condition
+MSTEP_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# the whole iteration (the kernels' statistics into the kernel's update)
+# against the plain one: the statistics' gap times the Newton system's
+# condition, relative to each output's largest |value|
+MSTEP_ITER_TOL = {torch.float32: 1e-3, torch.float64: 1e-8}
+# hstep_search against its plain version: judged by the objective in
+# float64 (the plain gp_elbo_stats on C in float64), since in float32 the
+# objective's own rounding (tr(K^-1 C) carries ~cond(K) eps) is larger
+# than its differences near the minimum, where the golden search follows
+# that rounding.  The kernel's x must be as good as the plain version's,
+# f64(x_kernel) <= f64(x_plain) + 2 noise + HSTEP_FTOL |f64|, noise the
+# plain objective's largest |f - f64| over the grid and both x; and where
+# no grid candidate's f64 lies within 2 noise + HSTEP_FTOL |f64| of the tie
+# threshold, x must lie in the bracket of the plain rule's grid cell
+HSTEP_FTOL = {torch.float32: 1e-7, torch.float64: 1e-10}
+
+
+def fit_segments(result):
+    """The flagship fit's state cut into its 2000 window-50 segments, as the
+    EM loop sees them: (segments, params, config)."""
+    from vlgp_tpu_torch.data import cut_trials
+
+    cfg = result.config
+    return cut_trials(result.data, cfg.window, seed=cfg.seed), result.params, cfg
+
+
+def mstep_case(S, T, Y, Z, X, dtype, device, gen, ragged=False):
+    """Synthetic M-step inputs: latents and counts drawn from gen, x the bias
+    and X - 1 lags of y (history), a ragged mask on request."""
+    mu = 0.5 * torch.randn((S, T, Z), generator=gen, device=device, dtype=dtype)
+    v = 0.01 + 0.09 * torch.rand((S, T, Z), generator=gen, device=device, dtype=dtype)
+    a = 0.3 * torch.randn((Z, Y), generator=gen, device=device, dtype=dtype)
+    b = torch.zeros((X, Y), device=device, dtype=dtype)
+    b[0] = -1.0
+    if X > 1:
+        b[1:] = 0.05 * torch.randn((X - 1, Y), generator=gen, device=device, dtype=dtype)
+    y = torch.poisson(torch.exp(mu @ a + b[0]), generator=gen)
+    x = torch.ones((S, T, X, Y), device=device, dtype=dtype)
+    for q in range(1, X):
+        x[:, q:, q] = y[:, :-q]
+        x[:, :q, q] = 0.0
+    mask = torch.ones((S, T), device=device, dtype=dtype)
+    if ragged:
+        ends = torch.randint(1, T + 1, (S,), generator=gen, device=device)
+        mask = (torch.arange(T, device=device)[None] < ends[:, None]).to(dtype)
+        y, x, mu, v = y * mask[..., None], x * mask[..., None, None], mu * mask[..., None], \
+            v * mask[..., None]
+    return [y, x, mask, mu, v, a, b]
+
+
+def same_bits(p, q):
+    """Equal bit for bit, NaNs in the same places."""
+    return torch.equal(torch.isnan(p), torch.isnan(q)) and torch.equal(
+        torch.nan_to_num(p), torch.nan_to_num(q))
+
+
+def _rel(got, ref):
+    """max |got - ref| / max |ref| over the finite entries of ref, and
+    whether the NaNs sit in the same places."""
+    fin = torch.isfinite(ref)
+    same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
+    if not bool(fin.any()):
+        return 0.0, same_nan
+    d = (got[fin] - ref[fin]).abs().max() / ref[fin].abs().max().clamp_min(1e-30)
+    return float(d), same_nan
+
+
+def mstep_compare(tag, args, active=None, use_hessian=True, eps=1e-8):
+    """One case: the kernels' statistics, update (from the plain version's
+    statistics) and whole iteration against the plain versions; both kernel
+    routes (partials reduced by the update, and the reduce launch) give the
+    same bits, twice.  Returns the worst relative gap."""
+    from vlgp_tpu_torch.ops import mstep as om
+
+    y, x, mask, mu, v, a, b = args
+    dtype = y.dtype
+    tol = MSTEP_TOL[dtype]
+    kw = dict(use_hessian=use_hessian, eps=eps, learning_rate=1e-3, da_bound=5.0,
+              db_bound=5.0)
+    n = torch.sum(mask)
+    noise_prev = torch.full((y.shape[2],), 0.5, dtype=dtype, device=y.device)
+    plain = om._mstep_stats_plain(y, x, mask, mu, v, a, b, use_hessian)
+    got = om.mstep_stats(y, x, mask, mu, v, a, b, use_hessian)
+    worst = worst_it = 0.0
+    names = ("s1", "s2", "C1", "C2", "grad_b", "E1", "E2", "E3", "nhess_b")
+    for name, g, p in zip(names, got, plain):
+        d, same = _rel(g, p)
+        if d > tol or not same:
+            raise AssertionError(f"6c mstep_stats {tag}: {name} {d:.2e} from the plain version "
+                                 f"(tolerance {tol:.0e}), NaNs in the same places: {same}")
+        worst = max(worst, d)
+    ref_u = om._mstep_update_plain(plain, n, a, b, noise_prev, active, **kw)
+    got_u = om.mstep_update(plain, n, a, b, noise_prev, active, **kw)
+    outs = ("a", "b", "noise", "da", "db")
+    for name, g, p in zip(outs, got_u, ref_u):
+        d, same = _rel(g, p)
+        if d > tol or not same:
+            raise AssertionError(f"6c mstep_update {tag}: {name} {d:.2e} from the plain "
+                                 f"version (tolerance {tol:.0e}), NaNs alike: {same}")
+        worst = max(worst, d)
+    # the whole iteration, both routes of the kernels, twice
+    one = om.mstep_update(om.mstep_stats(y, x, mask, mu, v, a, b, use_hessian, partial=True),
+                          n, a, b, noise_prev, active, **kw)
+    two = om.mstep_update(got, n, a, b, noise_prev, active, **kw)
+    again = om.mstep_update(om.mstep_stats(y, x, mask, mu, v, a, b, use_hessian, partial=True),
+                            n, a, b, noise_prev, active, **kw)
+    itol = MSTEP_ITER_TOL[dtype]
+    for name, g1, g2, g3, p in zip(outs, one, two, again, ref_u):
+        if not (same_bits(g1, g2) and same_bits(g1, g3)):
+            raise AssertionError(f"6c mstep {tag}: {name} differs between the two routes or "
+                                 f"two calls")
+        d, _ = _rel(g1, p)
+        if d > itol:
+            raise AssertionError(f"6c mstep iteration {tag}: {name} {d:.2e} from the plain "
+                                 f"version (tolerance {itol:.0e})")
+        worst_it = max(worst_it, d)
+    if active is not None:
+        off = ~active
+        for name, g, carried in (("a", one[0], a), ("b", one[1], b),
+                                 ("noise", one[2], noise_prev)):
+            if not torch.equal(g[..., off], carried[..., off]):
+                raise AssertionError(f"6c mstep {tag}: an inert channel's {name} moved")
+        if bool(one[3][:, off].any()) or bool(one[4][:, off].any()):
+            raise AssertionError(f"6c mstep {tag}: an inert channel's da or db is not 0")
+    log(f"  mstep {tag} {str(dtype)[6:]}: statistics and update worst {worst:.2e} relative "
+        f"(tolerance {tol:.0e}), whole iteration {worst_it:.2e} ({itol:.0e}); routes and "
+        f"repeat bit for bit")
+    return max(worst, worst_it)
+
+
+def check_mstep(device, gen, result):
+    """6c, first part: mstep_stats and mstep_update at the flagship shape
+    from phase 8's fit (Z5 S2000 T50 Y100 X1), at X3 (history 2), Z1, Z12, a
+    ragged mask, an inert channel, the gradient mode and a NaN in one
+    channel's y, in float32 and float64; times the flagship.  Returns (worst
+    gap, stats ms, stats plain ms, update ms, update plain ms, their bounds
+    and what binds them)."""
+    from vlgp_tpu_torch.ops import mstep as om
+
+    seg, params, cfg = fit_segments(result)
+    flagship = [seg.y, seg.x, seg.mask, seg.mu, seg.v, params.a, params.b]
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        base = [t.to(dtype) for t in flagship]
+        worst = max(worst, mstep_compare("flagship Z5 S2000 T50 Y100 X1 (fit state)", base))
+        for tag, shape, kw in (("X3 (history 2) Z5 S200 T50 Y40", (200, 50, 40, 5, 3), {}),
+                               ("Z1 S300 T50 Y30", (300, 50, 30, 1, 1), {}),
+                               ("Z12 S200 T50 Y30 X2", (200, 50, 30, 12, 2), {}),
+                               ("ragged mask Z5 S300 T50 Y37", (300, 50, 37, 5, 1),
+                                dict(ragged=True))):
+            args = mstep_case(*shape, dtype, device, gen, **kw)
+            worst = max(worst, mstep_compare(tag, args))
+        args = mstep_case(300, 50, 37, 5, 2, dtype, device, gen)
+        active = torch.ones(37, dtype=torch.bool, device=device)
+        active[[3, 36]] = False
+        worst = max(worst, mstep_compare("inert channels 3, 36", args, active=active))
+        worst = max(worst, mstep_compare("use_hessian=False", args, use_hessian=False))
+        args[0] = args[0].clone()
+        args[0][7, 11, 5] = float("nan")
+        worst = max(worst, mstep_compare("NaN in channel 5's y", args))
+        got = om.mstep_update(om.mstep_stats(*args, partial=True), torch.sum(args[2]),
+                              args[5], args[6], torch.ones(37, dtype=dtype, device=device))
+        bad = torch.isnan(got[0]).any(0) | torch.isnan(got[2])
+        if not bool(bad[5]) or bool(bad[torch.arange(37, device=device) != 5].any()):
+            raise AssertionError("6c mstep: the NaN in channel 5's y did not stay in channel 5")
+    # time the flagship, float32
+    y, x, mask, mu, v, a, b = flagship
+    n = torch.sum(mask)
+    noise = params.noise
+    part = om.mstep_stats(y, x, mask, mu, v, a, b, partial=True)
+    s_ms = time_ms(lambda: om.mstep_stats(y, x, mask, mu, v, a, b, partial=True))
+    s_pms = time_ms(lambda: om._mstep_stats_plain(y, x, mask, mu, v, a, b, True))
+    # the update takes less device time than its launch costs the host:
+    # both versions timed as replays of a captured call
+    u_ms = graph_ms(lambda: om.mstep_update(part, n, a, b, noise))
+    plain = om._mstep_stats_plain(y, x, mask, mu, v, a, b, True)
+    u_pms = graph_ms(lambda: om._mstep_update_plain(plain, n, a, b, noise, None, True, 1e-8,
+                                                    1.0, 5.0, 5.0))
+    S, T, Y = y.shape
+    Z, X = a.shape[0], b.shape[0]
+    ne = 2 + 2 * Z + X + Z * (Z + 1) + Z * Z + X * (X + 1) // 2
+    # bytes: y, x, mask, mu, v, a, b read once, the statistics written once;
+    # FMAs: eta, the variance term and the regressors, one per statistic
+    s_bms, s_by = bound(S * T * Y * (2 * Z + X + ne),
+                        4 * (S * T * Y * (1 + X) + S * T * (1 + 2 * Z) + (Z + X) * Y + Y * ne))
+    u_bms, u_by = bound(Y * (Z ** 3 // 3 + X ** 3 // 3 + 4 * Z * Z),
+                        4 * (Y * ne + 2 * (Z + X) * Y + 2 * (Z + X) * Y + 2 * Y))
+    log(f"  mstep_stats Z{Z} S{S} T{T} Y{Y} X{X} float32: kernel {fmt_ms(s_ms)} "
+        f"({part.part.shape[0]} chunks), plain {fmt_ms(s_pms)}, bound {s_bms:.4f} ms ({s_by})")
+    log(f"  mstep_update Z{Z} Y{Y} X{X} float32 (prologue reduces the partials), graph "
+        f"replays: kernel {fmt_ms(u_ms)}, plain {fmt_ms(u_pms)}, bound {u_bms:.2e} ms ({u_by})")
+    return worst, s_ms, s_pms, s_bms, s_by, u_ms, u_pms, u_bms, u_by
+
+
+def record_hstep_search(seg, params, cfg):
+    """The arguments of the hstep_search calls of one H-step on the fit's
+    segments (models/gp.py:hstep with a recorder in place of the search)."""
+    from vlgp_tpu_torch.models import gp
+
+    calls = []
+    real = gp.hstep_search
+
+    def recorder(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    gp.hstep_search = recorder
+    try:
+        gp.hstep(seg, params, cfg, rank=40)
+    finally:
+        gp.hstep_search = real
+    return calls
+
+
+def hstep_compare(tag, args, kw):
+    """One search, kernel against plain (HSTEP_FTOL above); both kernel
+    calls equal bit for bit.  Returns (max |dx| / (hi - lo), the largest
+    float64 objective gap relative to |f64|)."""
+    from vlgp_tpu_torch.ops import golden as og
+
+    C, nseg, sigsq, gp_noise, dt, lo, hi, iters = args
+    dtype = C.dtype
+    x_k = og.hstep_search(*args, **kw)
+    x_p = og._hstep_search_plain(*args, kw["polish"], kw["grid"], kw["tiebreak"],
+                                 kw["profile_sigma"])
+    if not torch.equal(og.hstep_search(*args, **kw), x_k):
+        raise AssertionError(f"6c hstep_search {tag}: two calls differ")
+    if not torch.equal(torch.isnan(x_k), torch.isnan(x_p)):
+        raise AssertionError(f"6c hstep_search {tag}: NaN x differ: {x_k} vs {x_p}")
+    f = og._objective(C, nseg, sigsq, gp_noise, dt, kw["profile_sigma"])
+    d64 = dict(dtype=torch.float64)
+    f64 = og._objective(C.to(**d64), nseg.to(**d64), sigsq.to(**d64), gp_noise, dt,
+                        kw["profile_sigma"])
+    grid = kw["grid"]
+    frac = torch.arange(max(grid, 1), dtype=dtype, device=C.device) / max(grid - 1, 1)
+    cand = lo[None] + frac[:, None] * (hi - lo)[None]
+    pts = torch.cat([cand, x_k[None], x_p[None]])
+    noise = torch.nan_to_num((f(pts).double() - f64(pts.double())).abs(), nan=0.0).amax(0)
+    fk, fp = f64(x_k.double()), f64(x_p.double())
+    fin = torch.isfinite(fp)
+    tol = 2 * noise + HSTEP_FTOL[dtype] * fp.abs()
+    if bool((torch.isfinite(fk) != fin).any()) or bool(((fk - fp)[fin] > tol[fin]).any()):
+        raise AssertionError(f"6c hstep_search {tag}: f64(x_kernel) - f64(x_plain) "
+                             f"{(fk - fp).tolist()} above 2 noise + tolerance {tol.tolist()}; "
+                             f"x {x_k.tolist()} vs {x_p.tolist()}")
+    gap = float(((fk - fp)[fin] / fp[fin].abs()).max()) if bool(fin.any()) else 0.0
+    cells = 0
+    if grid >= 3:
+        fc = torch.nan_to_num(f64(cand.double()), nan=float("inf"))
+        fmin = fc.amin(0)
+        thr = fmin + kw["tiebreak"] * fmin.abs()
+        best = torch.argmax((fc <= thr).to(torch.int8), dim=0)
+        margin = 2 * noise + HSTEP_FTOL[dtype] * fmin.abs()
+        apart = ((fc - thr).abs() > margin).all(0) & torch.isfinite(fmin)
+        step = (hi - lo) / (grid - 1)
+        lo_b = cand.gather(0, (best - 1).clamp(min=0)[None])[0] - 1e-6 * step
+        hi_b = cand.gather(0, (best + 1).clamp(max=grid - 1)[None])[0] + 1e-6 * step
+        inside = (x_k >= lo_b) & (x_k <= hi_b)
+        if bool((apart & ~inside).any()):
+            raise AssertionError(f"6c hstep_search {tag}: another grid cell than the plain "
+                                 f"rule's ({x_k.tolist()} vs {x_p.tolist()})")
+        cells = int(apart.sum())
+    span = (hi - lo).abs().clamp_min(1e-30)
+    dx = float(torch.nan_to_num((x_k - x_p).abs() / span).max())
+    rel_noise = float((noise / fp.abs().clamp_min(1e-30))[fin].max()) if bool(fin.any()) else 0.0
+    log(f"  hstep_search {tag} {str(dtype)[6:]}: max |dx| {dx:.2e} of the box, f64 gap "
+        f"{gap:.2e} relative (objective noise {rel_noise:.1e}, HSTEP_FTOL "
+        f"{HSTEP_FTOL[dtype]:.0e}), same grid cell in {cells} determined latents, repeat bit "
+        f"for bit")
+    return dx, gap
+
+
+def gp_statistic(Z, T, nseg, dtype, device, gen):
+    """A C like the H-step's: nseg times the covariance of SE draws at each
+    latent's omega plus a posterior term."""
+    t = torch.arange(T, dtype=torch.float64, device=device)
+    dsq = (t[:, None] - t[None]) ** 2
+    om = torch.exp(torch.empty(Z, dtype=torch.float64, device=device).uniform_(
+        -6.0, -1.0, generator=gen))
+    K = torch.exp(-om[:, None, None] * dsq) + 1e-3 * torch.eye(T, dtype=torch.float64,
+                                                               device=device)
+    L = torch.linalg.cholesky(K)
+    draws = L @ torch.randn((Z, T, 64), dtype=torch.float64, device=device, generator=gen)
+    C = nseg * (draws @ draws.mT / 64 + 0.05 * K)
+    return C.to(dtype)
+
+
+def check_hstep(device, gen, result):
+    """6c, second part: hstep_search against its plain version on the
+    flagship C (Z5 T50) recorded from one H-step on phase 8's fit, with and
+    without polish and the profiled sigma, then at T = 1, 17, 128 and 200
+    (above the float32 shared-memory limit, T 138; float64 goes to global
+    scratch from T = 98), a C whose candidates fail Cholesky at the smooth end of
+    the box (gp_noise -1e-3), and an all-NaN column, in float32 and float64; times the
+    flagship search.  Returns (worst objective gap, kernel ms, plain ms,
+    bound ms, what binds, evaluations per search)."""
+    from vlgp_tpu_torch.ops import golden as og
+
+    seg, params, cfg = fit_segments(result)
+    calls = record_hstep_search(seg, params, cfg)
+    args0, kw0 = calls[-1]
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        args = [a.to(dtype) if torch.is_tensor(a) else a for a in args0]
+        for polish in (False, True):
+            for profile in (True, False):
+                kw = dict(kw0, polish=polish, profile_sigma=profile)
+                worst = max(worst, hstep_compare(
+                    f"flagship C Z5 T50 (fit state), polish {polish}, profiled sigma {profile}",
+                    args, kw)[1])
+        C, nseg, sigsq, gp_noise, dt, lo, hi, iters = args
+        for T in (1, 17, 128, 200):
+            Cs = gp_statistic(3, T, 100.0, dtype, device, gen)
+            a = [Cs, nseg.new_tensor(100.0), sigsq[:3], gp_noise, dt, lo[:3], hi[:3], iters]
+            worst = max(worst, hstep_compare(f"Z3 T{T}", a, dict(kw0, polish=True))[1])
+        # gp_noise -1e-3: the smooth candidates' kernels (omega below ~e^-1)
+        # have eigenvalues under 1e-3 and fail Cholesky, the rough ones not
+        Cs = gp_statistic(3, 50, 100.0, dtype, device, gen)
+        lo_s = torch.full((3,), -6.0, dtype=dtype, device=device)
+        hi_s = torch.full((3,), 2.0, dtype=dtype, device=device)
+        a = [Cs, nseg.new_tensor(100.0), sigsq[:3], -1e-3, dt, lo_s, hi_s, iters]
+        fcand = og._objective(Cs, a[1], a[2], -1e-3, dt, True)(
+            lo_s[None] + torch.linspace(0, 1, kw0["grid"], dtype=dtype, device=device)[:, None]
+            * (hi_s - lo_s)[None])
+        nbad = int(torch.isnan(fcand).sum())
+        if nbad == 0 or bool(torch.isnan(fcand).all()):
+            raise AssertionError(f"6c hstep_search: the failing-Cholesky case has {nbad} NaN "
+                                 f"candidates of {fcand.numel()}")
+        worst = max(worst, hstep_compare(f"Cholesky failing at {nbad} smooth candidates", a,
+                                         dict(kw0))[1])
+        Cn = gp_statistic(3, 50, 100.0, dtype, device, gen)
+        Cn[1] = float("nan")
+        a = [Cn, nseg.new_tensor(100.0), sigsq[:3], gp_noise, dt, lo[:3], hi[:3], iters]
+        x_k = og.hstep_search(*a, **kw0)
+        if float(x_k[1]) != float(lo[1]):
+            raise AssertionError(f"6c hstep_search: the all-NaN latent gave {float(x_k[1])}, "
+                                 f"not lo {float(lo[1])}")
+        worst = max(worst, hstep_compare("all-NaN column (latent 1)", a, kw0)[1])
+    args = [a.to(torch.float32) if torch.is_tensor(a) else a for a in args0]
+    ms = time_ms(lambda: og.hstep_search(*args, **kw0))
+    pms = time_ms(lambda: og._hstep_search_plain(*args, kw0["polish"], kw0["grid"],
+                                                 kw0["tiebreak"], kw0["profile_sigma"]))
+    C = args[0]
+    Z, T = C.shape[0], C.shape[1]
+    evals = kw0["grid"] + 2 + args[7] + int(kw0["polish"])
+    # per evaluation: the Cholesky (T^3/6 FMAs) and L^-1 [C | I] (2 T^3/3);
+    # C read once, x written once
+    b_ms, b_by = bound(Z * evals * 5 * T ** 3 // 6, 4 * (Z * T * T + 5 * Z))
+    log(f"  hstep_search flagship Z{Z} T{T} float32, {evals} evaluations (a chain of "
+        f"{evals * T} dependent column steps): kernel {fmt_ms(ms)}, plain {fmt_ms(pms)}, "
+        f"bound {b_ms:.2e} ms ({b_by})")
+    return worst, ms, pms, b_ms, b_by, evals
+
+
 def make_workload(seed=0, ntrial=NTRIAL, a=None, length=LENGTH, ydim=YDIM):
     """bench.py's flagship workload (seed 0): (trials, loading, true
     latents).  Another seed with the flagship's loading `a` gives fresh
@@ -1247,6 +1647,9 @@ def run_fit(fused, **fit_kw):
     if fallbacks["gram_exact"] > EXACT_SHARE_MAX * calls["gram"]:
         raise AssertionError(f"{tag}: exact-Cholesky net took {fallbacks['gram_exact']} of "
                              f"{calls['gram']} ns_gram route calls")
+    for name in ("mstep_stats", "mstep_update", "hstep_search"):
+        if launches[name] == 0:
+            raise AssertionError(f"{tag} never launched {name}")
     if fused:
         if launches["sweep"] == 0:
             raise AssertionError("the fused-sweep fit never launched sweep")
@@ -2257,7 +2660,65 @@ def trace_fit(fn):
     last = max(x[1] for x in dev + host)
     whole = stats(first, last + 1)
     whole.pop("top_kernels_ms")
-    return out, dict(wall_s=wall, fit=whole, em_loop=stats(lo, hi))
+    st = dict(wall_s=wall, fit=whole, em_loop=stats(lo, hi))
+    if not graph:
+        st["regions"] = split_by_region(prof.profiler.kineto_results.events())
+    return out, st
+
+
+# the EM loop's regions (models/driver.py, models/gp.py); a kernel goes to
+# every region whose host span holds the runtime call that launched it
+TRACE_REGIONS = ("vlgp:estep", "vlgp:mstep", "vlgp:hstep", "vlgp:hstep_stat",
+                 "vlgp:hstep_search")
+
+
+def split_by_region(events):
+    """The device kernels of an eager trace split by TRACE_REGIONS: for each
+    region its kernels, their busy time (the union of their intervals) and
+    the five kernel classes that took the most device time.  A kernel is
+    tied to its launch call by Kineto's correlation id, and the launch call's
+    start to the regions' host spans; kernels whose launch call was not
+    found are counted apart."""
+    import bisect
+
+    spans = {name: [] for name in TRACE_REGIONS}
+    launch_at = {}
+    kernels = []
+    for e in events:
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not (e.is_user_annotation() or name.startswith(("vlgp:", "Memcpy", "Memset"))):
+                kernels.append((e.start_ns(), e.start_ns() + e.duration_ns(), name,
+                                e.correlation_id()))
+        elif name in spans:
+            spans[name].append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif name.startswith(("cuda", "cu")) and e.correlation_id():
+            launch_at[e.correlation_id()] = e.start_ns()
+    for v in spans.values():
+        v.sort()
+    out = {}
+    lost = 0
+    per = {name: [] for name in TRACE_REGIONS}
+    for k in kernels:
+        t = launch_at.get(k[3])
+        if t is None:
+            lost += 1
+            continue
+        for name, v in spans.items():
+            i = bisect.bisect_right(v, (t, float("inf"))) - 1
+            if i >= 0 and v[i][0] <= t < v[i][1]:
+                per[name].append(k)
+    for name, ks in per.items():
+        by_name = collections.Counter()
+        calls = collections.Counter()
+        for a, b, kname, _ in ks:
+            by_name[kname] += b - a
+            calls[kname] += 1
+        out[name] = dict(kernels=len(ks), busy_s=_union_s([(a, b) for a, b, _, _ in ks]),
+                         top5=[(n[:60], calls[n], round(t * 1e-6, 2))
+                               for n, t in by_name.most_common(5)])
+    out["unattributed_kernels"] = lost
+    return out
 
 
 def graph_fit(recorder=None, **fit_kw):
@@ -2667,6 +3128,14 @@ def main():
         f"sweep_core {fused[2]['sweep_core']}")
     if gap > R2_FUSED_GAP:
         raise AssertionError(f"fused-sweep fit R^2 differs from the default fit's by {gap:.4f}")
+    # 6c, the M-step's and the H-step's kernels on the last default fit's
+    # state (so they come after phase 8)
+    tic = time.perf_counter()
+    log(f"6c mstep_stats / mstep_update against their plain versions [{card}]:")
+    ms_out = check_mstep(device, seeded(), fits[3][6])
+    log(f"6c hstep_search against its plain version [{card}]:")
+    hs_out = check_hstep(device, seeded(), fits[3][6])
+    log(f"6c: {time.perf_counter() - tic:.1f} s")
     run_transform(fits[3][6])
     n_solve = run_spd_solve(device, seeded())
     n_probe = run_fused_probe(device, seeded())
@@ -2735,6 +3204,26 @@ def main():
          "replaces": "vlgp_tpu/simulation.py:107", "launches": n_lorenz,
          "max_abs_err": lz_err, "ms": lz_ms[0], "plain_ms": lz_pms,
          "bound_ms": lz_bms, "bound_by": lz_by, "library_ms": None},
+    ]
+    # the M-step's and H-step's kernels (6c): launches of phase 8's first
+    # default fit; max_abs_err is the largest gap relative to each tensor's
+    # largest |value| (mstep) and the largest objective gap (hstep_search)
+    m_err, s_ms, s_pms, s_bms, s_by, u_ms, u_pms, u_bms, u_by = ms_out
+    h_err, h_ms, h_pms, h_bms, h_by, h_evals = hs_out
+    kernels += [
+        {"name": f"mstep_stats (Z{ZDIM} S2000 T50 Y{YDIM} X1, partial sums)", "route": "cuda",
+         "source": "vlgp_tpu_torch/csrc/mstep.cu", "replaces": "vlgp_tpu/models/vlgp.py:374",
+         "launches": default[0]["mstep_stats"], "max_abs_err": m_err, "ms": s_ms[0],
+         "plain_ms": s_pms[0], "bound_ms": s_bms, "bound_by": s_by, "library_ms": None},
+        {"name": f"mstep_update (Z{ZDIM} Y{YDIM} X1, prologue reduces the partials)",
+         "route": "cuda", "source": "vlgp_tpu_torch/csrc/mstep.cu",
+         "replaces": "vlgp_tpu/models/vlgp.py:374", "launches": default[0]["mstep_update"],
+         "max_abs_err": m_err, "ms": u_ms[0], "plain_ms": u_pms[0], "bound_ms": u_bms,
+         "bound_by": u_by, "library_ms": None},
+        {"name": f"hstep_search (Z{ZDIM} T50, {h_evals} chained evaluations)", "route": "cuda",
+         "source": "vlgp_tpu_torch/csrc/hstep.cu", "replaces": "vlgp_tpu/models/gp.py:255",
+         "launches": default[0]["hstep_search"], "max_abs_err": h_err, "ms": h_ms[0],
+         "plain_ms": h_pms[0], "bound_ms": h_bms, "bound_by": h_by, "library_ms": None},
     ]
     # the kernels at the shapes of a leave_one_neuron_out chunk, launches of
     # 9c's run at the default batch

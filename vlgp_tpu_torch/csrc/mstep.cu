@@ -1,0 +1,734 @@
+// One Newton iteration of the M-step's Poisson update, for Hopper, in two
+// launches: the counterpart of the Poisson branch of `iteration` in
+// vlgp_tpu/models/vlgp.py:mstep (:374-497), which has no Pallas kernel (XLA
+// fuses its einsums and reductions inside one lax.while_loop).  The port's
+// plain version (vlgp_tpu_torch/ops/mstep.py) runs it as ~80-100 torch
+// launches, 15-20 of them full passes over (S, T, Y) tensors.
+//
+// mstep_stats_kernel: one pass over the data.  For each row n = (s, t) and
+// channel c it forms
+//
+//   eta = sum_z mu[n, z] a[z, c] + sum_q x[n, q, c] b[q, c],
+//   r   = exp(min(eta + sum_z v[n, z] (0.5 a[z, c]) a[z, c], 10)),
+//
+// and adds, per channel, the noise sums s1 = sum m (y - eta), s2 = sum m
+// (y - eta)^2, C1[z] = sum mu m (y - r), C2[z] = sum v m r, grad_b[q] = sum
+// x (y m - r m) and, with the Hessian, E1[z, k] = sum r m mu_z mu_k, E2[z,
+// k] = sum r m v_z mu_k, E3[z, k] = sum r m v_z v_k and nhess_b[q, p] =
+// sum x_q r m x_p, with today's masking (a NaN in y stays in its channel;
+// a NaN at a masked bin still poisons the sums that multiply y by the
+// mask, as the einsums do).  E1, E3 and nhess_b are symmetric and summed
+// on their upper triangles.  The entries of a channel are packed:
+//
+//   s1, s2 | C1 (Z) | C2 (Z) | grad_b (X) | E1 (Z(Z+1)/2) | E2 (Z^2) |
+//   E3 (Z(Z+1)/2) | nhess_b (X(X+1)/2)          (the last four with hessian)
+//
+// A block owns a chunk of rows and up to NT channels (a lane per channel);
+// its accumulators sit in shared memory, acc[e][lane], each updated once
+// per batch of RB rows with RB FMAs in two chains (even and odd rows), the
+// per-row factors (mu, v, mu m, v m) read as broadcasts.  Where a
+// channel's entries do not fit in shared memory (large Z in float64) they
+// are split in slabs over gridDim.z.  The
+// block writes its partial sums to part (C, Y, NE): no atomics, so every
+// run gives the same bits.
+//
+// The partials are reduced over the C chunks in a fixed order by one
+// device routine (reduce_channel: chunk c goes to group c mod G, each group
+// summed in chunk order, the groups added in order), run either as
+// mstep_update's prologue (one device, no all-reduce) or by
+// mstep_reduce_kernel, which writes the tensors in today's layouts for the
+// all-reduce of a data-sharded fit.  Both give the same bits, so a world of
+// one repeats the unsharded fit bit for bit.
+//
+// mstep_update_kernel: a block per channel reduces (or gathers) its
+// entries, forms noise = s2/n - (s1/n)^2, grad_a = C1 - a C2, the Hessian
+// E1 + a_z E2 + a_k E2' + a_z a_k E3 + diag(C2) + eps I (nhess_b + eps I
+// for b), solves both by Gaussian elimination with partial pivoting (a zero
+// or NaN pivot gives NaN, as torch.linalg.solve_ex and jnp.linalg.solve
+// do) or takes learning_rate * grad in gradient mode, clamps to
+// da_bound / db_bound, and writes a + da, b + db, noise, da and db.  An
+// inert channel (active[c] == 0) keeps its a, b and noise with da = db = 0
+// exactly.
+//
+// What bounds it on this card.  At the flagship (Z5 X1 S2000 T50 Y100) the
+// pass reads y and x (40 MB each), mu, v and the mask (4.4 MB): ~25 us at
+// 3.35 TB/s; its ~70 FMAs per (row, channel) take ~21 us at the FP32 rate.
+// The accumulators in shared memory cost a load and a store per entry and
+// batch of RB rows, and the factors one broadcast load per 4 (float32) or 2
+// (float64) rows: the latency of that shared-memory traffic, not DRAM, is
+// the limit of this design (0.26 ms on an H100, ~10x the byte bound, with
+// the loops over the latents unrolled for Z <= 8; 0.52 ms with one FMA
+// chain per entry and 256 chunks).  The update is ~Z^3 + X^3 operations
+// per channel; its time is the reduction's loads, ~16 us of device time
+// with 512 threads a channel (33 us with 128).
+
+#include <cmath>
+
+#include "ns_common.cuh"
+
+namespace {
+
+constexpr int NT = 128;              // threads per block of the pass over the data
+constexpr int NTU = 512;             // threads per block of the reduction and the update
+constexpr int SMEM_MAX = 232448;     // dynamic shared memory a Hopper block may use
+constexpr int GMAX = 16;             // chunk groups of the fixed-order reduction
+constexpr int SG = 2048;             // values of the groups' partial sums in shared memory
+constexpr int ZMAX = 128;
+constexpr int XMAX = 128;
+
+template <typename T>
+struct RowBatch;
+template <>
+struct RowBatch<float> {
+  static constexpr int RB = 8;
+};
+template <>
+struct RowBatch<double> {
+  static constexpr int RB = 4;
+};
+
+__host__ __device__ inline int tri(int n) { return n * (n + 1) / 2; }
+
+struct Layout {
+  int Z, X, hess;
+  int c1, c2, gb, e1, e2, e3, nh, ne;
+  __host__ __device__ Layout(int Z_, int X_, int hess_) : Z(Z_), X(X_), hess(hess_) {
+    c1 = 2;
+    c2 = c1 + Z;
+    gb = c2 + Z;
+    e1 = gb + X;
+    e2 = e1 + (hess ? tri(Z) : 0);
+    e3 = e2 + (hess ? Z * Z : 0);
+    nh = e3 + (hess ? tri(Z) : 0);
+    ne = nh + (hess ? tri(X) : 0);
+  }
+};
+
+// (i, j), i <= j, of index p of the packed upper triangle of an n x n
+// matrix stored by rows
+__device__ inline void untri(int p, int n, int& i, int& j) {
+  i = 0;
+  while (p >= n - i) {
+    p -= n - i;
+    ++i;
+  }
+  j = i + p;
+}
+
+__device__ inline int tri_index(int i, int j, int n) { return i * n - i * (i - 1) / 2 + (j - i); }
+
+// offset in today's layouts (the flat buffer of s1 (Y), s2 (Y), C1 (Z, Y),
+// C2 (Z, Y), grad_b (X, Y), E1, E2, E3 (Y, Z, Z), nhess_b (Y, X, X)) of
+// entry e of channel c; *mirror gets the offset of the symmetric twin of a
+// packed entry off the diagonal, else -1
+__device__ inline long long flat_offset(const Layout& L, int e, int c, int Y, long long* mirror) {
+  const long long Yl = Y, Z = L.Z, X = L.X;
+  *mirror = -1;
+  if (e < L.c1) return e * Yl + c;
+  if (e < L.c2) return 2 * Yl + (e - L.c1) * Yl + c;
+  if (e < L.gb) return 2 * Yl + Z * Yl + (e - L.c2) * Yl + c;
+  if (e < L.e1) return 2 * Yl + 2 * Z * Yl + (e - L.gb) * Yl + c;
+  const long long base1 = 2 * Yl + 2 * Z * Yl + X * Yl;
+  int i, j;
+  if (e < L.e2) {
+    untri(e - L.e1, L.Z, i, j);
+    if (i != j) *mirror = base1 + (c * Z + j) * Z + i;
+    return base1 + (c * Z + i) * Z + j;
+  }
+  const long long base2 = base1 + Yl * Z * Z;
+  if (e < L.e3) return base2 + c * Z * Z + (e - L.e2);
+  const long long base3 = base2 + Yl * Z * Z;
+  if (e < L.nh) {
+    untri(e - L.e3, L.Z, i, j);
+    if (i != j) *mirror = base3 + (c * Z + j) * Z + i;
+    return base3 + (c * Z + i) * Z + j;
+  }
+  const long long base4 = base3 + Yl * Z * Z;
+  untri(e - L.nh, L.X, i, j);
+  if (i != j) *mirror = base4 + (c * X + j) * X + i;
+  return base4 + (c * X + i) * X + j;
+}
+
+// ---------------------------------------------------------------------------
+// The pass over the data
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ T trunc_exp(T x) {
+  return exp(x > (T)10 ? (T)10 : x);  // NaN passes the test and stays NaN
+}
+
+template <typename T, int ZC>
+__global__ void __launch_bounds__(NT) mstep_stats_kernel(
+    const T* __restrict__ y, const T* __restrict__ x, const T* __restrict__ mask,
+    const T* __restrict__ mu, const T* __restrict__ v, const T* __restrict__ a,
+    const T* __restrict__ b, T* __restrict__ part, int N, int Y, int Z, int X, int hess,
+    int rows_per_chunk, int ecap) {
+  constexpr int RB = RowBatch<T>::RB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Layout L(Z, X, hess);
+  // ZC > 0: Z known at compile time (its loops unrolled, one slab)
+  const int Zk = ZC > 0 ? ZC : Z;
+  const int tid = threadIdx.x;
+  const int YS = NT + 1;  // row stride of acc: the final copy reads it down columns
+  T* acc = reinterpret_cast<T*>(smem_raw);          // ecap x YS
+  T* rowf = acc + (size_t)ecap * YS;                // 4Zk x RB: mu, v, mu m, v m
+  T* rowm = rowf + (size_t)4 * Zk * RB;              // RB: the mask
+  const int ch = blockIdx.x;
+  const int c = blockIdx.y * NT + tid;
+  const bool live = c < Y;
+  const int e0 = blockIdx.z * ecap;
+  const int e1 = min(L.ne, e0 + ecap);
+  for (int i = tid; i < (e1 - e0) * YS; i += NT) acc[i] = (T)0;
+  const int n_begin = ch * rows_per_chunk;
+  const int n_end = min(N, n_begin + rows_per_chunk);
+
+  for (int n0 = n_begin; n0 < n_end; n0 += RB) {
+    __syncthreads();  // the last batch's factors are read; acc is zeroed
+    for (int i = tid; i < 4 * Zk * RB; i += NT) {
+      const int f = i / RB, rb = i - f * RB, n = n0 + rb;
+      const int z = f % Zk, kind = f / Zk;
+      T val = (T)0;
+      if (n < n_end) {
+        const T src = kind == 0 || kind == 2 ? mu[(size_t)n * Zk + z] : v[(size_t)n * Zk + z];
+        val = kind < 2 ? src : src * mask[n];
+      }
+      rowf[i] = val;
+    }
+    if (tid < RB) rowm[tid] = n0 + tid < n_end ? mask[n0 + tid] : (T)0;
+    __syncthreads();
+    if (!live) continue;
+
+    // per-row scalars of this channel
+    T sres[RB], sres2[RB], ymr[RB], rr[RB], g[RB], rm[RB];
+    T eta[RB], ve[RB], yv[RB];
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb) {
+      const int n = n0 + rb;
+      yv[rb] = n < n_end ? y[(size_t)n * Y + c] : (T)0;
+      eta[rb] = (T)0;
+      ve[rb] = (T)0;
+    }
+    for (int z = 0; z < Zk; ++z) {
+      const T az = a[(size_t)z * Y + c];
+      const T haz = ((T)0.5 * az) * az;
+      const T* fm = rowf + (size_t)z * RB;
+      const T* fv = rowf + (size_t)(Zk + z) * RB;
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) {
+        eta[rb] = fma(fm[rb], az, eta[rb]);
+        ve[rb] = fma(fv[rb], haz, ve[rb]);
+      }
+    }
+    {
+      T xb[RB];
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) xb[rb] = (T)0;
+      for (int q = 0; q < X; ++q) {
+        const T bq = b[(size_t)q * Y + c];
+#pragma unroll
+        for (int rb = 0; rb < RB; ++rb) {
+          const int n = n0 + rb;
+          const T xq = n < n_end ? x[((size_t)n * X + q) * Y + c] : (T)0;
+          xb[rb] = fma(xq, bq, xb[rb]);
+        }
+      }
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) {
+        const bool in = n0 + rb < n_end;
+        const T m = rowm[rb];
+        const T e = eta[rb] + xb[rb];
+        const T res = yv[rb] - e;
+        const T r = trunc_exp(e + ve[rb]);
+        sres[rb] = in ? res * m : (T)0;
+        sres2[rb] = in ? (res * res) * m : (T)0;
+        ymr[rb] = in ? yv[rb] - r : (T)0;
+        rr[rb] = in ? r : (T)0;
+        g[rb] = in ? yv[rb] * m - r * m : (T)0;
+        rm[rb] = in ? r * m : (T)0;
+      }
+    }
+
+    T* my = acc + tid;
+    // acc[e] += sum over the batch of s[rb] f[rb], in row order
+    // acc[e] += the batch's sum of s[rb] f[rb]: even and odd rows in two
+    // chains (twice the FMAs in flight), added to acc in that order
+    auto upd = [&](int e, const T* s, const T* f) {
+      if (ZC == 0 && (e < e0 || e >= e1)) return;
+      T t0 = s[0] * f[0], t1 = s[1] * f[1];
+#pragma unroll
+      for (int rb = 2; rb < RB; rb += 2) {
+        t0 = fma(s[rb], f[rb], t0);
+        t1 = fma(s[rb + 1], f[rb + 1], t1);
+      }
+      my[(size_t)(e - e0) * YS] += t0 + t1;
+    };
+    auto add = [&](int e, const T* s) {
+      if (ZC == 0 && (e < e0 || e >= e1)) return;
+      T t0 = s[0], t1 = s[1];
+#pragma unroll
+      for (int rb = 2; rb < RB; rb += 2) {
+        t0 += s[rb];
+        t1 += s[rb + 1];
+      }
+      my[(size_t)(e - e0) * YS] += t0 + t1;
+    };
+    add(0, sres);
+    add(1, sres2);
+    for (int z = 0; z < Zk; ++z) {
+      T f[RB];
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) f[rb] = rowf[(size_t)(2 * Zk + z) * RB + rb];
+      upd(L.c1 + z, ymr, f);
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) f[rb] = rowf[(size_t)(3 * Zk + z) * RB + rb];
+      upd(L.c2 + z, rr, f);
+    }
+    for (int q = 0; q < X; ++q) {
+      T f[RB];
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) {
+        const int n = n0 + rb;
+        f[rb] = n < n_end ? x[((size_t)n * X + q) * Y + c] : (T)0;
+      }
+      upd(L.gb + q, g, f);
+    }
+    if (!hess) continue;
+    int e_1 = L.e1, e_2 = L.e2, e_3 = L.e3;
+    for (int z = 0; z < Zk; ++z) {
+      T pm[RB], pv[RB];
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) {
+        pm[rb] = rm[rb] * rowf[(size_t)z * RB + rb];
+        pv[rb] = rm[rb] * rowf[(size_t)(Zk + z) * RB + rb];
+      }
+      for (int k = 0; k < Zk; ++k) {
+        T fmu[RB], fv[RB];
+#pragma unroll
+        for (int rb = 0; rb < RB; ++rb) {
+          fmu[rb] = rowf[(size_t)k * RB + rb];
+          fv[rb] = rowf[(size_t)(Zk + k) * RB + rb];
+        }
+        if (k >= z) upd(e_1++, pm, fmu);
+        upd(e_2++, pv, fmu);
+        if (k >= z) upd(e_3++, pv, fv);
+      }
+    }
+    int e_4 = L.nh;
+    for (int q = 0; q < X; ++q) {
+      T pq[RB];
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) {
+        const int n = n0 + rb;
+        pq[rb] = rm[rb] * (n < n_end ? x[((size_t)n * X + q) * Y + c] : (T)0);
+      }
+      for (int p = q; p < X; ++p) {
+        T f[RB];
+#pragma unroll
+        for (int rb = 0; rb < RB; ++rb) {
+          const int n = n0 + rb;
+          f[rb] = n < n_end ? x[((size_t)n * X + p) * Y + c] : (T)0;
+        }
+        upd(e_4++, pq, f);
+      }
+    }
+  }
+  __syncthreads();
+  // partials of this block: part[ch][c][e], entries of a channel contiguous
+  const int nc = min(NT, Y - (int)blockIdx.y * NT);
+  const int ecnt = e1 - e0;
+  for (int i = tid; i < nc * ecnt; i += NT) {
+    const int yl = i / ecnt, el = i - yl * ecnt;
+    part[((size_t)ch * Y + (size_t)blockIdx.y * NT + yl) * L.ne + e0 + el] = acc[(size_t)el * YS + yl];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fixed-order reduction over chunks
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline int groups(int ne, int C) {
+  int G = SG / (ne > 0 ? ne : 1);
+  G = G < 1 ? 1 : (G > GMAX ? GMAX : G);
+  return G < C ? G : C;
+}
+
+// The reduced entries of channel c, into red[0 .. ne): chunk k goes to
+// group k mod G, each group summed in chunk order from its first chunk,
+// the groups added in order.  sg holds G * ne <= SG values when G > 1.
+// Called by all NTU threads of the block; ends with a barrier.
+template <typename T>
+__device__ void reduce_channel(const T* __restrict__ part, int C, int Y, int ne, int c, T* sg,
+                               T* red) {
+  const int G = groups(ne, C);
+  for (int i = threadIdx.x; i < G * ne; i += NTU) {
+    const int gi = i / ne, e = i - gi * ne;
+    const T* p = part + (size_t)c * ne + e;
+    const size_t stride = (size_t)Y * ne;
+    T s = p[(size_t)gi * stride];
+    int k = gi + G;
+    // eight loads in flight, added in chunk order
+    for (; k + 7 * G < C; k += 8 * G) {
+      T v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = p[(size_t)(k + u * G) * stride];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s += v[u];
+    }
+    for (; k < C; k += G) s += p[(size_t)k * stride];
+    if (G == 1)
+      red[e] = s;
+    else
+      sg[i] = s;
+  }
+  __syncthreads();
+  if (G > 1) {
+    for (int e = threadIdx.x; e < ne; e += NTU) {
+      T s = sg[e];
+      for (int gi = 1; gi < G; ++gi) s += sg[(size_t)gi * ne + e];
+      red[e] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// the reduced entries written in today's layouts (the flat buffer of
+// flat_offset), symmetric entries on both sides of the diagonal
+template <typename T>
+__global__ void __launch_bounds__(NTU) mstep_reduce_kernel(const T* __restrict__ part, int C,
+                                                           T* __restrict__ flat, T* __restrict__ red,
+                                                           int Y, int Z, int X, int hess) {
+  __shared__ T sg[SG];
+  const Layout L(Z, X, hess);
+  const int c = blockIdx.x;
+  T* rc = red + (size_t)c * L.ne;
+  reduce_channel(part, C, Y, L.ne, c, sg, rc);
+  for (int e = threadIdx.x; e < L.ne; e += NTU) {
+    long long mirror;
+    const long long off = flat_offset(L, e, c, Y, &mirror);
+    flat[off] = rc[e];
+    if (mirror >= 0) flat[mirror] = rc[e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The update
+// ---------------------------------------------------------------------------
+
+// clamp to [-bound, bound]; NaN stays NaN
+template <typename T>
+__device__ __forceinline__ T clampb(T d, T bound) {
+  return d < -bound ? -bound : (d > bound ? bound : d);
+}
+
+// Solve the n x n system in M (n rows of stride n + 1, the right-hand side
+// in column n) by Gaussian elimination with partial pivoting (the first
+// row of largest magnitude), the solution into sol; a zero or NaN pivot
+// gives NaN.  All threads of the block; ends with a barrier.
+template <typename T>
+__device__ void solve_block(T* M, int n, T* lcol, int* piv, T* sol) {
+  const int ld = n + 1;
+  for (int k = 0; k < n; ++k) {
+    if (threadIdx.x == 0) {
+      int p = k;
+      T best = fabs(M[(size_t)k * ld + k]);
+      for (int i = k + 1; i < n; ++i) {
+        const T m = fabs(M[(size_t)i * ld + k]);
+        if (m > best) {
+          best = m;
+          p = i;
+        }
+      }
+      piv[0] = p;
+      if (!(best > (T)0)) piv[1] = 1;  // zero or NaN pivot: singular
+    }
+    __syncthreads();
+    const int p = piv[0];
+    if (p != k)
+      for (int j = k + threadIdx.x; j <= n; j += NTU) {
+        const T t = M[(size_t)k * ld + j];
+        M[(size_t)k * ld + j] = M[(size_t)p * ld + j];
+        M[(size_t)p * ld + j] = t;
+      }
+    __syncthreads();
+    const T d = M[(size_t)k * ld + k];
+    for (int i = k + 1 + threadIdx.x; i < n; i += NTU) lcol[i] = M[(size_t)i * ld + k] / d;
+    __syncthreads();
+    const int w = n - k;  // columns k+1 .. n
+    for (int idx = threadIdx.x; idx < (n - k - 1) * w; idx += NTU) {
+      const int i = k + 1 + idx / w, j = k + 1 + idx % w;
+      M[(size_t)i * ld + j] -= lcol[i] * M[(size_t)k * ld + j];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    const bool singular = piv[1] != 0;
+    for (int i = n - 1; i >= 0; --i) {
+      T s = M[(size_t)i * ld + n];
+      for (int j = i + 1; j < n; ++j) s -= M[(size_t)i * ld + j] * sol[j];
+      sol[i] = singular ? (T)NAN : s / M[(size_t)i * ld + i];
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTU) mstep_update_kernel(
+    const T* __restrict__ part, int C, const T* __restrict__ flat, T* __restrict__ red,
+    const T* __restrict__ n_ptr, const T* __restrict__ a, const T* __restrict__ b,
+    const T* __restrict__ noise_prev, const unsigned char* __restrict__ active,
+    T* __restrict__ a_new, T* __restrict__ b_new, T* __restrict__ noise, T* __restrict__ da,
+    T* __restrict__ db, int Y, int Z, int X, int hess, double eps_, double lr_, double da_bound_,
+    double db_bound_) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Layout L(Z, X, hess);
+  const int c = blockIdx.x;
+  const int n = Z > X ? Z : X;
+  T* M = reinterpret_cast<T*>(smem_raw);   // n x (n + 1)
+  T* lcol = M + (size_t)n * (n + 1);        // n
+  T* sol = lcol + n;                        // n
+  T* sg = sol + n;                          // SG
+  __shared__ int piv[2];
+  const T eps = (T)eps_, lr = (T)lr_, dab = (T)da_bound_, dbb = (T)db_bound_;
+  T* st = red + (size_t)c * L.ne;
+  if (part != nullptr) {
+    reduce_channel(part, C, Y, L.ne, c, sg, st);
+  } else {
+    for (int e = threadIdx.x; e < L.ne; e += NTU) {
+      long long mirror;
+      st[e] = flat[flat_offset(L, e, c, Y, &mirror)];
+    }
+    __syncthreads();
+  }
+  const bool act = active == nullptr || active[c] != 0;
+  if (threadIdx.x == 0) {
+    const T nn = n_ptr[0];
+    const T mean = st[0] / nn;
+    const T var = st[1] / nn - mean * mean;
+    noise[c] = act ? var : noise_prev[c];
+  }
+
+  // ---- the loading: grad_a = C1 - a C2 ----
+  if (hess) {
+    if (threadIdx.x == 0) piv[1] = 0;
+    for (int idx = threadIdx.x; idx < Z * Z; idx += NTU) {
+      const int z = idx / Z, k = idx - z * Z;
+      const T az = a[(size_t)z * Y + c], ak = a[(size_t)k * Y + c];
+      const int zl = z < k ? z : k, kh = z < k ? k : z;
+      T h = st[L.e1 + tri_index(zl, kh, Z)];
+      h = h + az * st[L.e2 + z * Z + k];
+      h = h + ak * st[L.e2 + k * Z + z];
+      h = h + (az * ak) * st[L.e3 + tri_index(zl, kh, Z)];
+      h = h + st[L.c2 + z] * (T)(z == k);
+      h = h + eps * (T)(z == k);
+      M[(size_t)z * (Z + 1) + k] = h;
+    }
+    for (int z = threadIdx.x; z < Z; z += NTU)
+      M[(size_t)z * (Z + 1) + Z] = st[L.c1 + z] - a[(size_t)z * Y + c] * st[L.c2 + z];
+    __syncthreads();
+    solve_block(M, Z, lcol, piv, sol);
+    for (int z = threadIdx.x; z < Z; z += NTU) {
+      const T az = a[(size_t)z * Y + c];
+      const T d = clampb(sol[z], dab);
+      a_new[(size_t)z * Y + c] = act ? az + d : az;
+      da[(size_t)z * Y + c] = act ? d : (T)0;
+    }
+    __syncthreads();
+    // ---- the regression: nhess_b + eps I ----
+    if (threadIdx.x == 0) piv[1] = 0;
+    for (int idx = threadIdx.x; idx < X * X; idx += NTU) {
+      const int q = idx / X, p = idx - q * X;
+      const int ql = q < p ? q : p, ph = q < p ? p : q;
+      M[(size_t)q * (X + 1) + p] = st[L.nh + tri_index(ql, ph, X)] + eps * (T)(q == p);
+    }
+    for (int q = threadIdx.x; q < X; q += NTU) M[(size_t)q * (X + 1) + X] = st[L.gb + q];
+    __syncthreads();
+    solve_block(M, X, lcol, piv, sol);
+    for (int q = threadIdx.x; q < X; q += NTU) {
+      const T bq = b[(size_t)q * Y + c];
+      const T d = clampb(sol[q], dbb);
+      b_new[(size_t)q * Y + c] = act ? bq + d : bq;
+      db[(size_t)q * Y + c] = act ? d : (T)0;
+    }
+  } else {
+    for (int z = threadIdx.x; z < Z; z += NTU) {
+      const T az = a[(size_t)z * Y + c];
+      const T d = clampb(lr * (st[L.c1 + z] - az * st[L.c2 + z]), dab);
+      a_new[(size_t)z * Y + c] = act ? az + d : az;
+      da[(size_t)z * Y + c] = act ? d : (T)0;
+    }
+    for (int q = threadIdx.x; q < X; q += NTU) {
+      const T bq = b[(size_t)q * Y + c];
+      const T d = clampb(lr * st[L.gb + q], dbb);
+      b_new[(size_t)q * Y + c] = act ? bq + d : bq;
+      db[(size_t)q * Y + c] = act ? d : (T)0;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch plans
+// ---------------------------------------------------------------------------
+
+// rows per chunk: about CHUNK_TARGET blocks over the card (four of 128
+// threads per SM of an H100), a whole number of row batches; a function of
+// the shape alone, so the bits are too
+constexpr int CHUNK_TARGET = 512;
+
+template <typename T>
+size_t stats_smem(int ecap, int Z) {
+  return ((size_t)ecap * (NT + 1) + (size_t)4 * Z * RowBatch<T>::RB + RowBatch<T>::RB) * sizeof(T);
+}
+
+template <typename T>
+int stats_plan(int N, int Y, int Z, int X, int hess, int* rows_per_chunk, int* chunks, int* ecap,
+               int* slabs) {
+  constexpr int RB = RowBatch<T>::RB;
+  const Layout L(Z, X, hess);
+  const int tiles = (Y + NT - 1) / NT;
+  int cap = L.ne;
+  while (cap > 1 && stats_smem<T>(cap, Z) > (size_t)SMEM_MAX) --cap;
+  *ecap = cap;
+  *slabs = (L.ne + cap - 1) / cap;
+  int want = CHUNK_TARGET / (tiles * *slabs);
+  want = want < 1 ? 1 : want;
+  int rpc = (N + want - 1) / want;
+  rpc = ((rpc + RB - 1) / RB) * RB;
+  *rows_per_chunk = rpc < RB ? RB : rpc;
+  *chunks = (N + *rows_per_chunk - 1) / *rows_per_chunk;
+  return L.ne;
+}
+
+#ifndef VLGP_MSTEP_GENERIC
+// the stats kernel with Z fixed at compile time, for Z <= ZC_MAX: 1.22x
+// (Z5) to 1.26x (Z8) faster than the run-time Z at the flagship's S2000
+// T50 Y100 X1 (tools/torch_mstep_ab.py, which builds the run-time copy with
+// -DVLGP_MSTEP_GENERIC)
+constexpr int ZC_MAX = 8;
+template <typename T>
+auto specialized(int Z) -> decltype(&mstep_stats_kernel<T, 1>) {
+  switch (Z) {
+    case 1: return mstep_stats_kernel<T, 1>;
+    case 2: return mstep_stats_kernel<T, 2>;
+    case 3: return mstep_stats_kernel<T, 3>;
+    case 4: return mstep_stats_kernel<T, 4>;
+    case 5: return mstep_stats_kernel<T, 5>;
+    case 6: return mstep_stats_kernel<T, 6>;
+    case 7: return mstep_stats_kernel<T, 7>;
+    default: return mstep_stats_kernel<T, 8>;
+  }
+}
+#endif
+
+template <typename T>
+cudaError_t launch_stats(const T* y, const T* x, const T* mask, const T* mu, const T* v,
+                         const T* a, const T* b, T* part, int N, int Y, int Z, int X, int hess,
+                         cudaStream_t st) {
+  int rpc, chunks, ecap, slabs;
+  stats_plan<T>(N, Y, Z, X, hess, &rpc, &chunks, &ecap, &slabs);
+  const size_t smem = stats_smem<T>(ecap, Z);
+  const dim3 grid(chunks, (Y + NT - 1) / NT, slabs);
+  auto kernel = mstep_stats_kernel<T, 0>;
+#ifndef VLGP_MSTEP_GENERIC
+  if (slabs == 1 && Z <= ZC_MAX) kernel = specialized<T>(Z);
+#endif
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NT, smem, st>>>(y, x, mask, mu, v, a, b, part, N, Y, Z, X, hess, rpc, ecap);
+  return cudaGetLastError();
+}
+
+template <typename T>
+size_t update_smem(int Z, int X) {
+  const int n = Z > X ? Z : X;
+  return ((size_t)n * (n + 1) + 2 * (size_t)n + SG) * sizeof(T);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The plan of a stats call: its chunks (the first dimension of part) and
+// the packed entries per channel (the last).
+int mstep_stats_plan(int N, int Y, int Z, int X, int hess, int is_double, int* chunks,
+                     int* entries) {
+  if (N < 1 || Y < 1 || Z < 1 || Z > ZMAX || X < 1 || X > XMAX) return (int)cudaErrorInvalidValue;
+  int rpc, ecap, slabs;
+  *entries = is_double ? stats_plan<double>(N, Y, Z, X, hess, &rpc, chunks, &ecap, &slabs)
+                       : stats_plan<float>(N, Y, Z, X, hess, &rpc, chunks, &ecap, &slabs);
+  return 0;
+}
+
+// y (N, Y), x (N, X, Y), mask (N,), mu and v (N, Z), a (Z, Y), b (X, Y),
+// part (chunks, Y, entries), all contiguous, float64 when is_double else
+// float32; N = S T rows.
+int mstep_stats(const void* y, const void* x, const void* mask, const void* mu, const void* v,
+                const void* a, const void* b, void* part, int N, int Y, int Z, int X, int hess,
+                int is_double, void* stream) {
+  if (N < 1 || Y < 1 || Z < 1 || Z > ZMAX || X < 1 || X > XMAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_double)
+    return (int)launch_stats((const double*)y, (const double*)x, (const double*)mask,
+                             (const double*)mu, (const double*)v, (const double*)a,
+                             (const double*)b, (double*)part, N, Y, Z, X, hess, st);
+  return (int)launch_stats((const float*)y, (const float*)x, (const float*)mask, (const float*)mu,
+                           (const float*)v, (const float*)a, (const float*)b, (float*)part, N, Y,
+                           Z, X, hess, st);
+}
+
+// part (chunks, Y, entries) reduced over the chunks into flat (today's
+// layouts) and red (Y, entries).
+int mstep_reduce(const void* part, int chunks, void* flat, void* red, int Y, int Z, int X,
+                 int hess, int is_double, void* stream) {
+  if (chunks < 1 || Y < 1 || Z < 1 || Z > ZMAX || X < 1 || X > XMAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_double)
+    mstep_reduce_kernel<double><<<Y, NTU, 0, st>>>((const double*)part, chunks, (double*)flat,
+                                                  (double*)red, Y, Z, X, hess);
+  else
+    mstep_reduce_kernel<float><<<Y, NTU, 0, st>>>((const float*)part, chunks, (float*)flat,
+                                                 (float*)red, Y, Z, X, hess);
+  return (int)cudaGetLastError();
+}
+
+// One update from part (chunks, Y, entries), reduced in the prologue, or
+// when part is NULL from flat (today's layouts, all-reduced); red (Y,
+// entries) is scratch; n a one-element tensor; active NULL or (Y,) bytes.
+int mstep_update(const void* part, int chunks, const void* flat, void* red, const void* n,
+                 const void* a, const void* b, const void* noise_prev, const void* active,
+                 void* a_new, void* b_new, void* noise, void* da, void* db, int Y, int Z, int X,
+                 int hess, double eps, double lr, double da_bound, double db_bound, int is_double,
+                 void* stream) {
+  if (Y < 1 || Z < 1 || Z > ZMAX || X < 1 || X > XMAX || (part == nullptr) == (flat == nullptr) ||
+      (part != nullptr && chunks < 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned char* act = (const unsigned char*)active;
+  cudaError_t err;
+  if (is_double) {
+    const size_t smem = update_smem<double>(Z, X);
+    err = cudaFuncSetAttribute(mstep_update_kernel<double>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mstep_update_kernel<double><<<Y, NTU, smem, st>>>(
+        (const double*)part, chunks, (const double*)flat, (double*)red, (const double*)n,
+        (const double*)a, (const double*)b, (const double*)noise_prev, act, (double*)a_new,
+        (double*)b_new, (double*)noise, (double*)da, (double*)db, Y, Z, X, hess, eps, lr,
+        da_bound, db_bound);
+  } else {
+    const size_t smem = update_smem<float>(Z, X);
+    err = cudaFuncSetAttribute(mstep_update_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mstep_update_kernel<float><<<Y, NTU, smem, st>>>(
+        (const float*)part, chunks, (const float*)flat, (float*)red, (const float*)n,
+        (const float*)a, (const float*)b, (const float*)noise_prev, act, (float*)a_new,
+        (float*)b_new, (float*)noise, (float*)da, (float*)db, Y, Z, X, hess, eps, lr, da_bound,
+        db_bound);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

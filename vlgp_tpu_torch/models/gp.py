@@ -15,8 +15,12 @@ import torch
 
 from ..config import Config, Params
 from ..data import TrialSet
+# _golden_min and gp_elbo_stats live in ops/golden.py (the search's plain
+# version) and keep their names here for this module's callers
+from ..ops.golden import _golden_min, gp_elbo_stats, hstep_search  # noqa: F401
 from ..ops.ichol import ichol_gauss, ichol_gauss_batch, nystrom_gauss_batch
 from ..ops.spd import inv_one_plus_gram
+from ..utils.profiling import annotate
 from .vlgp import Dist, _psum
 
 __all__ = [
@@ -86,83 +90,6 @@ def effective_rank(T: int, omega_hi: float, dt: float = 1.0,
     return max(8, r)
 
 
-def _golden_min(f, lo, hi, iters: int, polish: bool = False, grid: int = 0,
-                tiebreak: float = 1e-4):
-    """Fixed-iteration golden-section minimization on [lo, hi] per latent,
-    optionally preceded by a grid scan with a smooth-preferring tie-break
-    and followed by a parabolic polish (``vlgp_tpu/models/gp.py:174-281``).
-    f maps a (..., Z) tensor of arguments to objectives of the same shape."""
-    if grid >= 3:
-        frac = torch.arange(grid, dtype=lo.dtype, device=lo.device) / (grid - 1)
-        cand = lo[None] + frac[:, None] * (hi - lo)[None]  # (grid, Z)
-        fcand = f(cand)
-        # NaN candidates lose the comparison instead of poisoning it
-        bad = torch.isnan(fcand)
-        fcand = torch.where(bad, torch.inf, fcand)
-        fmin = fcand.amin(dim=0)
-        near = fcand <= fmin + tiebreak * fmin.abs()
-        best = torch.argmax(near.to(torch.int8), dim=0)  # first near-tied candidate
-        lo_idx = torch.clamp(best - 1, min=0)
-        lo_idx = torch.where(bad.gather(0, lo_idx[None])[0], best, lo_idx)
-        hi_idx = torch.clamp(best + 1, max=grid - 1)
-        hi_idx = torch.where(bad.gather(0, hi_idx[None])[0], best, hi_idx)
-        # an all-NaN column collapses onto the box edge (rejected as at-bound)
-        allbad = bad.all(dim=0)
-        lo_b = cand.gather(0, lo_idx[None])[0]
-        hi_b = cand.gather(0, hi_idx[None])[0]
-        lo, hi = torch.where(allbad, lo, lo_b), torch.where(allbad, lo, hi_b)
-    phi = 0.6180339887498949
-    c = hi - phi * (hi - lo)
-    d = lo + phi * (hi - lo)
-    fc, fd = f(c), f(d)
-    for _ in range(iters):
-        left = fc < fd
-        lo_n = torch.where(left, lo, c)
-        hi_n = torch.where(left, d, hi)
-        c_n = torch.where(left, hi_n - phi * (hi_n - lo_n), d)
-        d_n = torch.where(left, c, lo_n + phi * (hi_n - lo_n))
-        f_new = f(torch.where(left, c_n, d_n))
-        fc, fd = torch.where(left, f_new, fd), torch.where(left, fc, f_new)
-        lo, hi, c, d = lo_n, hi_n, c_n, d_n
-    mid = 0.5 * (lo + hi)
-    if not polish:
-        return mid
-    fm = f(mid)
-    # vertex of the parabola through (c, fc), (mid, fm), (d, fd)
-    num = (mid - c) ** 2 * (fm - fd) - (mid - d) ** 2 * (fm - fc)
-    den = (mid - c) * (fm - fd) - (mid - d) * (fm - fc)
-    safe = den.abs() > 1e-30
-    x_star = mid - 0.5 * torch.where(safe, num / torch.where(safe, den, 1.0), 0.0)
-    ok = safe & (x_star > lo) & (x_star < hi)
-    return torch.where(ok, x_star, mid)
-
-
-def gp_elbo_stats(log_omega, C, nseg, T: int, sigmasq, gp_noise, dt,
-                  profile_sigma: bool = False):
-    """GP-prior ELBO from the (T, T) statistic C = sum_i (mu_i mu_i' + S_i):
-    ll = -1/2 tr(K^-1 C) - nseg log|chol(K)|, one (T, T) Cholesky per
-    candidate; ``log_omega`` may carry leading batch dims.  With
-    ``profile_sigma`` the amplitude is maximized in closed form per
-    candidate, s* = clip(tr(K0^-1 C) / (nseg T), 1e-2, 1e2); returns
-    (ll*, s*).  A failed Cholesky gives NaN, as in the JAX package."""
-    om = torch.exp(log_omega)[..., None, None]
-    t = torch.arange(T, dtype=C.dtype, device=C.device) * dt
-    dsq = (t[:, None] - t[None, :]) ** 2
-    amp = 1.0 if profile_sigma else sigmasq
-    K = amp * torch.exp(-om * dsq) + gp_noise * torch.eye(T, dtype=C.dtype, device=C.device)
-    L, info = torch.linalg.cholesky_ex(K)
-    L = torch.where((info > 0)[..., None, None], torch.nan, L)
-    Cb = C.expand(K.shape)
-    half = torch.linalg.solve_triangular(L, Cb, upper=False)
-    KinvC = torch.linalg.solve_triangular(L.mT, half, upper=True)
-    logdet = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
-    tr = torch.diagonal(KinvC, dim1=-2, dim2=-1).sum(-1)
-    if not profile_sigma:
-        return -0.5 * tr - nseg * logdet
-    s = torch.clamp(tr / (nseg * T), 1e-2, 1e2)
-    return -0.5 * tr / s - nseg * (0.5 * T * torch.log(s) + logdet), s
-
-
 def _aitken_accept(x0, x1, x2, lo, hi, trust):
     """Aitken/Steffensen acceptance for the H-step fixed point: accept the
     extrapolation only on a genuine contraction, cap the jump at
@@ -222,54 +149,50 @@ def hstep(data: TrialSet, params: Params, config: Config, dist: Dist = Dist(),
 
     def F(log_om, warmX=None, warm_probe=True):
         # one fixed-point refinement: posterior statistic at the running
-        # omega, then a bounded search over the candidate kernel
-        G_om = _se_factor(T, torch.exp(log_om), rank, params.dt, dtype)
-        G_om = G_om.to(dtype) * params.sigma[:, None, None]
-        X = inv_one_plus_gram(G_om, wt2, iters=config.ns_iters + 2, warm=warmX,
-                              warm_iters=max(config.ns_warm_iters, 8),
-                              probe=warm_probe)
-        R = X.shape[-1]
-        Zs, S = wt2.shape[0], wt2.shape[1]
-        P = wt2[..., None] * G_om[:, None]  # (Z, S, T, R): diag(w~) G
-        Q = P @ X  # (Z, S, T, R)
-        vQ = valid[None, :, None, None] * Q
-        # sum_s Q_s P_s' as one (T, S R) x (S R, T) product per latent
-        sum_QP = vQ.permute(0, 2, 1, 3).reshape(Zs, T, S * R) @ \
-            P.permute(0, 2, 1, 3).reshape(Zs, T, S * R).mT
-        sum_X = torch.einsum("s,zsrq->zrq", valid, X)
-        sum_QA = torch.einsum("s,zstr->ztr", valid, P - Q)  # Q A = P - Q
-        sum_QP, sum_X, sum_QA = _psum((sum_QP, sum_X, sum_QA), dist, "data")
-        eyeR = torch.eye(R, dtype=dtype, device=device)
-        sum_AXA_mA = sum_X - nseg_total * eyeR  # A X A - A = X - I
-        KK = G_om @ G_om.mT
-        GM = G_om @ sum_AXA_mA
-        t_qa = sum_QA @ G_om.mT
-        SigSum = (
-            nseg_total * (KK + eps * eyeT)
-            - eps * eps * sum_w[:, :, None] * eyeT
-            - eps * (KK * sum_w[:, None, :] + sum_w[:, :, None] * KK)
-            + eps * eps * sum_QP
-            + eps * (t_qa + t_qa.mT)
-            + GM @ G_om.mT
-        )
-        C = Mbar + SigSum
-
-        def obj(log_omega):
-            if config.hyper_learn_sigma:
-                ll, _ = gp_elbo_stats(log_omega, C, nseg_total, T, sigsq,
-                                      params.gp_noise, params.dt, profile_sigma=True)
-                return -ll
-            return -gp_elbo_stats(log_omega, C, nseg_total, T, sigsq,
-                                  params.gp_noise, params.dt)
+        # omega, then a bounded search over the candidate kernel, each in a
+        # region of its own so that a trace splits the H-step between them
+        with annotate("vlgp:hstep_stat"):
+            G_om = _se_factor(T, torch.exp(log_om), rank, params.dt, dtype)
+            G_om = G_om.to(dtype) * params.sigma[:, None, None]
+            X = inv_one_plus_gram(G_om, wt2, iters=config.ns_iters + 2, warm=warmX,
+                                  warm_iters=max(config.ns_warm_iters, 8),
+                                  probe=warm_probe)
+            R = X.shape[-1]
+            Zs, S = wt2.shape[0], wt2.shape[1]
+            P = wt2[..., None] * G_om[:, None]  # (Z, S, T, R): diag(w~) G
+            Q = P @ X  # (Z, S, T, R)
+            vQ = valid[None, :, None, None] * Q
+            # sum_s Q_s P_s' as one (T, S R) x (S R, T) product per latent
+            sum_QP = vQ.permute(0, 2, 1, 3).reshape(Zs, T, S * R) @ \
+                P.permute(0, 2, 1, 3).reshape(Zs, T, S * R).mT
+            sum_X = torch.einsum("s,zsrq->zrq", valid, X)
+            sum_QA = torch.einsum("s,zstr->ztr", valid, P - Q)  # Q A = P - Q
+            sum_QP, sum_X, sum_QA = _psum((sum_QP, sum_X, sum_QA), dist, "data")
+            eyeR = torch.eye(R, dtype=dtype, device=device)
+            sum_AXA_mA = sum_X - nseg_total * eyeR  # A X A - A = X - I
+            KK = G_om @ G_om.mT
+            GM = G_om @ sum_AXA_mA
+            t_qa = sum_QA @ G_om.mT
+            SigSum = (
+                nseg_total * (KK + eps * eyeT)
+                - eps * eps * sum_w[:, :, None] * eyeT
+                - eps * (KK * sum_w[:, None, :] + sum_w[:, :, None] * KK)
+                + eps * eps * sum_QP
+                + eps * (t_qa + t_qa.mT)
+                + GM @ G_om.mT
+            )
+            C = Mbar + SigSum
 
         if config.hyper_grid >= 3 and config.hyper_window > 0:
             lo_s = torch.clamp(log_om - config.hyper_window, lo, hi)
             hi_s = torch.clamp(log_om + config.hyper_window, lo, hi)
         else:
             lo_s, hi_s = lo, hi
-        x_new = _golden_min(obj, lo_s, hi_s, config.hyper_iters,
-                            polish=config.hyper_polish, grid=config.hyper_grid,
-                            tiebreak=config.hyper_tiebreak)
+        with annotate("vlgp:hstep_search"):
+            x_new = hstep_search(C, nseg_total, sigsq.reshape(Z), params.gp_noise, params.dt,
+                                 lo_s, hi_s, config.hyper_iters, polish=config.hyper_polish,
+                                 grid=config.hyper_grid, tiebreak=config.hyper_tiebreak,
+                                 profile_sigma=config.hyper_learn_sigma)
         return x_new, X, C
 
     x0 = torch.log(params.omega).to(dtype)

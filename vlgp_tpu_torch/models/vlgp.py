@@ -31,6 +31,7 @@ from ..data import TrialSet
 from ..ops import control
 from ..ops.linalg import svd_loading
 from ..ops.math import trunc_exp
+from ..ops.mstep import _solve, mstep_stats, mstep_update
 from ..ops.spd import FALLBACKS, _ok, inv_one_plus_gram, inv_one_plus_psd
 from ..ops.sweep import sweep as fused_sweep
 from ..ops.sweep import sweep_fused_eligible
@@ -434,11 +435,6 @@ def infer_members(data: TrialSet, params: Params, G: torch.Tensor, config: Confi
     return muz, vz, sweeps
 
 
-def _solve(A, B):
-    """``torch.linalg.solve`` without the host read of its LU's info."""
-    return torch.linalg.solve_ex(A, B, check_errors=False)[0]
-
-
 def _masked_var(resid, mask, dist: Dist):
     """Per-channel variance of masked residuals (M-step noise MLE,
     core.py:177)."""
@@ -449,114 +445,81 @@ def _masked_var(resid, mask, dist: Dist):
     return s2 / n - mean * mean
 
 
-def _pair_stats(rm, p, q):
-    """einsum('sty,zst,kst->yzk', rm, p, q) as one (Z*K, S*T) x (S*T, Y)
-    product (the three-operand einsum would build an (S,T,Y,Z) temporary)."""
-    Z, K = p.shape[0], q.shape[0]
-    pq = (p[:, None] * q[None]).reshape(Z * K, -1)
-    out = pq @ rm.reshape(-1, rm.shape[-1])  # (Z*K, Y)
-    return out.reshape(Z, K, -1).permute(2, 0, 1)
-
-
 def mstep(data: TrialSet, params: Params, config: Config,
           niter: Optional[int] = None, dist: Dist = Dist()) -> Params:
     """M-step: Newton (or plain gradient) for Poisson channels, closed form
     for Gaussian (core.py:129-249).  ``config.mstep_tol > 0`` stops once
     |da| <= tol |a| and |db| <= tol |b| after at least 2 iterations.
 
-    Under ``dist.data`` the sufficient statistics are summed over the ranks
-    (one all_reduce per family and Newton iteration), so a, b, da and db
-    come out bitwise equal on every rank of a model column.  Every update
-    is per channel, so ``dist.model`` adds nothing to an iteration; the
-    exit test's squared norms are summed over the model group
-    (``vlgp_tpu/models/vlgp.py:483-490``), so every model rank takes the
-    same trip count.  ``params.active`` pins the channels it marks False
-    (the padding of ``parallel.mesh.pad_channels``) to their state."""
+    A Poisson iteration is ``ops.mstep``'s two calls: ``mstep_stats`` (one
+    pass over the data for the step's statistics) and ``mstep_update`` (the
+    per-channel Newton solve); on one CUDA device two kernel launches, the
+    partial sums going from the first to the second unreduced.  Under
+    ``dist.data`` the statistics are summed over the ranks between the two
+    (one all_reduce per Newton iteration, and one of the mask's count per
+    M-step), so a, b, da and db come out bitwise equal on every rank of a
+    model column.  Every update is per channel, so ``dist.model`` adds
+    nothing to an iteration; the exit test's squared norms are summed over
+    the model group (``vlgp_tpu/models/vlgp.py:483-490``), so every model
+    rank takes the same trip count.  ``params.active`` pins the channels it
+    marks False (the padding of ``parallel.mesh.pad_channels``) to their
+    state."""
     niter = config.Mniter if niter is None else niter
     if niter < 1:
         return params
 
     y, x, mask = data.y, data.x, data.mask
-    muz, vz = _zmajor(data.mu), _zmajor(data.v)
+    muz = _zmajor(data.mu)
     m = mask[..., None]
     maskz = mask[None]
     mum = muz * maskz
-    vm = vz * maskz
     eps = config.eps
-    zdim, xdim = params.zdim, params.xdim
-    Iz = torch.eye(zdim, dtype=y.dtype, device=y.device)
+    xdim = params.xdim
     Ix = torch.eye(xdim, dtype=y.dtype, device=y.device)
     pois = params.poisson
     kind = params.likelihood_kind
     need_pois = kind != "gaussian"
     need_gauss = kind != "poisson"
+    # one CUDA device: mstep_update reduces mstep_stats' partial sums itself
+    partial = y.is_cuda and dist.data is None
+    n = _psum(torch.sum(mask), dist, "data")
+    # a pure Poisson fit pins its inert channels inside mstep_update
+    active_pois = params.active if not need_gauss else None
 
     if need_gauss:
         # data-independent Gaussian normal equations (core.py:224-226)
         xm = x * m[..., None]
         Mg, vsum, xtx = _psum((torch.einsum("zst,kst->zk", mum, muz),
-                               torch.sum(vm, dim=(1, 2)),
+                               torch.sum(_zmajor(data.v) * maskz, dim=(1, 2)),
                                torch.einsum("stxn,stqn->nxq", xm, x)), dist, "data")
         Mg = Mg + torch.diag(vsum)
 
     def iteration(a, b, noise_prev):
-        xb = _xb(x, b)
-        eta = _eta(muz, a, xb)
-        noise = _masked_var(y - eta, mask, dist)
-        ym = y * m
-
         if need_pois:
-            r = _rates(eta, vz, a)
-            rm = r * m
-            # ---- Poisson loading update (core.py:182-200) ----
-            stats = [torch.einsum("zst,sty->zy", mum, y - r),
-                     torch.einsum("zst,sty->zy", vm, r),
-                     torch.einsum("stxy,sty->xy", x, ym - rm)]
-            if config.use_hessian:
-                # Hessian of -loglik w.r.t. a[:, n]:
-                # (mu + v a_n)' diag(r_n) (mu + v a_n) + diag(r_n' v)
-                stats += [_pair_stats(rm, muz, muz), _pair_stats(rm, vz, muz),
-                          _pair_stats(rm, vz, vz),
-                          torch.einsum("stxy,sty,stqy->yxq", x, rm, x)]
-            C1, C2, grad_b, *hess = _psum(stats, dist, "data")
-            grad_a = C1 - a * C2
-            if config.use_hessian:
-                E1, E2, E3, nhess_b = hess
-                an = a.T  # (y, z)
-                nhess = (
-                    E1
-                    + an[:, :, None] * E2
-                    + an[:, None, :] * E2.transpose(1, 2)
-                    + an[:, :, None] * an[:, None, :] * E3
-                    + C2.T[:, :, None] * Iz
-                )
-                # solve_ex: the LU of solve without its host check of info
-                # (a singular system gives NaN, as jnp.linalg.solve does)
-                delta_a = _solve(nhess + eps * Iz, grad_a.T[..., None])[..., 0].T
-                # ---- Poisson regression update (core.py:205-218) ----
-                delta_b = _solve(nhess_b + eps * Ix, grad_b.T[..., None])[..., 0].T
-            else:
-                # gradient mode (core.py:196-197, 215-216)
-                delta_a = config.learning_rate * grad_a
-                delta_b = config.learning_rate * grad_b
-            delta_a = torch.clamp(delta_a, -config.da_bound, config.da_bound)
-            delta_b = torch.clamp(delta_b, -config.db_bound, config.db_bound)
-            a_pois = a + delta_a
-            b_pois = b + delta_b
+            # ---- Poisson loading and regression update (core.py:182-218) ----
+            stats = mstep_stats(y, x, mask, data.mu, data.v, a, b, config.use_hessian,
+                                partial=partial)
+            if not partial:
+                stats = _psum(stats, dist, "data")
+            a_pois, b_pois, noise, delta_a, delta_b = mstep_update(
+                stats, n, a, b, noise_prev, active_pois, use_hessian=config.use_hessian,
+                eps=eps, learning_rate=config.learning_rate, da_bound=config.da_bound,
+                db_bound=config.db_bound)
+            if not need_gauss:
+                return a_pois, b_pois, noise, delta_a, delta_b
+        else:
+            noise = _masked_var(y - _eta(muz, a, _xb(x, b)), mask, dist)
 
-        if need_gauss:
-            # ---- Gaussian closed form (core.py:221-235) ----
-            rhs_a = _psum(torch.einsum("zst,sty->zy", mum, y - _xb(x, b)), dist, "data")
-            a_gauss = _solve(Mg, rhs_a)
-            resid = ym - _eta(mum, a_gauss, torch.zeros_like(y))
-            rhs_b = _psum(torch.einsum("stxy,sty->yx", x, resid), dist, "data")
-            b_gauss = _solve(xtx + eps * Ix, rhs_b[..., None])[..., 0].T
-            # zero the history-filter rows, keep the bias (core.py:235)
-            b_gauss = b_gauss * (torch.arange(xdim, device=b.device) == 0)[:, None].to(b.dtype)
+        # ---- Gaussian closed form (core.py:221-235) ----
+        rhs_a = _psum(torch.einsum("zst,sty->zy", mum, y - _xb(x, b)), dist, "data")
+        a_gauss = _solve(Mg, rhs_a)
+        resid = y * m - _eta(mum, a_gauss, torch.zeros_like(y))
+        rhs_b = _psum(torch.einsum("stxy,sty->yx", x, resid), dist, "data")
+        b_gauss = _solve(xtx + eps * Ix, rhs_b[..., None])[..., 0].T
+        # zero the history-filter rows, keep the bias (core.py:235)
+        b_gauss = b_gauss * (torch.arange(xdim, device=b.device) == 0)[:, None].to(b.dtype)
 
-        if not need_gauss:
-            a_new, b_new, da, db = a_pois, b_pois, delta_a, delta_b
-        elif not need_pois:
+        if not need_pois:
             a_new, b_new = a_gauss, b_gauss
             da, db = a_new - a, b_new - b
         else:

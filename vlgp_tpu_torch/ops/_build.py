@@ -24,7 +24,8 @@ __all__ = ["build", "load_library", "BUILD_SECONDS", "SOURCES"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("ns_inverse", "sweep", "spd_inverse", "graph_cond", "svd_loading", "lorenz")
+SOURCES = ("ns_inverse", "sweep", "spd_inverse", "graph_cond", "svd_loading", "lorenz",
+           "mstep", "hstep")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -54,6 +55,16 @@ _SIGNATURES = {
     },
     "lorenz": {
         "lorenz": ([_p, _i, _i, _d, _d, _d, _d, _p], _i),
+    },
+    "mstep": {
+        "mstep_stats_plan": ([_i] * 6 + [_p, _p], _i),
+        "mstep_stats": ([_p] * 8 + [_i] * 6 + [_p], _i),
+        "mstep_reduce": ([_p, _i, _p, _p] + [_i] * 5 + [_p], _i),
+        "mstep_update": ([_p, _i] + [_p] * 12 + [_i] * 4 + [_d] * 4 + [_i, _p], _i),
+    },
+    "hstep": {
+        "hstep_search_scratch": ([_i, _i], _i),
+        "hstep_search": ([_p] * 7 + [_i] * 2 + [_d] * 2 + [_i] * 4 + [_d, _i, _p], _i),
     },
 }
 
