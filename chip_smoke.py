@@ -5,7 +5,7 @@
 Phases, each of which raises on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the eight sources of vlgp_tpu_torch/csrc/ with nvcc
+2. build: compiles the nine sources of vlgp_tpu_torch/csrc/ with nvcc
    (sm_90a), one process each, all at once;
 3. ns_gram against its plain PyTorch version on the card, at the two
    main-path shapes (E/H-step segments and the final full-length
@@ -68,6 +68,16 @@ Phases, each of which raises on failure:
    as good as the plain version's under the plain objective (HSTEP_FTOL)
    and in the same grid cell where that cell is determined; each timed
    at the flagship;
+   (6d, after 6c on the same state) hstep_stat (csrc/hstep_stat.cu, the
+   H-step's statistic) against its plain version on the first refinement
+   of one H-step on the fit's segments (Z5 S2000 T50 R40), at T1000 R50
+   S100 (window=None), T1 R1, T17 R17, T200 R128, a ragged S301 with
+   valid-0 segments and one whose w~ is 0, and a NaN segment (valid 0)
+   whose latent alone must come out NaN, in float32 and float64: each sum
+   within HSTAT_TOL of its largest |entry|, a second call bit for bit, and
+   hstep_search on the kernel's C as good as on the plain C under the
+   float64 objective (6c's rule); timed at the flagship (beside the plain
+   version's sum_QP GEMM alone) and at T1000;
 7. a small fit (4 trials x 120 bins x 10 neurons x 2 latents) on the card
    in float32 against the same fit on the CPU in float64 (exact route);
 8. the main paths, each with the launch counters set to 0 just before it
@@ -77,8 +87,8 @@ Phases, each of which raises on failure:
    E-step time, counters and the lstsq-aligned recovery R^2, the last fit
    with its ns_gram launches split by caller and mode; transform of 10
    fresh trials under the last fit's result; spd_solve at B10000 R40;
-   every fit of phase 8 must launch mstep_stats, mstep_update and
-   hstep_search;
+   every fit of phase 8 must launch mstep_stats, mstep_update,
+   hstep_search and hstep_stat;
    inv_one_plus_psd from a drifted carry with the fused probe;
 9. the model-selection path, each sub-phase with the counters set to 0
    just before it: (9a) fit with track_elbo=True, its ELBO series (first,
@@ -1385,38 +1395,48 @@ def check_mstep(device, gen, result):
     return worst, s_ms, s_pms, s_bms, s_by, u_ms, u_pms, u_bms, u_by
 
 
-def record_hstep_search(seg, params, cfg):
-    """The arguments of the hstep_search calls of one H-step on the fit's
-    segments (models/gp.py:hstep with a recorder in place of the search)."""
+def record_hstep(seg, params, cfg, stat=None):
+    """The arguments of the hstep_stat and hstep_search calls of one H-step
+    on the fit's segments (models/gp.py:hstep with recorders in place of
+    both): {name: [(args, kw), ...]}.  ``stat`` given, it computes the
+    statistic in place of hstep_stat (the plain version, for 6d)."""
     from vlgp_tpu_torch.models import gp
 
-    calls = []
-    real = gp.hstep_search
+    calls = {"hstep_stat": [], "hstep_search": []}
+    real = {name: getattr(gp, name) for name in calls}
+    run = dict(real, hstep_stat=stat or real["hstep_stat"])
 
-    def recorder(*args, **kw):
-        calls.append((args, kw))
-        return real(*args, **kw)
+    def recorder(name):
+        def record(*args, **kw):
+            calls[name].append((args, kw))
+            return run[name](*args, **kw)
+        return record
 
-    gp.hstep_search = recorder
+    for name in calls:
+        setattr(gp, name, recorder(name))
     try:
         gp.hstep(seg, params, cfg, rank=40)
     finally:
-        gp.hstep_search = real
+        for name, fn in real.items():
+            setattr(gp, name, fn)
     return calls
 
 
-def hstep_compare(tag, args, kw):
+def hstep_compare(tag, args, kw, C_kernel=None):
     """One search, kernel against plain (HSTEP_FTOL above); both kernel
-    calls equal bit for bit.  Returns (max |dx| / (hi - lo), the largest
+    calls equal bit for bit.  With ``C_kernel`` the kernel searches that
+    statistic (6d: hstep_stat's) and the plain version, and the objective
+    in float64, args' C.  Returns (max |dx| / (hi - lo), the largest
     float64 objective gap relative to |f64|)."""
     from vlgp_tpu_torch.ops import golden as og
 
     C, nseg, sigsq, gp_noise, dt, lo, hi, iters = args
     dtype = C.dtype
-    x_k = og.hstep_search(*args, **kw)
+    kargs = list(args) if C_kernel is None else [C_kernel, *args[1:]]
+    x_k = og.hstep_search(*kargs, **kw)
     x_p = og._hstep_search_plain(*args, kw["polish"], kw["grid"], kw["tiebreak"],
                                  kw["profile_sigma"])
-    if not torch.equal(og.hstep_search(*args, **kw), x_k):
+    if not torch.equal(og.hstep_search(*kargs, **kw), x_k):
         raise AssertionError(f"6c hstep_search {tag}: two calls differ")
     if not torch.equal(torch.isnan(x_k), torch.isnan(x_p)):
         raise AssertionError(f"6c hstep_search {tag}: NaN x differ: {x_k} vs {x_p}")
@@ -1490,7 +1510,7 @@ def check_hstep(device, gen, result):
     from vlgp_tpu_torch.ops import golden as og
 
     seg, params, cfg = fit_segments(result)
-    calls = record_hstep_search(seg, params, cfg)
+    calls = record_hstep(seg, params, cfg)["hstep_search"]
     args0, kw0 = calls[-1]
     worst = 0.0
     for dtype in (torch.float32, torch.float64):
@@ -1543,6 +1563,159 @@ def check_hstep(device, gen, result):
         f"{evals * T} dependent column steps): kernel {fmt_ms(ms)}, plain {fmt_ms(pms)}, "
         f"bound {b_ms:.2e} ms ({b_by})")
     return worst, ms, pms, b_ms, b_by, evals
+
+
+# ---------------------------------------------------------------------------
+# 6d: the H-step's statistic C
+# ---------------------------------------------------------------------------
+
+# hstep_stat against its plain version: each of sum_QP, sum_X and sum_QA
+# within HSTAT_TOL of the plain version's, relative to its own largest
+# |entry| (sum_QP enters C scaled by eps^2, the other two at O(1) and eps,
+# so each is judged on its own scale).  Both sum the same products in other
+# orders: the kernel per chunk of segments and then over the chunks, the
+# plain version in cuBLAS's GEMMs and reductions.  Measured on the NVIDIA
+# H100 80GB HBM3 / 700 W card (tools/torch_variant_ab.py, 6d): at the
+# flagship the float32 sum_QP's gap is 5.8e-5 to 6.5e-5, and it is the
+# plain version's: its cuBLAS GEMM over S R = 80,000 terms lies 5.2e-5 from
+# the float64 sums of the same inputs, the kernel 9.4e-7; elsewhere the
+# gaps are below 6e-6.  1e-4 holds that GEMM's rounding with a margin of
+# 1.5; float64's gaps are below 2e-14.
+HSTAT_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+HSTAT_NAMES = ("sum_QP", "sum_X", "sum_QA")
+
+
+def _on(obj, dtype):
+    """A TrialSet or Params with every float tensor in ``dtype``, on its device."""
+    import dataclasses
+
+    return dataclasses.replace(obj, **{
+        f.name: t.to(dtype) for f in dataclasses.fields(obj)
+        if isinstance(t := getattr(obj, f.name), torch.Tensor) and t.is_floating_point()})
+
+
+def hstat_case(Z, S, T, R, dtype, device, gen):
+    """Synthetic hstep_stat inputs: SE factors as the fit builds them, w~
+    drawn from gen, X from inv_one_plus_gram (Newton-Schulz in float32, the
+    exact route in float64), every segment valid."""
+    from vlgp_tpu_torch.ops.spd import inv_one_plus_gram
+
+    G = realistic_factor(Z, T, R, device).to(dtype)
+    w = 0.1 + 2.0 * torch.rand((Z, S, T), generator=gen, device=device, dtype=dtype)
+    wt2 = (w / (1.0 + 1e-3 * w)).contiguous()
+    X = inv_one_plus_gram(G, wt2, iters=16)
+    return [G, wt2, X, torch.ones(S, dtype=dtype, device=device)]
+
+
+def hstat_compare(tag, args):
+    """One case: the kernel's three sums against the plain version's
+    (HSTAT_TOL, NaNs in the same places) and a second call bit for bit.
+    Returns the worst relative gap."""
+    from vlgp_tpu_torch.ops import hstat as oh
+
+    dtype = args[0].dtype
+    tol = HSTAT_TOL[dtype]
+    plain = oh._hstep_stat_plain(*args)
+    got = oh.hstep_stat(*args)
+    again = oh.hstep_stat(*args)
+    gaps = []
+    for name, g, a, p in zip(HSTAT_NAMES, got, again, plain):
+        if not same_bits(g, a):
+            raise AssertionError(f"6d hstep_stat {tag}: {name} differs between two calls")
+        d, same = _rel(g, p)
+        if d > tol or not same:
+            raise AssertionError(f"6d hstep_stat {tag}: {name} {d:.2e} from the plain version "
+                                 f"(tolerance {tol:.0e}), NaNs in the same places: {same}")
+        gaps.append(d)
+    log(f"  hstep_stat {tag} {str(dtype)[6:]}: "
+        + ", ".join(f"{n} {d:.2e}" for n, d in zip(HSTAT_NAMES, gaps))
+        + f" relative to each sum's largest |entry| (tolerance {tol:.0e}); repeat bit for bit")
+    return max(gaps)
+
+
+def check_hstep_stat(device, gen, result):
+    """6d: hstep_stat against its plain version on the first refinement of
+    one H-step on phase 8's fit (Z5 S2000 T50 R40), the search on its C
+    against the search on the plain C (6c's rule), then at T1000 R50 S100
+    (window=None), T1 R1, T17 R17, T200 R128, a ragged S301 with valid-0
+    segments and one whose w~ is 0, and a NaN segment (valid 0) of latent
+    1, in float32 and float64; times the flagship and T1000.  Returns (worst
+    gap, worst search gap, kernel ms, plain ms, bound ms, what binds,
+    sum_QP GEMM ms)."""
+    from vlgp_tpu_torch.ops import hstat as oh
+
+    seg, params, cfg = fit_segments(result)
+    worst = search = 0.0
+    for dtype in (torch.float32, torch.float64):
+        s_d, p_d = _on(seg, dtype), _on(params, dtype)
+        calls = record_hstep(s_d, p_d, cfg)
+        plain = record_hstep(s_d, p_d, cfg, stat=oh._hstep_stat_plain)
+        args = list(calls["hstep_stat"][0][0])
+        if dtype == torch.float32:
+            flagship = args
+        worst = max(worst, hstat_compare("flagship Z5 S2000 T50 R40 (fit state)", args))
+        # the first refinement's search: the same omega and X on both runs,
+        # so the two C differ by the statistic alone
+        a_p, kw = plain["hstep_search"][0]
+        search = max(search, hstep_compare("on hstep_stat's C (flagship, first refinement)",
+                                           list(a_p), kw,
+                                           C_kernel=calls["hstep_search"][0][0][0])[1])
+        for Z, S, T, R in ((5, 100, 1000, 50), (3, 40, 1, 1), (3, 60, 17, 17),
+                           (2, 50, 200, 128)):
+            args = hstat_case(Z, S, T, R, dtype, device, gen)
+            worst = max(worst, hstat_compare(f"Z{Z} S{S} T{T} R{R}", args))
+            if T == 1000 and dtype == torch.float32:
+                long_args = args
+        # a ragged segment count, two valid-0 segments and one whose w~ is 0
+        args = hstat_case(5, 301, 50, 40, dtype, device, gen)
+        args[3][[3, 150]] = 0.0
+        args[1][:, 200] = 0.0
+        worst = max(worst, hstat_compare("Z5 S301 T50 R40, segments 3 and 150 valid 0, "
+                                         "segment 200's w~ zero", args))
+        # a NaN segment with valid 0: its latent's sums NaN, the others finite
+        args[1] = args[1].clone()
+        args[2] = args[2].clone()
+        args[1][1, 150] = float("nan")
+        args[2][1, 150] = float("nan")
+        worst = max(worst, hstat_compare("NaN in latent 1's segment 150 (valid 0)", args))
+        got = oh.hstep_stat(*args)
+        for name, t in zip(HSTAT_NAMES, got):
+            if not bool(torch.isnan(t[1]).all()) or not bool(
+                    torch.isfinite(t[torch.arange(5, device=device) != 1]).all()):
+                raise AssertionError(f"6d hstep_stat: the NaN of latent 1 did not fill latent "
+                                     f"1's {name} alone")
+    # time the flagship and T1000, float32
+    G, wt2, X, valid = flagship
+    Z, T, R = G.shape
+    S = wt2.shape[1]
+    ms = time_ms(lambda: oh.hstep_stat(*flagship))
+    pms = time_ms(lambda: oh._hstep_stat_plain(*flagship))
+    # the plain version's sum_QP GEMM alone (cuBLAS), on its own operands
+    P = wt2[..., None] * G[:, None]
+    Q = valid[None, :, None, None] * (P @ X)
+    a = Q.permute(0, 2, 1, 3).reshape(Z, T, S * R)
+    b = P.permute(0, 2, 1, 3).reshape(Z, T, S * R).mT
+    gemm_ms = time_ms(lambda: a @ b)
+    del P, Q, a, b
+    b_ms, b_by = hstat_bound(Z, S, T, R)
+    log(f"  hstep_stat Z{Z} S{S} T{T} R{R} float32: kernel {fmt_ms(ms)}, plain {fmt_ms(pms)} "
+        f"(its sum_QP GEMM alone {fmt_ms(gemm_ms)}), bound {b_ms:.4f} ms ({b_by})")
+    Zl, Tl, Rl = long_args[0].shape
+    Sl = long_args[1].shape[1]
+    lms = time_ms(lambda: oh.hstep_stat(*long_args))
+    lpms = time_ms(lambda: oh._hstep_stat_plain(*long_args))
+    lb_ms, lb_by = hstat_bound(Zl, Sl, Tl, Rl)
+    log(f"  hstep_stat Z{Zl} S{Sl} T{Tl} R{Rl} float32 (window=None): kernel {fmt_ms(lms)}, "
+        f"plain {fmt_ms(lpms)}, bound {lb_ms:.4f} ms ({lb_by})")
+    return worst, search, ms, pms, b_ms, b_by, gemm_ms
+
+
+def hstat_bound(Z, S, T, R):
+    """(ms, what binds) of one float32 hstep_stat call: FLOPs of Q = P X and
+    Q P' per segment; bytes of G, w~, X and valid read once and the three
+    sums written once."""
+    return bound(Z * S * T * R * (R + T),
+                 4 * (Z * T * R + Z * S * T + Z * S * R * R + S + Z * (T * T + T * R + R * R)))
 
 
 def make_workload(seed=0, ntrial=NTRIAL, a=None, length=LENGTH, ydim=YDIM):
@@ -1647,7 +1820,7 @@ def run_fit(fused, **fit_kw):
     if fallbacks["gram_exact"] > EXACT_SHARE_MAX * calls["gram"]:
         raise AssertionError(f"{tag}: exact-Cholesky net took {fallbacks['gram_exact']} of "
                              f"{calls['gram']} ns_gram route calls")
-    for name in ("mstep_stats", "mstep_update", "hstep_search"):
+    for name in ("mstep_stats", "mstep_update", "hstep_search", "hstep_stat"):
         if launches[name] == 0:
             raise AssertionError(f"{tag} never launched {name}")
     if fused:
@@ -3136,6 +3309,11 @@ def main():
     log(f"6c hstep_search against its plain version [{card}]:")
     hs_out = check_hstep(device, seeded(), fits[3][6])
     log(f"6c: {time.perf_counter() - tic:.1f} s")
+    # 6d, the H-step's statistic on the same state
+    tic = time.perf_counter()
+    log(f"6d hstep_stat against its plain version [{card}]:")
+    st_out = check_hstep_stat(device, seeded(), fits[3][6])
+    log(f"6d: {time.perf_counter() - tic:.1f} s")
     run_transform(fits[3][6])
     n_solve = run_spd_solve(device, seeded())
     n_probe = run_fused_probe(device, seeded())
@@ -3225,6 +3403,15 @@ def main():
          "launches": default[0]["hstep_search"], "max_abs_err": h_err, "ms": h_ms[0],
          "plain_ms": h_pms[0], "bound_ms": h_bms, "bound_by": h_by, "library_ms": None},
     ]
+    # the H-step's statistic (6d): launches of phase 8's first default fit;
+    # max_abs_err is the largest gap relative to each sum's largest |entry|
+    st_err, _, st_ms, st_pms, st_bms, st_by, _ = st_out
+    kernels.append(
+        {"name": f"hstep_stat (Z{ZDIM} S2000 T50 R40, the pass and its reduction)",
+         "route": "cuda", "source": "vlgp_tpu_torch/csrc/hstep_stat.cu",
+         "replaces": "vlgp_tpu/models/gp.py:435", "launches": default[0]["hstep_stat"],
+         "max_abs_err": st_err, "ms": st_ms[0], "plain_ms": st_pms[0], "bound_ms": st_bms,
+         "bound_by": st_by, "library_ms": None})
     # the kernels at the shapes of a leave_one_neuron_out chunk, launches of
     # 9c's run at the default batch
     lono_launches = lono[max(LONO_BATCHES)][0]

@@ -1,0 +1,164 @@
+"""Time builds of one CUDA source of vlgp_tpu_torch on the card, in turns:
+
+    python3 tools/torch_variant_ab.py OUT.json --source {mstep,hstep_stat} \\
+        --variant NAME[@FILE.cu][=FLAGS] [--variant ...]
+
+Each variant is ``csrc/<source>.cu`` (or FILE.cu, e.g. the same source of
+another tree unpacked with ``git archive``, next to its own headers)
+compiled with the package's nvcc flags plus FLAGS (one string, split on
+spaces, e.g. ``-DVLGP_MSTEP_GENERIC``) into ``vlgp_tpu_torch/_build/ab/``;
+the builds run in parallel.  For each case the variants are timed in
+turns, v1 .. vn then vn .. v1 ([median, min, max] ms over 10 calls, each
+between its own pair of CUDA events, ``chip_smoke.time_ms``), and each
+variant's outputs are held against the first variant's and against the
+plain version's in float64 on the same inputs (the largest gap relative
+to each output's largest |value|; for the plain version's float32 output
+too).  Cases:
+
+  * ``mstep``: ``mstep_stats``' pass (its partial sums, as the fit calls
+    it; the outputs compared after the reduction) at the flagship's M-step
+    shape (Z5 S2000 T50 Y100 X1, inputs drawn as chip_smoke's 6c draws
+    them) and at Z3 and Z8;
+  * ``hstep_stat``: the flagship's segments (Z5 S2000 T50 R40) and whole
+    trials (Z5 S100 T1000 R50, ``window=None``), inputs as chip_smoke's 6d
+    draws them.
+
+Prints one JSON line with the card's name and power limit.  Needs a CUDA
+device and nvcc.
+"""
+import argparse
+import ctypes
+import importlib.util
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+
+
+def parse_variant(spec, source):
+    """NAME[@FILE.cu][=FLAGS] -> (name, source file, [flags])."""
+    from vlgp_tpu_torch.ops import _build
+
+    head, _, flags = spec.partition("=")
+    name, _, path = head.partition("@")
+    src = pathlib.Path(path).resolve() if path else _build.CSRC / f"{source}.cu"
+    return name, src, flags.split()
+
+
+def build_all(source, variants):
+    """Compile every variant at once; {name: loaded library}."""
+    from vlgp_tpu_torch.ops import _build
+
+    outdir = _build.BUILD_DIR / "ab"
+    outdir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src, flags in variants:
+        out = outdir / f"lib{source}_{name}.so"
+        procs[name] = (out, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
+                                              str(out), str(src)], stderr=subprocess.PIPE,
+                                             text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
+        lib = ctypes.CDLL(str(out))
+        for fn, (argtypes, restype) in _build._SIGNATURES[source].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        lib.ns_error_string.argtypes = [ctypes.c_int]
+        lib.ns_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def rel(got, ref):
+    return max(cs._rel(g.double(), r.double())[0] for g, r in zip(got, ref))
+
+
+def cases(source, device, gen):
+    """[(tag, timed: () -> None, run: () -> outputs, plain64: () -> float64
+    outputs, plain: () -> float32 outputs)] of the source's cases; ``timed``
+    is the main path's call (mstep_stats' pass alone, its partial sums)."""
+    out = []
+    if source == "mstep":
+        from vlgp_tpu_torch.ops import mstep as om
+
+        for S, T, Y, Z, X in ((2000, 50, 100, 5, 1), (2000, 50, 100, 3, 1),
+                              (2000, 50, 100, 8, 1)):
+            args = cs.mstep_case(S, T, Y, Z, X, torch.float32, device, gen.manual_seed(0))
+            a64 = [t.double() for t in args]
+            out.append((f"mstep_stats Z{Z} S{S} T{T} Y{Y} X{X}",
+                        lambda a=args: om.mstep_stats(*a, partial=True),
+                        lambda a=args: om.mstep_stats(*a),
+                        lambda a=a64: om._mstep_stats_plain(*a, True),
+                        lambda a=args: om._mstep_stats_plain(*a, True)))
+    else:
+        from vlgp_tpu_torch.ops import hstat as oh
+
+        for Z, S, T, R in ((5, 2000, 50, 40), (5, 100, 1000, 50)):
+            args = cs.hstat_case(Z, S, T, R, torch.float32, device, gen.manual_seed(0))
+            a64 = [t.double() for t in args]
+            run = (lambda a=args: oh.hstep_stat(*a))
+            out.append((f"hstep_stat Z{Z} S{S} T{T} R{R}", run, run,
+                        lambda a=a64: oh._hstep_stat_plain(*a),
+                        lambda a=args: oh._hstep_stat_plain(*a)))
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out")
+    ap.add_argument("--source", choices=("mstep", "hstep_stat"), required=True)
+    ap.add_argument("--variant", action="append", required=True)
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch_variant_ab.py needs a CUDA device")
+    from vlgp_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load_library()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    variants = [parse_variant(v, opts.source) for v in opts.variant]
+    libs = build_all(opts.source, variants)
+    names = [v[0] for v in variants]
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device)
+    result = {"card": card, "source": opts.source,
+              "variants": {n: [str(s), f] for n, s, f in variants}}
+    real = _build._libs[opts.source]
+    try:
+        for tag, timed, run, plain64, plain in cases(opts.source, device, gen):
+            ref64 = plain64()
+            entry = {"plain_float32_vs_float64": rel(plain(), ref64)}
+            first = None
+            for name in names + names[::-1]:
+                _build._libs[opts.source] = libs[name]
+                got = run()
+                if first is None:
+                    first = got
+                entry.setdefault(name, {"vs_first": rel(got, first), "vs_float64": rel(got, ref64),
+                                        "ms": []})
+                entry[name]["ms"].append(cs.time_ms(timed))
+            result[tag] = entry
+            print(tag, json.dumps(entry), flush=True)
+    finally:
+        _build._libs[opts.source] = real
+    line = json.dumps(result)
+    print(line)
+    pathlib.Path(opts.out).write_text(line + "\n")
+
+
+if __name__ == "__main__":
+    main()

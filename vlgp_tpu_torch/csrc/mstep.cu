@@ -23,14 +23,20 @@
 //   s1, s2 | C1 (Z) | C2 (Z) | grad_b (X) | E1 (Z(Z+1)/2) | E2 (Z^2) |
 //   E3 (Z(Z+1)/2) | nhess_b (X(X+1)/2)          (the last four with hessian)
 //
-// A block owns a chunk of rows and up to NT channels (a lane per channel);
-// its accumulators sit in shared memory, acc[e][lane], each updated once
-// per batch of RB rows with RB FMAs in two chains (even and odd rows), the
-// per-row factors (mu, v, mu m, v m) read as broadcasts.  Where a
-// channel's entries do not fit in shared memory (large Z in float64) they
-// are split in slabs over gridDim.z.  The
-// block writes its partial sums to part (C, Y, NE): no atomics, so every
-// run gives the same bits.
+// For Z <= 8 (5 in float64) and X <= 2 (mstep_stats_reg_kernel) a block
+// owns a chunk of rows and up to 256 channels: `lanes` channel lanes times
+// `groups` row groups, each thread one channel's entries in registers (the
+// loops over the latents and regressors unrolled), one FMA per entry and
+// row; the rows come through shared memory in tiles, the next tile copied
+// (cp.async) while this one is summed, and at the chunk's end the groups
+// are added in group order in shared memory.  Otherwise
+// (mstep_stats_kernel) a block of NT lanes keeps its accumulators in
+// shared memory, acc[e][lane], each updated once per batch of RB rows with
+// RB FMAs in two chains (even and odd rows), the per-row factors (mu, v,
+// mu m, v m) read as broadcasts; where a channel's entries do not fit in
+// shared memory (large Z in float64) they are split in slabs over
+// gridDim.z.  Either writes its partial sums to part (C, Y, NE): no
+// atomics, so every run gives the same bits.
 //
 // The partials are reduced over the C chunks in a fixed order by one
 // device routine (reduce_channel: chunk c goes to group c mod G, each group
@@ -53,14 +59,20 @@
 // What bounds it on this card.  At the flagship (Z5 X1 S2000 T50 Y100) the
 // pass reads y and x (40 MB each), mu, v and the mask (4.4 MB): ~25 us at
 // 3.35 TB/s; its ~70 FMAs per (row, channel) take ~21 us at the FP32 rate.
-// The accumulators in shared memory cost a load and a store per entry and
+// Accumulators in shared memory cost a load and a store per entry and
 // batch of RB rows, and the factors one broadcast load per 4 (float32) or 2
-// (float64) rows: the latency of that shared-memory traffic, not DRAM, is
-// the limit of this design (0.26 ms on an H100, ~10x the byte bound, with
-// the loops over the latents unrolled for Z <= 8; 0.52 ms with one FMA
-// chain per entry and 256 chunks).  The update is ~Z^3 + X^3 operations
-// per channel; its time is the reduction's loads, ~16 us of device time
-// with 512 threads a channel (33 us with 128).
+// (float64) rows: the latency of that shared-memory traffic, not DRAM,
+// limited that design (0.26 ms on an H100, ~10x the byte bound, with the
+// loops over the latents unrolled for Z <= 8; 0.52 ms with one FMA chain
+// per entry and 256 chunks).  With the accumulators in registers and one
+// row's loads in flight per thread, the loads' latency bound the pass
+// (0.14 ms); the tiles in shared memory keep ~27 KB of rows in flight per
+// block without registers (0.093 ms with 16-byte copies, ~3.7x the byte
+// bound; a third stage, 512 threads a block or more chunks did not help,
+// tools/torch_variant_ab.py).  Its row loop is 133 instructions, 85 of
+// them FFMA: ~40 us at the flagship at 4 instructions a clock.  The update
+// is ~Z^3 + X^3 operations per channel; its time is the reduction's loads,
+// ~13 us of device time with 512 threads a channel (33 us with 128).
 
 #include <cmath>
 
@@ -115,7 +127,9 @@ __device__ inline void untri(int p, int n, int& i, int& j) {
   j = i + p;
 }
 
-__device__ inline int tri_index(int i, int j, int n) { return i * n - i * (i - 1) / 2 + (j - i); }
+__host__ __device__ constexpr int tri_index(int i, int j, int n) {
+  return i * n - i * (i - 1) / 2 + (j - i);
+}
 
 // offset in today's layouts (the flat buffer of s1 (Y), s2 (Y), C1 (Z, Y),
 // C2 (Z, Y), grad_b (X, Y), E1, E2, E3 (Y, Z, Z), nhess_b (Y, X, X)) of
@@ -158,7 +172,7 @@ __device__ __forceinline__ T trunc_exp(T x) {
   return exp(x > (T)10 ? (T)10 : x);  // NaN passes the test and stays NaN
 }
 
-template <typename T, int ZC>
+template <typename T>
 __global__ void __launch_bounds__(NT) mstep_stats_kernel(
     const T* __restrict__ y, const T* __restrict__ x, const T* __restrict__ mask,
     const T* __restrict__ mu, const T* __restrict__ v, const T* __restrict__ a,
@@ -167,8 +181,7 @@ __global__ void __launch_bounds__(NT) mstep_stats_kernel(
   constexpr int RB = RowBatch<T>::RB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Layout L(Z, X, hess);
-  // ZC > 0: Z known at compile time (its loops unrolled, one slab)
-  const int Zk = ZC > 0 ? ZC : Z;
+  const int Zk = Z;
   const int tid = threadIdx.x;
   const int YS = NT + 1;  // row stride of acc: the final copy reads it down columns
   T* acc = reinterpret_cast<T*>(smem_raw);          // ecap x YS
@@ -254,7 +267,7 @@ __global__ void __launch_bounds__(NT) mstep_stats_kernel(
     // acc[e] += the batch's sum of s[rb] f[rb]: even and odd rows in two
     // chains (twice the FMAs in flight), added to acc in that order
     auto upd = [&](int e, const T* s, const T* f) {
-      if (ZC == 0 && (e < e0 || e >= e1)) return;
+      if (e < e0 || e >= e1) return;
       T t0 = s[0] * f[0], t1 = s[1] * f[1];
 #pragma unroll
       for (int rb = 2; rb < RB; rb += 2) {
@@ -264,7 +277,7 @@ __global__ void __launch_bounds__(NT) mstep_stats_kernel(
       my[(size_t)(e - e0) * YS] += t0 + t1;
     };
     auto add = [&](int e, const T* s) {
-      if (ZC == 0 && (e < e0 || e >= e1)) return;
+      if (e < e0 || e >= e1) return;
       T t0 = s[0], t1 = s[1];
 #pragma unroll
       for (int rb = 2; rb < RB; rb += 2) {
@@ -340,6 +353,256 @@ __global__ void __launch_bounds__(NT) mstep_stats_kernel(
   for (int i = tid; i < nc * ecnt; i += NT) {
     const int yl = i / ecnt, el = i - yl * ecnt;
     part[((size_t)ch * Y + (size_t)blockIdx.y * NT + yl) * L.ne + e0 + el] = acc[(size_t)el * YS + yl];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The pass over the data with the accumulators in registers (Z <= 8, X <= 2)
+// ---------------------------------------------------------------------------
+
+constexpr int NTG = 256;     // threads per block of the register path, at most
+constexpr int ZR_MAX = 8;    // largest Z of the register path
+constexpr int ZR_MAX_DOUBLE = 5;  // in float64 (above it the accumulators spill)
+constexpr int XR_MAX = 2;    // largest X of the register path
+constexpr int ES = 16;       // entries per slab of the combine at the chunk's end
+
+__host__ __device__ constexpr int entries(int Z, int X, int hess) {
+  return 2 + 2 * Z + X + (hess ? Z * (Z + 1) + Z * Z + X * (X + 1) / 2 : 0);
+}
+
+// values of one stage of the register path's tiles: the rows' factors
+// (mu, v, the mask, padded to 4 values), y and x, rounded up to 4 values
+// so that both stages start on 16 bytes
+__host__ __device__ constexpr int factor_stride(int Z) { return (2 * Z + 1 + 3) / 4 * 4; }
+__host__ __device__ inline int stage_size(int rt, int lanes, int Z, int X) {
+  return (rt * (factor_stride(Z) + lanes * (1 + X)) + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+
+__device__ __forceinline__ void load4(const double* p, double* v) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+// One row of one channel: its mask, count and factors.
+template <typename T, int ZC, int XC>
+struct Row {
+  T m, y, fm[ZC], fv[ZC], xv[XC];
+};
+
+// cp.async of one value (4 or 8 bytes), or of 16 bytes, from device to
+// shared memory: the copy bypasses the registers, so a block keeps a whole
+// tile of rows in flight
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+}
+
+// the row's terms added to the NE entries of acc (the packed layout of
+// Layout, the Hessian's entries only with hess)
+template <typename T, int ZC, int XC, int NE>
+__device__ __forceinline__ void add_row(const Row<T, ZC, XC>& w, const T (&az)[ZC],
+                                        const T (&haz)[ZC], const T (&bq)[XC], int hess,
+                                        T (&acc)[NE]) {
+  constexpr int C1 = 2, C2 = C1 + ZC, GB = C2 + ZC, E1 = GB + XC;
+  constexpr int E2 = E1 + ZC * (ZC + 1) / 2, E3 = E2 + ZC * ZC, NH = E3 + ZC * (ZC + 1) / 2;
+  const T m = w.m, yv = w.y;
+  T eta = (T)0, ve = (T)0, xb = (T)0;
+#pragma unroll
+  for (int z = 0; z < ZC; ++z) {
+    eta = fma(w.fm[z], az[z], eta);
+    ve = fma(w.fv[z], haz[z], ve);
+  }
+#pragma unroll
+  for (int q = 0; q < XC; ++q) xb = fma(w.xv[q], bq[q], xb);
+  const T e = eta + xb;
+  const T res = yv - e;
+  const T r = trunc_exp(e + ve);
+  acc[0] += res * m;
+  acc[1] += (res * res) * m;
+  const T ymr = yv - r, gr = yv * m - r * m, rm = r * m;
+#pragma unroll
+  for (int z = 0; z < ZC; ++z) {
+    acc[C1 + z] = fma(ymr, w.fm[z] * m, acc[C1 + z]);
+    acc[C2 + z] = fma(r, w.fv[z] * m, acc[C2 + z]);
+  }
+#pragma unroll
+  for (int q = 0; q < XC; ++q) acc[GB + q] = fma(gr, w.xv[q], acc[GB + q]);
+  if (!hess) return;
+#pragma unroll
+  for (int z = 0; z < ZC; ++z) {
+    const T pm = rm * w.fm[z], pv = rm * w.fv[z];
+#pragma unroll
+    for (int k = 0; k < ZC; ++k) {
+      if (k >= z) {
+        acc[E1 + tri_index(z, k, ZC)] = fma(pm, w.fm[k], acc[E1 + tri_index(z, k, ZC)]);
+        acc[E3 + tri_index(z, k, ZC)] = fma(pv, w.fv[k], acc[E3 + tri_index(z, k, ZC)]);
+      }
+      acc[E2 + z * ZC + k] = fma(pv, w.fm[k], acc[E2 + z * ZC + k]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < XC; ++q) {
+    const T pq = rm * w.xv[q];
+#pragma unroll
+    for (int p = q; p < XC; ++p)
+      acc[NH + tri_index(q, p, XC)] = fma(pq, w.xv[p], acc[NH + tri_index(q, p, XC)]);
+  }
+}
+
+// A block of `lanes` channel lanes times `groups` row groups (lanes x
+// groups <= NTG threads) walks its chunk in tiles of rt rows.  Tile k + 1
+// is copied to shared memory (cp.async: y and x of the block's channels,
+// 16 bytes a copy where aligned, mu, v and the mask) while tile k is
+// summed: group g takes the tile's rows
+// g, g + groups, ..., each thread its channel's ZC and XC loops unrolled,
+// so the NE entries sit in registers and each row costs one FMA per entry.
+// At the chunk's end the groups are added in group order in shared memory,
+// ES entries at a time, and the block writes its partial sums.
+template <typename T, int ZC, int XC>
+__global__ void __launch_bounds__(NTG) mstep_stats_reg_kernel(
+    const T* __restrict__ y, const T* __restrict__ x, const T* __restrict__ mask,
+    const T* __restrict__ mu, const T* __restrict__ v, const T* __restrict__ a,
+    const T* __restrict__ b, T* __restrict__ part, int N, int Y, int hess, int lanes,
+    int rows_per_chunk, int rt) {
+  constexpr int NE = entries(ZC, XC, 1);
+  constexpr int NF = 2 * ZC + 1;  // per-row factors: mu, v, the mask
+  constexpr int NFP = factor_stride(ZC);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T sacc[ES * NTG];
+  const int groups = blockDim.x / lanes;
+  const int lane = threadIdx.x % lanes, g = threadIdx.x / lanes;
+  const int c0 = blockIdx.y * lanes, c = c0 + lane;
+  const int nc = min(lanes, Y - c0);
+  const bool live = lane < nc;
+  const int ne = entries(ZC, XC, hess);
+  const int n_begin = blockIdx.x * rows_per_chunk;
+  const int n_end = min(N, n_begin + rows_per_chunk);
+  // two stages of a tile: factors [rt][NFP], y [rt][lanes], x [rt][XC][lanes]
+  const int stage = stage_size(rt, lanes, ZC, XC);
+  // y's and x's rows copied 16 bytes at a time where every row of the
+  // block's channels starts on 16 bytes
+  constexpr int VW = 16 / sizeof(T);
+  const bool vec = Y % VW == 0 && lanes % VW == 0 && reinterpret_cast<size_t>(y) % 16 == 0 &&
+                   reinterpret_cast<size_t>(x) % 16 == 0;
+  T* buf = reinterpret_cast<T*>(smem_raw);
+
+  // every thread's share of tile n0's copies, committed as one group: y
+  // and x of its channel at the rows (and regressors) of its group, then
+  // the rows' factors
+  auto copy_tile = [&](int n0, T* st) {
+    const int rows = min(rt, n_end - n0);
+    T* fs = st;
+    T* ys = fs + rt * NFP;
+    T* xs = ys + rt * lanes;
+    if (vec) {  // 16 bytes a copy: lane l < nc / VW takes values VW l ..
+      if (lane < nc / VW) {
+        for (int r = g; r < rows; r += groups)
+          copy_async16(ys + r * lanes + VW * lane, y + (size_t)(n0 + r) * Y + c0 + VW * lane);
+        for (int rq = g; rq < rows * XC; rq += groups)
+          copy_async16(xs + rq * lanes + VW * lane,
+                       x + ((size_t)n0 * XC + rq) * Y + c0 + VW * lane);
+      }
+    } else if (live) {
+      for (int r = g; r < rows; r += groups)
+        copy_async(ys + r * lanes + lane, y + (size_t)(n0 + r) * Y + c);
+      for (int rq = g; rq < rows * XC; rq += groups)
+        copy_async(xs + rq * lanes + lane, x + ((size_t)n0 * XC + rq) * Y + c);
+    }
+    for (int i = threadIdx.x; i < rows * NF; i += blockDim.x) {
+      const int r = i / NF, f = i - r * NF;
+      const T* src = f < ZC ? mu + (size_t)(n0 + r) * ZC + f
+                            : f < 2 * ZC ? v + (size_t)(n0 + r) * ZC + f - ZC : mask + n0 + r;
+      copy_async(fs + r * NFP + f, src);
+    }
+    asm volatile("cp.async.commit_group;" ::);
+  };
+
+  T acc[NE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) acc[e] = (T)0;
+  T az[ZC], haz[ZC], bq[XC];
+#pragma unroll
+  for (int z = 0; z < ZC; ++z) {
+    az[z] = live ? a[(size_t)z * Y + c] : (T)0;
+    haz[z] = ((T)0.5 * az[z]) * az[z];
+  }
+#pragma unroll
+  for (int q = 0; q < XC; ++q) bq[q] = live ? b[(size_t)q * Y + c] : (T)0;
+  if (n_begin < n_end) copy_tile(n_begin, buf);
+  for (int n0 = n_begin, k = 0; n0 < n_end; n0 += rt, ++k) {
+    T* st = buf + (size_t)(k & 1) * stage;
+    if (n0 + rt < n_end) {
+      copy_tile(n0 + rt, buf + (size_t)((k + 1) & 1) * stage);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();  // tile k is in shared memory
+    if (live) {
+      const T* fs = st;
+      const T* ys = fs + rt * NFP;
+      const T* xs = ys + rt * lanes;
+      const int rows = min(rt, n_end - n0);
+      for (int r = g; r < rows; r += groups) {
+        T f[NFP];
+#pragma unroll
+        for (int j = 0; j < NFP; j += 4) load4(fs + r * NFP + j, f + j);
+        Row<T, ZC, XC> w;
+        w.m = f[2 * ZC];
+#pragma unroll
+        for (int z = 0; z < ZC; ++z) {
+          w.fm[z] = f[z];
+          w.fv[z] = f[ZC + z];
+        }
+        w.y = ys[r * lanes + lane];
+#pragma unroll
+        for (int q = 0; q < XC; ++q) w.xv[q] = xs[(r * XC + q) * lanes + lane];
+        add_row(w, az, haz, bq, hess, acc);
+      }
+    }
+    __syncthreads();  // tile k is read: its stage takes tile k + 2
+  }
+  // the groups' sums added in group order, ES entries at a time, and
+  // written as this chunk's partial sums part[chunk][c][e]
+#pragma unroll
+  for (int e0 = 0; e0 < NE; e0 += ES) {
+    for (int gg = 0; gg < groups; ++gg) {
+      if (g == gg) {
+#pragma unroll
+        for (int el = 0; el < ES; ++el)
+          if (e0 + el < NE)
+            sacc[el * lanes + lane] = gg == 0 ? acc[e0 + el] : sacc[el * lanes + lane] + acc[e0 + el];
+      }
+      __syncthreads();
+    }
+    const int ecnt = min(ES, ne - e0);
+    for (int i = threadIdx.x; i < nc * ecnt; i += blockDim.x) {
+      const int yl = i / ecnt, el = i - yl * ecnt;
+      part[((size_t)blockIdx.x * Y + (size_t)blockIdx.y * lanes + yl) * ne + e0 + el] =
+          sacc[el * lanes + yl];
+    }
+    __syncthreads();
   }
 }
 
@@ -599,43 +862,93 @@ int stats_plan(int N, int Y, int Z, int X, int hess, int* rows_per_chunk, int* c
   return L.ne;
 }
 
-#ifndef VLGP_MSTEP_GENERIC
-// the stats kernel with Z fixed at compile time, for Z <= ZC_MAX: 1.22x
-// (Z5) to 1.26x (Z8) faster than the run-time Z at the flagship's S2000
-// T50 Y100 X1 (tools/torch_mstep_ab.py, which builds the run-time copy with
-// -DVLGP_MSTEP_GENERIC)
-constexpr int ZC_MAX = 8;
+// the register path: lanes (channels) and row groups of a block, and rows
+// per chunk for about REG_CHUNK_TARGET blocks (two per SM of an H100); a
+// function of the shape alone, so the bits are too
+constexpr int REG_CHUNK_TARGET = 264;
+
+bool register_path(int Z, int X, int is_double) {
+#ifdef VLGP_MSTEP_GENERIC
+  (void)Z;
+  (void)X;
+  (void)is_double;
+  return false;  // the shared-memory kernel at every shape (tools/torch_variant_ab.py)
+#else
+  return Z <= (is_double ? ZR_MAX_DOUBLE : ZR_MAX) && X <= XR_MAX;
+#endif
+}
+
+// rows per tile of the register path: two stages in ~80 KB, so that two
+// blocks fit on an SM beside their combine buffers
+constexpr int RT_MAX = 32;
+constexpr int STAGES_BYTES = 80 * 1024;
+
 template <typename T>
-auto specialized(int Z) -> decltype(&mstep_stats_kernel<T, 1>) {
+int reg_tile_rows(int lanes, int Z, int X) {
+  const int row_bytes = (lanes * (1 + X) + factor_stride(Z)) * (int)sizeof(T);
+  const int rt = STAGES_BYTES / (2 * row_bytes);
+  return rt < 1 ? 1 : (rt > RT_MAX ? RT_MAX : rt);
+}
+
+void reg_plan(int N, int Y, int* lanes, int* rows_per_chunk, int* chunks) {
+  *lanes = Y < NTG ? Y : NTG;
+  const int tiles = (Y + *lanes - 1) / *lanes;
+  int want = REG_CHUNK_TARGET / tiles;
+  want = want < 1 ? 1 : want;
+  *rows_per_chunk = (N + want - 1) / want;
+  *chunks = (N + *rows_per_chunk - 1) / *rows_per_chunk;
+}
+
+// the register kernel of (ZC, XC); float64 has none above ZR_MAX_DOUBLE
+// (register_path never asks for one), so none is compiled
+template <typename T, int ZC, int XC>
+auto reg_kernel() -> decltype(&mstep_stats_reg_kernel<T, 1, 1>) {
+  constexpr int Z = sizeof(T) == sizeof(double) && ZC > ZR_MAX_DOUBLE ? ZR_MAX_DOUBLE : ZC;
+  return mstep_stats_reg_kernel<T, Z, XC>;
+}
+
+template <typename T, int XC>
+auto reg_kernel_z(int Z) -> decltype(&mstep_stats_reg_kernel<T, 1, 1>) {
   switch (Z) {
-    case 1: return mstep_stats_kernel<T, 1>;
-    case 2: return mstep_stats_kernel<T, 2>;
-    case 3: return mstep_stats_kernel<T, 3>;
-    case 4: return mstep_stats_kernel<T, 4>;
-    case 5: return mstep_stats_kernel<T, 5>;
-    case 6: return mstep_stats_kernel<T, 6>;
-    case 7: return mstep_stats_kernel<T, 7>;
-    default: return mstep_stats_kernel<T, 8>;
+    case 1: return reg_kernel<T, 1, XC>();
+    case 2: return reg_kernel<T, 2, XC>();
+    case 3: return reg_kernel<T, 3, XC>();
+    case 4: return reg_kernel<T, 4, XC>();
+    case 5: return reg_kernel<T, 5, XC>();
+    case 6: return reg_kernel<T, 6, XC>();
+    case 7: return reg_kernel<T, 7, XC>();
+    default: return reg_kernel<T, 8, XC>();
   }
 }
-#endif
 
 template <typename T>
 cudaError_t launch_stats(const T* y, const T* x, const T* mask, const T* mu, const T* v,
                          const T* a, const T* b, T* part, int N, int Y, int Z, int X, int hess,
                          cudaStream_t st) {
+  if (register_path(Z, X, sizeof(T) == sizeof(double))) {
+    int lanes, rpc, chunks;
+    reg_plan(N, Y, &lanes, &rpc, &chunks);
+    const int groups = NTG / lanes;
+    const int rt = reg_tile_rows<T>(lanes, Z, X);
+    const size_t smem = (size_t)2 * stage_size(rt, lanes, Z, X) * sizeof(T);
+    const dim3 grid(chunks, (Y + lanes - 1) / lanes);
+    auto kernel = X == 1 ? reg_kernel_z<T, 1>(Z) : reg_kernel_z<T, 2>(Z);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, lanes * groups, smem, st>>>(y, x, mask, mu, v, a, b, part, N, Y, hess, lanes,
+                                               rpc, rt);
+    return cudaGetLastError();
+  }
   int rpc, chunks, ecap, slabs;
   stats_plan<T>(N, Y, Z, X, hess, &rpc, &chunks, &ecap, &slabs);
   const size_t smem = stats_smem<T>(ecap, Z);
   const dim3 grid(chunks, (Y + NT - 1) / NT, slabs);
-  auto kernel = mstep_stats_kernel<T, 0>;
-#ifndef VLGP_MSTEP_GENERIC
-  if (slabs == 1 && Z <= ZC_MAX) kernel = specialized<T>(Z);
-#endif
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(mstep_stats_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, smem, st>>>(y, x, mask, mu, v, a, b, part, N, Y, Z, X, hess, rpc, ecap);
+  mstep_stats_kernel<T><<<grid, NT, smem, st>>>(y, x, mask, mu, v, a, b, part, N, Y, Z, X, hess,
+                                                rpc, ecap);
   return cudaGetLastError();
 }
 
@@ -657,6 +970,10 @@ int mstep_stats_plan(int N, int Y, int Z, int X, int hess, int is_double, int* c
   int rpc, ecap, slabs;
   *entries = is_double ? stats_plan<double>(N, Y, Z, X, hess, &rpc, chunks, &ecap, &slabs)
                        : stats_plan<float>(N, Y, Z, X, hess, &rpc, chunks, &ecap, &slabs);
+  if (register_path(Z, X, is_double)) {
+    int lanes;
+    reg_plan(N, Y, &lanes, &rpc, chunks);
+  }
   return 0;
 }
 

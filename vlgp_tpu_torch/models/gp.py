@@ -18,6 +18,7 @@ from ..data import TrialSet
 # _golden_min and gp_elbo_stats live in ops/golden.py (the search's plain
 # version) and keep their names here for this module's callers
 from ..ops.golden import _golden_min, gp_elbo_stats, hstep_search  # noqa: F401
+from ..ops.hstat import hstep_stat
 from ..ops.ichol import ichol_gauss, ichol_gauss_batch, nystrom_gauss_batch
 from ..ops.spd import inv_one_plus_gram
 from ..utils.profiling import annotate
@@ -158,16 +159,9 @@ def hstep(data: TrialSet, params: Params, config: Config, dist: Dist = Dist(),
                                   warm_iters=max(config.ns_warm_iters, 8),
                                   probe=warm_probe)
             R = X.shape[-1]
-            Zs, S = wt2.shape[0], wt2.shape[1]
-            P = wt2[..., None] * G_om[:, None]  # (Z, S, T, R): diag(w~) G
-            Q = P @ X  # (Z, S, T, R)
-            vQ = valid[None, :, None, None] * Q
-            # sum_s Q_s P_s' as one (T, S R) x (S R, T) product per latent
-            sum_QP = vQ.permute(0, 2, 1, 3).reshape(Zs, T, S * R) @ \
-                P.permute(0, 2, 1, 3).reshape(Zs, T, S * R).mT
-            sum_X = torch.einsum("s,zsrq->zrq", valid, X)
-            sum_QA = torch.einsum("s,zstr->ztr", valid, P - Q)  # Q A = P - Q
-            sum_QP, sum_X, sum_QA = _psum((sum_QP, sum_X, sum_QA), dist, "data")
+            # sum_s Q_s P_s', X_s and Q_s A_s = P_s - Q_s over this device's
+            # segments (P = diag(w~) G, Q = P X): one kernel on the card
+            sum_QP, sum_X, sum_QA = _psum(hstep_stat(G_om, wt2, X, valid), dist, "data")
             eyeR = torch.eye(R, dtype=dtype, device=device)
             sum_AXA_mA = sum_X - nseg_total * eyeR  # A X A - A = X - I
             KK = G_om @ G_om.mT

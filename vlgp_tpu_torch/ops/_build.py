@@ -25,7 +25,7 @@ __all__ = ["build", "load_library", "BUILD_SECONDS", "SOURCES"]
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("ns_inverse", "sweep", "spd_inverse", "graph_cond", "svd_loading", "lorenz",
-           "mstep", "hstep")
+           "mstep", "hstep", "hstep_stat")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -65,6 +65,10 @@ _SIGNATURES = {
     "hstep": {
         "hstep_search_scratch": ([_i, _i], _i),
         "hstep_search": ([_p] * 7 + [_i] * 2 + [_d] * 2 + [_i] * 4 + [_d, _i, _p], _i),
+    },
+    "hstep_stat": {
+        "hstep_stat_plan": ([_i] * 4, _i),
+        "hstep_stat": ([_p] * 8 + [_i] * 5 + [_p], _i),
     },
 }
 

@@ -98,7 +98,8 @@ _FUSED_PROBE = os.environ.get("VLGP_FUSED_PROBE", "0") == "1"
 # replays (ops/control.py).
 KERNEL_LAUNCHES = {"ns_gram": 0, "ns_packed": 0, "probe_skip": 0,
                    "spd_inverse": 0, "sweep": 0, "svd_loading": 0, "lorenz": 0,
-                   "mstep_stats": 0, "mstep_update": 0, "hstep_search": 0}
+                   "mstep_stats": 0, "mstep_update": 0, "hstep_search": 0,
+                   "hstep_stat": 0}
 ROUTE_CALLS = {"gram": 0, "packed": 0, "sweep": 0}
 FALLBACKS = {
     "gram_probe_reject": 0, "gram_refine_fail": 0,
