@@ -61,17 +61,23 @@ Phases, each of which raises on failure:
    channel), in float32 and float64: each statistic and output within
    MSTEP_TOL, the whole iteration within MSTEP_ITER_TOL, both routes (the
    update reducing the partial sums, and the reduce launch of a sharded
-   fit) and a second call bit for bit; hstep_search (csrc/hstep.cu) on the
-   flagship C recorded from one H-step of the fit, polish and the
-   profiled sigma on and off, at T = 1, 17, 128 and 200 (global scratch),
-   with failing Cholesky candidates and an all-NaN latent: the kernel's x
-   as good as the plain version's under the plain objective (HSTEP_FTOL)
-   and in the same grid cell where that cell is determined; each timed
-   at the flagship;
+   fit) and a second call bit for bit; hstep_search (csrc/hstep.cu, one
+   thread-block cluster per latent) on the flagship C recorded from one
+   H-step of the fit, polish and the profiled sigma on and off, grid 20
+   with 7 shrinks and polish, Z12 (more blocks than the card has SMs), at
+   T = 1, 17, 128, 200 and 150 (float32) or 100 (float64), the
+   last three in global scratch, with failing Cholesky candidates and an
+   all-NaN latent: the kernel's x as good as the plain version's under the
+   plain objective (HSTEP_FTOL), in the same grid cell where that cell is
+   determined, and equal bit for bit to the nb = 1 chain of single
+   evaluations (cluster size, rounds and scratch logged); timed at the
+   flagship (the cluster, the chain and the plain version), at Z12 and at
+   T1000 (window=None, the scratch path);
    (6d, after 6c on the same state) hstep_stat (csrc/hstep_stat.cu, the
    H-step's statistic) against its plain version on the first refinement
    of one H-step on the fit's segments (Z5 S2000 T50 R40), at T1000 R50
-   S100 (window=None), T1 R1, T17 R17, T200 R128, a ragged S301 with
+   S100 (window=None), T1 R1, T17 R17, T65 R40 and T130 R50 (ragged tiles
+   of the T > 64 route), T200 R128, a ragged S301 with
    valid-0 segments and one whose w~ is 0, and a NaN segment (valid 0)
    whose latent alone must come out NaN, in float32 and float64: each sum
    within HSTAT_TOL of its largest |entry|, a second call bit for bit, and
@@ -1424,10 +1430,11 @@ def record_hstep(seg, params, cfg, stat=None):
 
 def hstep_compare(tag, args, kw, C_kernel=None):
     """One search, kernel against plain (HSTEP_FTOL above); both kernel
-    calls equal bit for bit.  With ``C_kernel`` the kernel searches that
-    statistic (6d: hstep_stat's) and the plain version, and the objective
-    in float64, args' C.  Returns (max |dx| / (hi - lo), the largest
-    float64 objective gap relative to |f64|)."""
+    calls, and the nb = 1 chain of single evaluations, equal bit for bit
+    (the cluster's schedule does not move x).  With ``C_kernel`` the
+    kernel searches that statistic (6d: hstep_stat's) and the plain
+    version, and the objective in float64, args' C.  Returns (max |dx| /
+    (hi - lo), the largest float64 objective gap relative to |f64|)."""
     from vlgp_tpu_torch.ops import golden as og
 
     C, nseg, sigsq, gp_noise, dt, lo, hi, iters = args
@@ -1438,6 +1445,14 @@ def hstep_compare(tag, args, kw, C_kernel=None):
                                  kw["profile_sigma"])
     if not torch.equal(og.hstep_search(*kargs, **kw), x_k):
         raise AssertionError(f"6c hstep_search {tag}: two calls differ")
+    # the cluster's search against the chain of single evaluations (nb = 1)
+    x_1 = og._hstep_search_cuda(*kargs, kw["polish"], kw["grid"], kw["tiebreak"],
+                                kw["profile_sigma"], nb=1)
+    if not same_bits(x_k, x_1):
+        raise AssertionError(f"6c hstep_search {tag}: the cluster's x {x_k.tolist()} is not the "
+                             f"nb = 1 chain's {x_1.tolist()} bit for bit")
+    plan = og.cluster_plan(C.shape[0], C.shape[1], dtype, kw["grid"], iters, kw["polish"],
+                           C.device)
     if not torch.equal(torch.isnan(x_k), torch.isnan(x_p)):
         raise AssertionError(f"6c hstep_search {tag}: NaN x differ: {x_k} vs {x_p}")
     f = og._objective(C, nseg, sigsq, gp_noise, dt, kw["profile_sigma"])
@@ -1479,7 +1494,8 @@ def hstep_compare(tag, args, kw, C_kernel=None):
     log(f"  hstep_search {tag} {str(dtype)[6:]}: max |dx| {dx:.2e} of the box, f64 gap "
         f"{gap:.2e} relative (objective noise {rel_noise:.1e}, HSTEP_FTOL "
         f"{HSTEP_FTOL[dtype]:.0e}), same grid cell in {cells} determined latents, repeat bit "
-        f"for bit")
+        f"for bit; clusters of {plan['nb']} in {plan['rounds']} rounds equal the chain bit for "
+        f"bit")
     return dx, gap
 
 
@@ -1499,14 +1515,16 @@ def gp_statistic(Z, T, nseg, dtype, device, gen):
 
 
 def check_hstep(device, gen, result):
-    """6c, second part: hstep_search against its plain version on the
-    flagship C (Z5 T50) recorded from one H-step on phase 8's fit, with and
-    without polish and the profiled sigma, then at T = 1, 17, 128 and 200
-    (above the float32 shared-memory limit, T 138; float64 goes to global
-    scratch from T = 98), a C whose candidates fail Cholesky at the smooth end of
-    the box (gp_noise -1e-3), and an all-NaN column, in float32 and float64; times the
-    flagship search.  Returns (worst objective gap, kernel ms, plain ms,
-    bound ms, what binds, evaluations per search)."""
+    """6c, second part: hstep_search against its plain version and the
+    nb = 1 chain on the flagship C (Z5 T50) recorded from one H-step on
+    phase 8's fit, with and without polish and the profiled sigma, with
+    grid 20 and 7 shrinks, at Z12, then at T = 1, 17, 128, 200 and 150
+    (float32) or 100 (float64) (global scratch above T 138 in float32 and
+    T 97 in float64), a C whose candidates fail Cholesky at the smooth end
+    of the box (gp_noise -1e-3), and an all-NaN column, in float32 and
+    float64; times the flagship search, Z12 and T1000.  Returns (worst
+    objective gap, kernel ms, plain ms, bound ms, what binds, the launch's
+    cluster_plan)."""
     from vlgp_tpu_torch.ops import golden as og
 
     seg, params, cfg = fit_segments(result)
@@ -1522,7 +1540,16 @@ def check_hstep(device, gen, result):
                     f"flagship C Z5 T50 (fit state), polish {polish}, profiled sigma {profile}",
                     args, kw)[1])
         C, nseg, sigsq, gp_noise, dt, lo, hi, iters = args
-        for T in (1, 17, 128, 200):
+        # more grid candidates than a cluster has blocks, a short last round
+        worst = max(worst, hstep_compare("flagship C, grid 20, 7 shrinks, polish",
+                                         [*args[:7], 7], dict(kw0, grid=20, polish=True))[1])
+        # more blocks than the card has SMs
+        Cz = gp_statistic(12, 50, 100.0, dtype, device, gen)
+        a = [Cz, nseg.new_tensor(100.0), sigsq[:1].repeat(12), gp_noise, dt, lo[:1].repeat(12),
+             hi[:1].repeat(12), iters]
+        worst = max(worst, hstep_compare("Z12 T50", a, dict(kw0))[1])
+        # global scratch from T = 139 (float32) and T = 98 (float64)
+        for T in (1, 17, 128, 200) + ((150,) if dtype == torch.float32 else (100,)):
             Cs = gp_statistic(3, T, 100.0, dtype, device, gen)
             a = [Cs, nseg.new_tensor(100.0), sigsq[:3], gp_noise, dt, lo[:3], hi[:3], iters]
             worst = max(worst, hstep_compare(f"Z3 T{T}", a, dict(kw0, polish=True))[1])
@@ -1550,19 +1577,55 @@ def check_hstep(device, gen, result):
                                  f"not lo {float(lo[1])}")
         worst = max(worst, hstep_compare("all-NaN column (latent 1)", a, kw0)[1])
     args = [a.to(torch.float32) if torch.is_tensor(a) else a for a in args0]
+    pol, grid, tb, prof = kw0["polish"], kw0["grid"], kw0["tiebreak"], kw0["profile_sigma"]
     ms = time_ms(lambda: og.hstep_search(*args, **kw0))
-    pms = time_ms(lambda: og._hstep_search_plain(*args, kw0["polish"], kw0["grid"],
-                                                 kw0["tiebreak"], kw0["profile_sigma"]))
+    chain_ms = time_ms(lambda: og._hstep_search_cuda(*args, pol, grid, tb, prof, nb=1))
+    pms = time_ms(lambda: og._hstep_search_plain(*args, pol, grid, tb, prof))
     C = args[0]
     Z, T = C.shape[0], C.shape[1]
-    evals = kw0["grid"] + 2 + args[7] + int(kw0["polish"])
-    # per evaluation: the Cholesky (T^3/6 FMAs) and L^-1 [C | I] (2 T^3/3);
-    # C read once, x written once
+    evals = grid + 2 + args[7] + int(pol)
+    plan = og.cluster_plan(Z, T, C.dtype, grid, args[7], pol, device)
+    # per evaluation of the chain: the Cholesky (T^3/6 FMAs) and L^-1 [C |
+    # I] (2 T^3/3); C read once, x written once
     b_ms, b_by = bound(Z * evals * 5 * T ** 3 // 6, 4 * (Z * T * T + 5 * Z))
-    log(f"  hstep_search flagship Z{Z} T{T} float32, {evals} evaluations (a chain of "
-        f"{evals * T} dependent column steps): kernel {fmt_ms(ms)}, plain {fmt_ms(pms)}, "
-        f"bound {b_ms:.2e} ms ({b_by})")
-    return worst, ms, pms, b_ms, b_by, evals
+    log(f"  hstep_search flagship Z{Z} T{T} float32: clusters of {plan['nb']} blocks "
+        f"({plan['resident']} resident at once), {plan['rounds']} rounds of "
+        f"{evals} chained evaluations ({evals * T} dependent column steps), scratch "
+        f"{plan['scratch_bytes']} bytes: kernel {fmt_ms(ms)}, nb = 1 chain {fmt_ms(chain_ms)}, "
+        f"plain {fmt_ms(pms)}, bound {b_ms:.2e} ms ({b_by})")
+    # Z12: more blocks than SMs (clusters of 16 share SMs)
+    Cz = gp_statistic(12, T, 100.0, torch.float32, device, gen)
+    az = [Cz, args[1], args[2][:1].repeat(12), args[3], args[4], args[5][:1].repeat(12),
+          args[6][:1].repeat(12), args[7]]
+    zplan = og.cluster_plan(12, T, Cz.dtype, grid, args[7], pol, device)
+    z_ms = time_ms(lambda: og.hstep_search(*az, **kw0))
+    log(f"  hstep_search Z12 T{T} float32: clusters of {zplan['nb']} ({zplan['resident']} "
+        f"resident at once, {12 * zplan['nb']} blocks): kernel {fmt_ms(z_ms)}")
+    # window=None: whole trials, T1000, the global-scratch path; seconds a
+    # call, so one timed call of each after the first
+    Cl = gp_statistic(Z, LENGTH, 100.0, torch.float32, device, gen)
+    al = [Cl, *args[1:]]
+    lplan = og.cluster_plan(Z, LENGTH, Cl.dtype, grid, args[7], pol, device)
+    x_l = og.hstep_search(*al, **kw0)
+
+    def timed_once(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    x_1, l_chain = timed_once(lambda: og._hstep_search_cuda(*al, pol, grid, tb, prof, nb=1))
+    if not same_bits(x_l, x_1):
+        raise AssertionError("6c hstep_search T1000: the cluster's x is not the chain's")
+    _, l_ms = timed_once(lambda: og.hstep_search(*al, **kw0))
+    lb_ms, lb_by = bound(Z * evals * 5 * LENGTH ** 3 // 6, 4 * (Z * LENGTH ** 2 + 5 * Z))
+    log(f"  hstep_search Z{Z} T{LENGTH} float32 (window=None): clusters of {lplan['nb']} "
+        f"({lplan['resident']} resident at once), {lplan['rounds']} rounds, scratch "
+        f"{lplan['scratch_bytes']} bytes: kernel {l_ms:.1f} ms, nb = 1 chain {l_chain:.1f} ms "
+        f"(one call each), equal bit for bit; bound {lb_ms:.3f} ms ({lb_by})")
+    return worst, ms, pms, b_ms, b_by, plan
 
 
 # ---------------------------------------------------------------------------
@@ -1660,8 +1723,8 @@ def check_hstep_stat(device, gen, result):
         search = max(search, hstep_compare("on hstep_stat's C (flagship, first refinement)",
                                            list(a_p), kw,
                                            C_kernel=calls["hstep_search"][0][0][0])[1])
-        for Z, S, T, R in ((5, 100, 1000, 50), (3, 40, 1, 1), (3, 60, 17, 17),
-                           (2, 50, 200, 128)):
+        for Z, S, T, R in ((5, 100, 1000, 50), (3, 40, 1, 1), (3, 60, 17, 17), (3, 40, 65, 40),
+                           (3, 30, 130, 50), (2, 50, 200, 128)):
             args = hstat_case(Z, S, T, R, dtype, device, gen)
             worst = max(worst, hstat_compare(f"Z{Z} S{S} T{T} R{R}", args))
             if T == 1000 and dtype == torch.float32:
@@ -3387,7 +3450,7 @@ def main():
     # default fit; max_abs_err is the largest gap relative to each tensor's
     # largest |value| (mstep) and the largest objective gap (hstep_search)
     m_err, s_ms, s_pms, s_bms, s_by, u_ms, u_pms, u_bms, u_by = ms_out
-    h_err, h_ms, h_pms, h_bms, h_by, h_evals = hs_out
+    h_err, h_ms, h_pms, h_bms, h_by, h_plan = hs_out
     kernels += [
         {"name": f"mstep_stats (Z{ZDIM} S2000 T50 Y{YDIM} X1, partial sums)", "route": "cuda",
          "source": "vlgp_tpu_torch/csrc/mstep.cu", "replaces": "vlgp_tpu/models/vlgp.py:374",
@@ -3398,7 +3461,8 @@ def main():
          "replaces": "vlgp_tpu/models/vlgp.py:374", "launches": default[0]["mstep_update"],
          "max_abs_err": m_err, "ms": u_ms[0], "plain_ms": u_pms[0], "bound_ms": u_bms,
          "bound_by": u_by, "library_ms": None},
-        {"name": f"hstep_search (Z{ZDIM} T50, {h_evals} chained evaluations)", "route": "cuda",
+        {"name": f"hstep_search (Z{ZDIM} T50, clusters of {h_plan['nb']}, {h_plan['rounds']} "
+                 f"rounds)", "route": "cuda",
          "source": "vlgp_tpu_torch/csrc/hstep.cu", "replaces": "vlgp_tpu/models/gp.py:255",
          "launches": default[0]["hstep_search"], "max_abs_err": h_err, "ms": h_ms[0],
          "plain_ms": h_pms[0], "bound_ms": h_bms, "bound_by": h_by, "library_ms": None},

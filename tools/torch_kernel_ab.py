@@ -1,7 +1,7 @@
 """Time the CUDA kernels of one checkout of vlgp_tpu_torch on the card, so
 that two trees can be compared in turns within one machine:
 
-    python3 tools/torch_kernel_ab.py [ROOT] [--spd-only | --designs]    # ROOT: a checkout (default: this one)
+    python3 tools/torch_kernel_ab.py [ROOT] [--spd-only | --designs | --hstep]    # ROOT: a checkout (default: this one)
 
 Builds ROOT's ``csrc/`` and prints one JSON line with the card's name and
 power limit and, per case, [median, min, max] ms over 10 calls, each
@@ -25,7 +25,15 @@ live sweep.  ``--designs`` times instead both designs of ``ns_gram`` of
 this checkout (``_ns_gram_cuda(..., design=...)``) in those three modes at
 T = 50, 100, 200, 500 and 1000 with S = 100000 / T (100 trials of 1000
 bins cut into segments of T), R = 40 and 50, and at the chunk: the
-measurements behind ``ops/spd.py:_PAIRS_MIN_T``.  The inputs are made with
+measurements behind ``ops/spd.py:_PAIRS_MIN_T``.  ``--hstep`` runs the
+flagship's default fit and prints the SHA-256 of its params and posterior
+means (equal across two trees when their fits are equal bit for bit), then
+times the H-step's kernels on that fit's state as ``chip_smoke.py`` 6c and
+6d record it: ``hstep_search`` at the first refinement's C (Z5 T50, its x
+in hex), ``hstep_stat`` at the fit's segments (Z5 S2000 T50 R40) and at
+whole trials (Z5 S100 T1000 R50, ``chip_smoke.hstat_case``), each beside
+its plain version, and the SM clock and power (``nvidia-smi``) while the
+T1000 call runs back to back.  The inputs are made with
 ``chip_smoke.py``'s helpers, from seed 0 (the sweep's from the seed of its
 draw).  Needs a CUDA device.
 """
@@ -34,11 +42,13 @@ import json
 import pathlib
 import subprocess
 import sys
+import time
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 SPD_ONLY = "--spd-only" in sys.argv[1:]
 DESIGNS = "--designs" in sys.argv[1:]
+HSTEP = "--hstep" in sys.argv[1:]
 ROOT = pathlib.Path(ARGS[0]).resolve() if ARGS else HERE
 sys.path.insert(0, str(ROOT))
 
@@ -64,8 +74,8 @@ def main():
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     out = {"root": str(ROOT), "card": smi.splitlines()[0]}
-    if DESIGNS:
-        time_designs(device, gen, out)
+    if DESIGNS or HSTEP:
+        (time_designs if DESIGNS else time_hstep)(device, gen, out)
         print(json.dumps(out))
         return
     if not SPD_ONLY:
@@ -155,6 +165,44 @@ def time_designs(device, gen, out):
         time_gram_modes(device, gen, out, 25 * cs.NTRIAL, cs.LENGTH, 50,
                         f"{design} S2500 T1000 R50", design=design)
     time_gram_yardstick(device, gen, out)
+
+
+def time_hstep(device, gen, out):
+    """The flagship fit's digest and the H-step's kernels on its state."""
+    import hashlib
+
+    from vlgp_tpu_torch.ops import golden as og
+    from vlgp_tpu_torch.ops import hstat as oh
+
+    result = cs.run_fit(False)[6]
+    h = hashlib.sha256()
+    for t in (result.params.a, result.params.b, result.params.omega, result.data.mu):
+        h.update(t.detach().cpu().numpy().tobytes())
+    out["flagship fit sha256 (a, b, omega, mu)"] = h.hexdigest()
+    seg, params, cfg = cs.fit_segments(result)
+    calls = cs.record_hstep(seg, params, cfg)
+    args, kw = calls["hstep_search"][0]
+    out["hstep_search x (hex)"] = [float.hex(v) for v in og.hstep_search(*args, **kw).tolist()]
+    out["hstep_search Z5 T50"] = cs.time_ms(lambda: og.hstep_search(*args, **kw))
+    out["hstep_search plain"] = cs.time_ms(lambda: og._hstep_search_plain(
+        *args, kw["polish"], kw["grid"], kw["tiebreak"], kw["profile_sigma"]))
+    cases = [("Z5 S2000 T50 R40", list(calls["hstep_stat"][0][0])),
+             ("Z5 S100 T1000 R50", cs.hstat_case(5, 100, 1000, 50, torch.float32, device,
+                                                 gen.manual_seed(0)))]
+    for tag, a in cases:
+        out[f"hstep_stat {tag}"] = cs.time_ms(lambda: oh.hstep_stat(*a))
+        out[f"hstep_stat {tag} plain"] = cs.time_ms(lambda: oh._hstep_stat_plain(*a))
+    # the SM clock and power while the T1000 call runs back to back for 3 s
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader", "-lms", "250"], stdout=subprocess.PIPE,
+                           text=True)
+    tic = time.perf_counter()
+    while time.perf_counter() - tic < 3.0:
+        for _ in range(50):
+            oh.hstep_stat(*cases[1][1])
+        torch.cuda.synchronize()
+    smi.terminate()
+    out["clocks.sm, power.draw during hstep_stat T1000"] = smi.communicate()[0].split("\n")[4:12]
 
 
 def time_sweep(device, gen):

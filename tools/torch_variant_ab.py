@@ -7,8 +7,9 @@ Each variant is ``csrc/<source>.cu`` (or FILE.cu, e.g. the same source of
 another tree unpacked with ``git archive``, next to its own headers)
 compiled with the package's nvcc flags plus FLAGS (one string, split on
 spaces, e.g. ``-DVLGP_MSTEP_GENERIC``) into ``vlgp_tpu_torch/_build/ab/``;
-the builds run in parallel.  For each case the variants are timed in
-turns, v1 .. vn then vn .. v1 ([median, min, max] ms over 10 calls, each
+the builds run in parallel.  For each case the plain version and the
+variants are timed in turns, plain, v1 .. vn, vn .. v1, plain ([median,
+min, max] ms over 10 calls, each
 between its own pair of CUDA events, ``chip_smoke.time_ms``), and each
 variant's outputs are held against the first variant's and against the
 plain version's in float64 on the same inputs (the largest gap relative
@@ -141,7 +142,8 @@ def main():
     try:
         for tag, timed, run, plain64, plain in cases(opts.source, device, gen):
             ref64 = plain64()
-            entry = {"plain_float32_vs_float64": rel(plain(), ref64)}
+            entry = {"plain_float32_vs_float64": rel(plain(), ref64),
+                     "plain_ms": [cs.time_ms(plain)]}
             first = None
             for name in names + names[::-1]:
                 _build._libs[opts.source] = libs[name]
@@ -151,6 +153,7 @@ def main():
                 entry.setdefault(name, {"vs_first": rel(got, first), "vs_float64": rel(got, ref64),
                                         "ms": []})
                 entry[name]["ms"].append(cs.time_ms(timed))
+            entry["plain_ms"].append(cs.time_ms(plain))
             result[tag] = entry
             print(tag, json.dumps(entry), flush=True)
     finally:

@@ -4,10 +4,14 @@ Counterpart of ``_golden_min(obj, lo_s, hi_s, ...)`` at
 ``vlgp_tpu/models/gp.py:270-272``, whose ``lax.fori_loop`` (:255-268) XLA
 compiles into one device loop (no Pallas kernel).  On the card one launch
 of the hand-written CUDA kernel ``csrc/hstep.cu`` runs the whole search
-for every latent: the grid scan, the golden-section shrinks and the
-optional parabolic polish, each evaluation one ``gp_elbo_stats`` (the
-Cholesky of the candidate SE kernel, tr(K^-1 C) and log|L|) computed in
-the block's shared memory.
+for every latent, one thread-block cluster per latent: the grid scan, the
+golden-section shrinks and the optional parabolic polish, each evaluation
+one ``gp_elbo_stats`` (the Cholesky of the candidate SE kernel,
+tr(K^-1 C) and log|L|) computed in a block's shared memory.  The blocks
+of a cluster evaluate the grid's candidates side by side and, after it,
+every point the next few golden shrinks can reach, so a search is a few
+rounds instead of a chain of evaluations (the schedule is in the kernel's
+header); the result does not depend on the cluster's size.
 
 ``_golden_min`` and ``gp_elbo_stats`` (the port's torch versions of
 ``vlgp_tpu``'s, ``models/gp.py`` keeps both names) make up the plain
@@ -22,10 +26,14 @@ import torch
 
 from .spd import KERNEL_LAUNCHES, _ptr, _raise_on
 
-__all__ = ["hstep_search", "gp_elbo_stats", "GRID_MAX"]
+__all__ = ["hstep_search", "gp_elbo_stats", "cluster_plan", "GRID_MAX"]
 
 # largest grid of candidates the kernel takes (its objectives sit in shared memory)
 GRID_MAX = 256
+# the kernel's cluster size per (device, T, dtype, Z, grid, iters, polish):
+# queried once from the card (csrc/hstep.cu:hstep_search_cluster), never
+# inside a capture
+_CLUSTER: dict = {}
 
 
 def _golden_min(f, lo, hi, iters: int, polish: bool = False, grid: int = 0,
@@ -127,10 +135,44 @@ def _hstep_search_plain(C, nseg, sigsq, gp_noise, dt, lo, hi, iters: int, polish
                        polish=polish, grid=grid, tiebreak=tiebreak)
 
 
+def cluster_plan(Z: int, T: int, dtype, grid: int, iters: int, polish: bool,
+                 device=None) -> dict:
+    """The kernel's launch at this shape on ``device``'s card: ``nb``, the
+    blocks of each latent's cluster (``hstep_search_cluster``'s choice,
+    cached), ``rounds`` of a search, ``resident`` clusters of that size the
+    card holds at once, and ``scratch_bytes`` of global scratch (0 when the
+    buffers sit in shared memory)."""
+    from ._build import load_library
+
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    is_double = int(dtype == torch.float64)
+    lib = load_library("hstep")
+    key = (index, T, is_double, Z, grid, iters, bool(polish))
+    if key not in _CLUSTER:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("hstep_search's first call at a shape must run before a capture "
+                               "(its cluster size is read from the card)")
+        with torch.cuda.device(index):
+            nb = lib.hstep_search_cluster(T, is_double, Z, grid, iters, int(polish))
+            resident = lib.hstep_search_resident(T, is_double, nb) if nb > 0 else 0
+        if nb < 1:
+            raise RuntimeError(f"hstep_search: no cluster size fits Z={Z} T={T} on this card "
+                               f"(hstep_search_cluster returned {nb})")
+        _CLUSTER[key] = (nb, resident)
+    nb, resident = _CLUSTER[key]
+    per_block = lib.hstep_search_scratch(T, is_double)
+    return dict(nb=nb, rounds=lib.hstep_search_rounds(nb, grid, iters, int(polish)),
+                resident=resident,
+                scratch_bytes=Z * nb * per_block * (8 if is_double else 4))
+
+
 def _hstep_search_cuda(C, nseg, sigsq, gp_noise, dt, lo, hi, iters, polish, grid, tiebreak,
-                       profile_sigma):
-    """Launch ``hstep_search``: one block per latent; global scratch for the
-    factor when it does not fit in a block's shared memory."""
+                       profile_sigma, nb=None):
+    """Launch ``hstep_search``: one cluster of ``nb`` blocks per latent
+    (default ``cluster_plan``'s; ``nb=1`` runs the chain of single
+    evaluations, with the same result); global scratch for each block's
+    factor when it does not fit in shared memory."""
     from ._build import load_library
 
     Z, T = C.shape[0], C.shape[1]
@@ -143,19 +185,23 @@ def _hstep_search_cuda(C, nseg, sigsq, gp_noise, dt, lo, hi, iters, polish, grid
             raise TypeError(f"{name} must be {C.dtype}, got {t.dtype}")
     if nseg.numel() != 1 or any(tuple(t.shape) != (Z,) for t in (sigsq, lo, hi)):
         raise ValueError("hstep_search takes one nseg and sigsq, lo, hi of shape (Z,)")
+    if nb is None:
+        nb = cluster_plan(Z, T, C.dtype, grid, iters, polish, C.device)["nb"]
+    elif not 1 <= nb <= 16:
+        raise ValueError(f"hstep_search takes 1 <= nb <= 16 blocks per latent, got {nb}")
     C, nseg, sigsq, lo, hi = (t.contiguous() for t in (C, nseg, sigsq, lo, hi))
     is_double = int(C.dtype == torch.float64)
     lib = load_library("hstep")
-    per_latent = lib.hstep_search_scratch(T, is_double)
-    scratch = (torch.empty((Z * per_latent,), dtype=C.dtype, device=C.device)
-               if per_latent else None)
+    per_block = lib.hstep_search_scratch(T, is_double)
+    scratch = (torch.empty((Z * nb * per_block,), dtype=C.dtype, device=C.device)
+               if per_block else None)
     x = torch.empty((Z,), dtype=C.dtype, device=C.device)
     with torch.cuda.device(C.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(C.device).cuda_stream)
         rc = lib.hstep_search(_ptr(C), _ptr(nseg), _ptr(sigsq), _ptr(lo), _ptr(hi), _ptr(x),
                               _ptr(scratch), Z, T, float(gp_noise), float(dt),
                               int(profile_sigma), iters, int(polish), grid, float(tiebreak),
-                              is_double, stream)
+                              is_double, nb, stream)
     _raise_on(rc, lib, "hstep_search")
     KERNEL_LAUNCHES["hstep_search"] += 1
     return x

@@ -73,7 +73,7 @@ def _hstep_stat_cuda(G, wt2, X, valid):
         raise ValueError(f"the hstep_stat kernel takes R <= T, got R={R}, T={T}")
     G, wt2, X, valid = (t.contiguous() for t in (G, wt2, X, valid))
     lib = load_library("hstep_stat")
-    chunks = lib.hstep_stat_plan(Z, S, T, R)
+    chunks = lib.hstep_stat_plan(Z, S, T, R, int(G.dtype == torch.float64))
     if chunks < 1:
         raise ValueError(f"the hstep_stat kernel does not take Z={Z} S={S} T={T} R={R}")
     # scratch and outputs from torch's allocator (a capture's pool under a graph)
