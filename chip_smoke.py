@@ -64,15 +64,19 @@ Phases, each of which raises on failure:
    fit) and a second call bit for bit; hstep_search (csrc/hstep.cu, one
    thread-block cluster per latent) on the flagship C recorded from one
    H-step of the fit, polish and the profiled sigma on and off, grid 20
-   with 7 shrinks and polish, Z12 (more blocks than the card has SMs), at
-   T = 1, 17, 128, 200 and 150 (float32) or 100 (float64), the
-   last three in global scratch, with failing Cholesky candidates and an
-   all-NaN latent: the kernel's x as good as the plain version's under the
-   plain objective (HSTEP_FTOL), in the same grid cell where that cell is
-   determined, and equal bit for bit to the nb = 1 chain of single
-   evaluations (cluster size, rounds and scratch logged); timed at the
-   flagship (the cluster, the chain and the plain version), at Z12 and at
-   T1000 (window=None, the scratch path);
+   with 7 shrinks and polish, Z12 at T50 and T200 (more blocks than the
+   card has SMs), at T = 1, 17 and 128 in shared memory and on the wide
+   path (a group of blocks to an evaluation, global scratch) at T = 139,
+   150, 200, 257 and 1000 (float32) or 98, 100 and 200 (float64), with
+   failing Cholesky candidates and an all-NaN latent at T50 and T200: the
+   kernel's x as good as the plain version's under the plain objective
+   (HSTEP_FTOL), in the same grid cell where that cell is determined, and
+   the same bits in every plan the kernel can run (search_plans: cluster
+   size, blocks per evaluation, the nb = 1 chain); timed at the flagship
+   (the cluster, the chain and the plain version), at Z12, and at T150,
+   T200 and T1000 (window=None) beside the plain version, the library's
+   evaluation (cholesky_ex and two solve_triangular) times the
+   evaluations, and the bound;
    (6d, after 6c on the same state) hstep_stat (csrc/hstep_stat.cu, the
    H-step's statistic) against its plain version on the first refinement
    of one H-step on the fit's segments (Z5 S2000 T50 R40), at T1000 R50
@@ -176,7 +180,14 @@ Phases, each of which raises on failure:
    beside the "fro" fit's; and fit_sharded(block=3) with "svd" over nccl
    at world 1 against block=1, bit for bit; then one eager and one fused fit under
    torch.profiler (kernels, busy and idle share, launch calls and host
-   syncs, for the fit and its EM loop).
+   syncs, for the fit and its EM loop);
+13. window=None (whole 1000-bin trials, so the H-step searches on the
+   wide path of hstep_search): the flagship fit eagerly and with
+   fit(fused=True), each with the counters set to 0 just before it: wall,
+   EM loop, the H-step's share, the eager fit's searches' device time
+   (each call between CUDA events), capture time, R^2 and launches; the
+   fused fit's decision counts and params at every EM iteration boundary
+   equal the eager fit's bit for bit.
 
 Times are per call, each between its own pair of CUDA events, over 10
 calls after a warm-up, printed as median [min-max] (mstep_update and its
@@ -185,7 +196,8 @@ than a launch's host cost).  Ends with one JSON
 line of per-kernel results (launches on their path, the worst |kernel -
 plain|, the median kernel, plain and library times, and the bound computed
 from this run's shapes and counts; ns_gram and ns_packed also at 9c's
-chunk shapes, with 9c's launches at batch 25) and, last, one JSON line
+chunk shapes, with 9c's launches at batch 25; hstep_search also on its
+wide path at T1000, with phase 13's launches) and, last, one JSON line
 naming the device.  Imports nothing of JAX.
 """
 import collections
@@ -1428,13 +1440,28 @@ def record_hstep(seg, params, cfg, stat=None):
     return calls
 
 
-def hstep_compare(tag, args, kw, C_kernel=None):
-    """One search, kernel against plain (HSTEP_FTOL above); both kernel
-    calls, and the nb = 1 chain of single evaluations, equal bit for bit
-    (the cluster's schedule does not move x).  With ``C_kernel`` the
-    kernel searches that statistic (6d: hstep_stat's) and the plain
-    version, and the objective in float64, args' C.  Returns (max |dx| /
-    (hi - lo), the largest float64 objective gap relative to |f64|)."""
+def search_plans(T, dtype):
+    """Every (nb, per) plan hstep_search can run at T: clusters of 16, 8, 4,
+    2 and 1 blocks, per = 1 in shared memory and any power of two dividing
+    nb on the wide path (T > 138 float32, T > 97 float64)."""
+    from vlgp_tpu_torch.ops._build import load_library
+
+    wide = load_library("hstep").hstep_search_scratch(T, int(dtype == torch.float64)) != 0
+    nbs = (16, 8, 4, 2, 1)
+    return [(nb, per) for nb in nbs for per in nbs if per <= nb and (wide or per == 1)]
+
+
+def hstep_compare(tag, args, kw, C_kernel=None, determined=False):
+    """One search, kernel against plain (HSTEP_FTOL above); two calls of the
+    kernel, and every plan it can run (search_plans: the cluster's size,
+    the blocks that share an evaluation, the nb = 1 chain of single
+    evaluations), equal bit for bit.  With ``C_kernel`` the kernel searches
+    that statistic (6d: hstep_stat's) and the plain version, and the
+    objective in float64, args' C.  ``determined``: a well-conditioned case,
+    which fails unless every latent's grid cell is determined (the grid's
+    f64 objectives apart by more than the noise and the tolerance).
+    Returns (max |dx| / (hi - lo), the largest float64 objective gap
+    relative to |f64|)."""
     from vlgp_tpu_torch.ops import golden as og
 
     C, nseg, sigsq, gp_noise, dt, lo, hi, iters = args
@@ -1445,12 +1472,13 @@ def hstep_compare(tag, args, kw, C_kernel=None):
                                  kw["profile_sigma"])
     if not torch.equal(og.hstep_search(*kargs, **kw), x_k):
         raise AssertionError(f"6c hstep_search {tag}: two calls differ")
-    # the cluster's search against the chain of single evaluations (nb = 1)
-    x_1 = og._hstep_search_cuda(*kargs, kw["polish"], kw["grid"], kw["tiebreak"],
-                                kw["profile_sigma"], nb=1)
-    if not same_bits(x_k, x_1):
-        raise AssertionError(f"6c hstep_search {tag}: the cluster's x {x_k.tolist()} is not the "
-                             f"nb = 1 chain's {x_1.tolist()} bit for bit")
+    plans = search_plans(C.shape[1], dtype)
+    for nb, per in plans:
+        x_n = og._hstep_search_cuda(*kargs, kw["polish"], kw["grid"], kw["tiebreak"],
+                                    kw["profile_sigma"], nb=nb, per=per)
+        if not same_bits(x_k, x_n):
+            raise AssertionError(f"6c hstep_search {tag}: the plan's x {x_k.tolist()} is not "
+                                 f"plan (nb {nb}, per {per})'s {x_n.tolist()} bit for bit")
     plan = og.cluster_plan(C.shape[0], C.shape[1], dtype, kw["grid"], iters, kw["polish"],
                            C.device)
     if not torch.equal(torch.isnan(x_k), torch.isnan(x_p)):
@@ -1488,24 +1516,57 @@ def hstep_compare(tag, args, kw, C_kernel=None):
             raise AssertionError(f"6c hstep_search {tag}: another grid cell than the plain "
                                  f"rule's ({x_k.tolist()} vs {x_p.tolist()})")
         cells = int(apart.sum())
+    if determined and cells != C.shape[0]:
+        raise AssertionError(f"6c hstep_search {tag}: the grid cell is determined in {cells} "
+                             f"of {C.shape[0]} latents")
     span = (hi - lo).abs().clamp_min(1e-30)
     dx = float(torch.nan_to_num((x_k - x_p).abs() / span).max())
     rel_noise = float((noise / fp.abs().clamp_min(1e-30))[fin].max()) if bool(fin.any()) else 0.0
     log(f"  hstep_search {tag} {str(dtype)[6:]}: max |dx| {dx:.2e} of the box, f64 gap "
         f"{gap:.2e} relative (objective noise {rel_noise:.1e}, HSTEP_FTOL "
         f"{HSTEP_FTOL[dtype]:.0e}), same grid cell in {cells} determined latents, repeat bit "
-        f"for bit; clusters of {plan['nb']} in {plan['rounds']} rounds equal the chain bit for "
-        f"bit")
+        f"for bit; plan nb {plan['nb']} per {plan['per']} ({plan['rounds']} rounds), the "
+        f"same x bit for bit in all {len(plans)} plans")
     return dx, gap
 
 
-def gp_statistic(Z, T, nseg, dtype, device, gen):
+def hstep_search_bound(Z, T, evals):
+    """(ms, what binds) of a search's evaluations, each the least work of
+    gp_elbo_stats: the Cholesky ((T^3 - T) / 6 FMAs), K^-1 = L^-T L^-1 from
+    L (trtri and lauum, (T^3 - T) / 3) and tr(K^-1 C) as the sum of K^-1 (.)
+    C (T^2); C read once and x written once (float32)."""
+    fma = (T ** 3 - T) // 2 + T * T
+    return bound(Z * evals * fma, 4 * (Z * T * T + 5 * Z))
+
+
+def library_chain_ms(C, nseg, sigsq, gp_noise, dt, lo, hi, evals):
+    """The library's evaluation (cholesky_ex and two solve_triangular on the
+    Z candidate kernels at the box's middle, the plain version's calls)
+    timed, times the search's evaluations: (median, min, max) ms."""
+    from vlgp_tpu_torch.ops import golden as og
+
+    T = C.shape[-1]
+    t = torch.arange(T, dtype=C.dtype, device=C.device) * dt
+    om = torch.exp(0.5 * (lo + hi))[:, None, None]
+    K = sigsq[:, None, None] * torch.exp(-om * (t[:, None] - t[None]) ** 2) + gp_noise * torch.eye(
+        T, dtype=C.dtype, device=C.device)
+
+    def chain():
+        L, _ = torch.linalg.cholesky_ex(K)
+        half = torch.linalg.solve_triangular(L, C, upper=False)
+        return torch.linalg.solve_triangular(L.mT, half, upper=True)
+
+    return tuple(evals * v for v in time_ms(chain))
+
+
+def gp_statistic(Z, T, nseg, dtype, device, gen, log_omega=(-6.0, -1.0)):
     """A C like the H-step's: nseg times the covariance of SE draws at each
-    latent's omega plus a posterior term."""
+    latent's omega (log omega uniform on ``log_omega``) plus a posterior
+    term."""
     t = torch.arange(T, dtype=torch.float64, device=device)
     dsq = (t[:, None] - t[None]) ** 2
     om = torch.exp(torch.empty(Z, dtype=torch.float64, device=device).uniform_(
-        -6.0, -1.0, generator=gen))
+        *log_omega, generator=gen))
     K = torch.exp(-om[:, None, None] * dsq) + 1e-3 * torch.eye(T, dtype=torch.float64,
                                                                device=device)
     L = torch.linalg.cholesky(K)
@@ -1515,16 +1576,21 @@ def gp_statistic(Z, T, nseg, dtype, device, gen):
 
 
 def check_hstep(device, gen, result):
-    """6c, second part: hstep_search against its plain version and the
-    nb = 1 chain on the flagship C (Z5 T50) recorded from one H-step on
-    phase 8's fit, with and without polish and the profiled sigma, with
-    grid 20 and 7 shrinks, at Z12, then at T = 1, 17, 128, 200 and 150
-    (float32) or 100 (float64) (global scratch above T 138 in float32 and
-    T 97 in float64), a C whose candidates fail Cholesky at the smooth end
-    of the box (gp_noise -1e-3), and an all-NaN column, in float32 and
-    float64; times the flagship search, Z12 and T1000.  Returns (worst
-    objective gap, kernel ms, plain ms, bound ms, what binds, the launch's
-    cluster_plan)."""
+    """6c, second part: hstep_search against its plain version and every
+    plan the kernel can run on the flagship C (Z5 T50) recorded from one
+    H-step on phase 8's fit, with and without polish and the profiled
+    sigma, with grid 20 and 7 shrinks, at Z12, then at T = 1, 17, 128 in
+    shared memory and on the wide path (one evaluation on a group of
+    blocks over global scratch, above T 138 in float32 and T 97 in
+    float64) at T = 139, 150, 200, 257 and 1000 (float32) or 98, 100 and
+    200 (float64), in float32 at T257 and T1000 a well-conditioned C (a
+    rough box, gp_noise 0.1) whose every grid cell is determined, Z12 at
+    T200 (clusters in waves), a C whose candidates fail Cholesky at the smooth end of the box (gp_noise -1e-3) and an
+    all-NaN column, at T50 and T200, in float32 and float64; times the
+    flagship search, Z12, and T150, T200 and T1000 (window=None) beside
+    the plain version, the library's evaluation times the evaluations and
+    the bound.  Returns (worst objective gap, kernel ms, plain ms, bound
+    ms, what binds, the launch's cluster_plan, {T: the wide path's row})."""
     from vlgp_tpu_torch.ops import golden as og
 
     seg, params, cfg = fit_segments(result)
@@ -1544,38 +1610,59 @@ def check_hstep(device, gen, result):
         worst = max(worst, hstep_compare("flagship C, grid 20, 7 shrinks, polish",
                                          [*args[:7], 7], dict(kw0, grid=20, polish=True))[1])
         # more blocks than the card has SMs
-        Cz = gp_statistic(12, 50, 100.0, dtype, device, gen)
-        a = [Cz, nseg.new_tensor(100.0), sigsq[:1].repeat(12), gp_noise, dt, lo[:1].repeat(12),
-             hi[:1].repeat(12), iters]
-        worst = max(worst, hstep_compare("Z12 T50", a, dict(kw0))[1])
-        # global scratch from T = 139 (float32) and T = 98 (float64)
-        for T in (1, 17, 128, 200) + ((150,) if dtype == torch.float32 else (100,)):
+        for T in (50, 200):
+            Cz = gp_statistic(12, T, 100.0, dtype, device, gen)
+            a = [Cz, nseg.new_tensor(100.0), sigsq[:1].repeat(12), gp_noise, dt,
+                 lo[:1].repeat(12), hi[:1].repeat(12), iters]
+            worst = max(worst, hstep_compare(f"Z12 T{T}", a, dict(kw0))[1])
+        # the wide path from T = 139 (float32) and T = 98 (float64), a
+        # partial last panel at all but T1000's 1024 - 24
+        wide = (139, 150, 200, 257, 1000) if dtype == torch.float32 else (98, 100, 200)
+        for T in (1, 17, 128) + wide:
+            Z = ZDIM if T == 1000 else 3
+            Cs = gp_statistic(Z, T, 100.0, dtype, device, gen)
+            a = [Cs, nseg.new_tensor(100.0), sigsq[:Z], gp_noise, dt, lo[:Z], hi[:Z], iters]
+            worst = max(worst, hstep_compare(f"Z{Z} T{T}", a, dict(kw0, polish=True))[1])
+        if dtype == torch.float32:
+            # the float32 cases above carry ~cond(K) eps of objective noise
+            # (the smooth end of the box at gp_noise 1e-4), which the rule
+            # allows twice over; here a rough box and gp_noise 0.1 keep it
+            # near 1e-6 of |f|, so every grid cell is determined and a
+            # fault of the float32 update (two column tiles a task, a
+            # row's short last task) cannot hide in it
+            for T in (257, 1000):
+                Z = ZDIM if T == 1000 else 3
+                Cs = gp_statistic(Z, T, 100.0, dtype, device, gen, log_omega=(-1.0, 1.0))
+                lo_r = torch.full((Z,), -2.0, dtype=dtype, device=device)
+                hi_r = torch.full((Z,), 2.0, dtype=dtype, device=device)
+                a = [Cs, nseg.new_tensor(100.0), sigsq[:Z], 0.1, dt, lo_r, hi_r, iters]
+                worst = max(worst, hstep_compare(f"Z{Z} T{T}, rough box, gp_noise 0.1", a,
+                                                 dict(kw0), determined=True)[1])
+        for T in (50, 200):
+            # gp_noise -1e-3: the smooth candidates' kernels (omega below
+            # ~e^-1) have eigenvalues under 1e-3 and fail Cholesky, the
+            # rough ones not
             Cs = gp_statistic(3, T, 100.0, dtype, device, gen)
-            a = [Cs, nseg.new_tensor(100.0), sigsq[:3], gp_noise, dt, lo[:3], hi[:3], iters]
-            worst = max(worst, hstep_compare(f"Z3 T{T}", a, dict(kw0, polish=True))[1])
-        # gp_noise -1e-3: the smooth candidates' kernels (omega below ~e^-1)
-        # have eigenvalues under 1e-3 and fail Cholesky, the rough ones not
-        Cs = gp_statistic(3, 50, 100.0, dtype, device, gen)
-        lo_s = torch.full((3,), -6.0, dtype=dtype, device=device)
-        hi_s = torch.full((3,), 2.0, dtype=dtype, device=device)
-        a = [Cs, nseg.new_tensor(100.0), sigsq[:3], -1e-3, dt, lo_s, hi_s, iters]
-        fcand = og._objective(Cs, a[1], a[2], -1e-3, dt, True)(
-            lo_s[None] + torch.linspace(0, 1, kw0["grid"], dtype=dtype, device=device)[:, None]
-            * (hi_s - lo_s)[None])
-        nbad = int(torch.isnan(fcand).sum())
-        if nbad == 0 or bool(torch.isnan(fcand).all()):
-            raise AssertionError(f"6c hstep_search: the failing-Cholesky case has {nbad} NaN "
-                                 f"candidates of {fcand.numel()}")
-        worst = max(worst, hstep_compare(f"Cholesky failing at {nbad} smooth candidates", a,
-                                         dict(kw0))[1])
-        Cn = gp_statistic(3, 50, 100.0, dtype, device, gen)
-        Cn[1] = float("nan")
-        a = [Cn, nseg.new_tensor(100.0), sigsq[:3], gp_noise, dt, lo[:3], hi[:3], iters]
-        x_k = og.hstep_search(*a, **kw0)
-        if float(x_k[1]) != float(lo[1]):
-            raise AssertionError(f"6c hstep_search: the all-NaN latent gave {float(x_k[1])}, "
-                                 f"not lo {float(lo[1])}")
-        worst = max(worst, hstep_compare("all-NaN column (latent 1)", a, kw0)[1])
+            lo_s = torch.full((3,), -6.0, dtype=dtype, device=device)
+            hi_s = torch.full((3,), 2.0, dtype=dtype, device=device)
+            a = [Cs, nseg.new_tensor(100.0), sigsq[:3], -1e-3, dt, lo_s, hi_s, iters]
+            fcand = og._objective(Cs, a[1], a[2], -1e-3, dt, True)(
+                lo_s[None] + torch.linspace(0, 1, kw0["grid"], dtype=dtype,
+                                            device=device)[:, None] * (hi_s - lo_s)[None])
+            nbad = int(torch.isnan(fcand).sum())
+            if nbad == 0 or bool(torch.isnan(fcand).all()):
+                raise AssertionError(f"6c hstep_search: the failing-Cholesky case at T{T} has "
+                                     f"{nbad} NaN candidates of {fcand.numel()}")
+            worst = max(worst, hstep_compare(
+                f"T{T}, Cholesky failing at {nbad} smooth candidates", a, dict(kw0))[1])
+            Cn = gp_statistic(3, T, 100.0, dtype, device, gen)
+            Cn[1] = float("nan")
+            a = [Cn, nseg.new_tensor(100.0), sigsq[:3], gp_noise, dt, lo[:3], hi[:3], iters]
+            x_k = og.hstep_search(*a, **kw0)
+            if float(x_k[1]) != float(lo[1]):
+                raise AssertionError(f"6c hstep_search: the all-NaN latent at T{T} gave "
+                                     f"{float(x_k[1])}, not lo {float(lo[1])}")
+            worst = max(worst, hstep_compare(f"T{T}, all-NaN column (latent 1)", a, kw0)[1])
     args = [a.to(torch.float32) if torch.is_tensor(a) else a for a in args0]
     pol, grid, tb, prof = kw0["polish"], kw0["grid"], kw0["tiebreak"], kw0["profile_sigma"]
     ms = time_ms(lambda: og.hstep_search(*args, **kw0))
@@ -1585,9 +1672,7 @@ def check_hstep(device, gen, result):
     Z, T = C.shape[0], C.shape[1]
     evals = grid + 2 + args[7] + int(pol)
     plan = og.cluster_plan(Z, T, C.dtype, grid, args[7], pol, device)
-    # per evaluation of the chain: the Cholesky (T^3/6 FMAs) and L^-1 [C |
-    # I] (2 T^3/3); C read once, x written once
-    b_ms, b_by = bound(Z * evals * 5 * T ** 3 // 6, 4 * (Z * T * T + 5 * Z))
+    b_ms, b_by = hstep_search_bound(Z, T, evals)
     log(f"  hstep_search flagship Z{Z} T{T} float32: clusters of {plan['nb']} blocks "
         f"({plan['resident']} resident at once), {plan['rounds']} rounds of "
         f"{evals} chained evaluations ({evals * T} dependent column steps), scratch "
@@ -1601,31 +1686,26 @@ def check_hstep(device, gen, result):
     z_ms = time_ms(lambda: og.hstep_search(*az, **kw0))
     log(f"  hstep_search Z12 T{T} float32: clusters of {zplan['nb']} ({zplan['resident']} "
         f"resident at once, {12 * zplan['nb']} blocks): kernel {fmt_ms(z_ms)}")
-    # window=None: whole trials, T1000, the global-scratch path; seconds a
-    # call, so one timed call of each after the first
-    Cl = gp_statistic(Z, LENGTH, 100.0, torch.float32, device, gen)
-    al = [Cl, *args[1:]]
-    lplan = og.cluster_plan(Z, LENGTH, Cl.dtype, grid, args[7], pol, device)
-    x_l = og.hstep_search(*al, **kw0)
-
-    def timed_once(fn):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
-
-    x_1, l_chain = timed_once(lambda: og._hstep_search_cuda(*al, pol, grid, tb, prof, nb=1))
-    if not same_bits(x_l, x_1):
-        raise AssertionError("6c hstep_search T1000: the cluster's x is not the chain's")
-    _, l_ms = timed_once(lambda: og.hstep_search(*al, **kw0))
-    lb_ms, lb_by = bound(Z * evals * 5 * LENGTH ** 3 // 6, 4 * (Z * LENGTH ** 2 + 5 * Z))
-    log(f"  hstep_search Z{Z} T{LENGTH} float32 (window=None): clusters of {lplan['nb']} "
-        f"({lplan['resident']} resident at once), {lplan['rounds']} rounds, scratch "
-        f"{lplan['scratch_bytes']} bytes: kernel {l_ms:.1f} ms, nb = 1 chain {l_chain:.1f} ms "
-        f"(one call each), equal bit for bit; bound {lb_ms:.3f} ms ({lb_by})")
-    return worst, ms, pms, b_ms, b_by, plan
+    # the wide path: window=None's whole trials (T1000) and two lengths
+    # just above shared memory's
+    rows = {}
+    for Tw in (150, 200, LENGTH):
+        Cw = gp_statistic(Z, Tw, 100.0, torch.float32, device, gen)
+        aw = [Cw, *args[1:]]
+        wplan = og.cluster_plan(Z, Tw, Cw.dtype, grid, args[7], pol, device)
+        w_ms = time_ms(lambda: og.hstep_search(*aw, **kw0))
+        w_pms = time_ms(lambda: og._hstep_search_plain(*aw, pol, grid, tb, prof))
+        w_lms = library_chain_ms(Cw, *args[1:7], evals)
+        w_bms, w_by = hstep_search_bound(Z, Tw, evals)
+        log(f"  hstep_search Z{Z} T{Tw} float32 (wide path): clusters of {wplan['nb']} "
+            f"({wplan['resident']} resident at once), {wplan['per']} blocks an evaluation, "
+            f"{wplan['points']} points a round, {wplan['rounds']} rounds, scratch "
+            f"{wplan['scratch_bytes']} bytes: kernel {fmt_ms(w_ms)}, plain {fmt_ms(w_pms)}, "
+            f"library chain (cholesky_ex + 2 solve_triangular, x {evals}) {fmt_ms(w_lms)}, "
+            f"bound {w_bms:.3f} ms ({w_by})")
+        rows[Tw] = dict(ms=w_ms, plain_ms=w_pms, library_ms=w_lms, bound_ms=w_bms,
+                        bound_by=w_by, plan=wplan)
+    return worst, ms, pms, b_ms, b_by, plan, rows
 
 
 # ---------------------------------------------------------------------------
@@ -3287,6 +3367,63 @@ def run_graph_traces(card):
         log(f"12 trace, {tag} fit [{card}]: {json.dumps(st)}")
 
 
+def run_window_none(card):
+    """13: the flagship workload with window=None (whole 1000-bin trials,
+    so the H-step searches on the wide path), 30 EM iterations, eagerly and
+    with fused=True, each with the counters set to 0 just before it and
+    the params recorded at every EM iteration boundary; the eager fit's
+    hstep_search calls each between a pair of CUDA events.  Logs wall, EM
+    loop, the H-step's share, the searches' device time, capture time, R^2,
+    launches and peak memory; the fused fit's decision counts and params
+    must equal the eager fit's bit for bit.  Returns (the eager fit's
+    hstep_search launches, their summed ms)."""
+    from vlgp_tpu_torch.models import gp
+
+    real = gp.hstep_search
+    events = []
+
+    def timed(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **k)
+        end.record()
+        events.append((start, end))
+        return out
+
+    seen_e, rec_e = param_recorder()
+    gp.hstep_search = timed
+    try:
+        eager, wall_e, r2_e, launch_e, mem_e = graph_fit(rec_e, window=None)
+    finally:
+        gp.hstep_search = real
+    search_ms = sum(a.elapsed_time(b) for a, b in events)
+    seen_f, rec_f = param_recorder()
+    fused, wall_f, r2_f, launch_f, mem_f = graph_fit(rec_f, window=None, fused=True)
+    for tag, res, wall, r2, launches, mem in (("eager", eager, wall_e, r2_e, launch_e, mem_e),
+                                              ("fused", fused, wall_f, r2_f, launch_f, mem_f)):
+        rt = res.runtime
+        em, h = sum(rt["em_elapsed"]), sum(rt["h_elapsed"])
+        log(f"13 window=None fit, {tag} [{card}]: {wall:.2f} s wall, EM loop {em:.3f} s "
+            f"(H-step {h:.3f} s, {h / max(em, 1e-9):.0%}), capture {rt.get('capture_s', 0):.2f} s, "
+            f"{rt['it']} iterations (converged_at {rt.get('converged_at')}), peak memory "
+            f"{mem / 2**20:.0f} MiB, R^2 {r2:.4f}; counts {rt['counts']}; launches {launches}")
+    log(f"13 window=None eager fit: {len(events)} hstep_search calls, {search_ms:.1f} ms of "
+        f"device time in all ({search_ms / max(len(events), 1):.2f} ms a search)")
+    if launch_e["hstep_search"] == 0 or len(events) != launch_e["hstep_search"]:
+        raise AssertionError(f"13: the eager window=None fit launched hstep_search "
+                             f"{launch_e['hstep_search']} times in {len(events)} calls")
+    if eager.runtime["counts"] != fused.runtime["counts"]:
+        raise AssertionError(f"13: decision counts differ: eager {eager.runtime['counts']}, "
+                             f"fused {fused.runtime['counts']}")
+    differ = same_boundaries(seen_f, seen_e)
+    if differ or fused.runtime["it"] != eager.runtime["it"]:
+        raise AssertionError(f"13: the fused fit's params differ from the eager fit's at "
+                             f"boundaries {differ[:5]} ({len(seen_f)} against {len(seen_e)})")
+    log(f"13: the fused fit's decision counts and params at all {len(seen_e)} boundaries equal "
+        f"the eager fit's bit for bit")
+    return launch_e["hstep_search"], search_ms
+
+
 def run_phase12(card, device, gen, r2_eager, walls_eager, r2_fused_sweep):
     """Phase 12, each sub-phase with its counters set to 0 just before.
     Returns 12g's svd_loading launches."""
@@ -3406,6 +3543,8 @@ def main():
     # 12, the fused and scanned EM drivers as CUDA graphs
     n_svd = run_phase12(card, device, seeded(), fits[0][5], (fits[0][3], fits[3][3]),
                         fits[1][5])
+    # 13, window=None: whole trials, the H-step's search on the wide path
+    wn_launches, _ = run_window_none(card)
 
     g_cold = next(r for r in g_rows if r[0] == "cold")
     p_cold = next(r for r in p_rows if r[0] == "cold")
@@ -3450,7 +3589,8 @@ def main():
     # default fit; max_abs_err is the largest gap relative to each tensor's
     # largest |value| (mstep) and the largest objective gap (hstep_search)
     m_err, s_ms, s_pms, s_bms, s_by, u_ms, u_pms, u_bms, u_by = ms_out
-    h_err, h_ms, h_pms, h_bms, h_by, h_plan = hs_out
+    h_err, h_ms, h_pms, h_bms, h_by, h_plan, h_rows = hs_out
+    wide = h_rows[LENGTH]
     kernels += [
         {"name": f"mstep_stats (Z{ZDIM} S2000 T50 Y{YDIM} X1, partial sums)", "route": "cuda",
          "source": "vlgp_tpu_torch/csrc/mstep.cu", "replaces": "vlgp_tpu/models/vlgp.py:374",
@@ -3466,6 +3606,13 @@ def main():
          "source": "vlgp_tpu_torch/csrc/hstep.cu", "replaces": "vlgp_tpu/models/gp.py:255",
          "launches": default[0]["hstep_search"], "max_abs_err": h_err, "ms": h_ms[0],
          "plain_ms": h_pms[0], "bound_ms": h_bms, "bound_by": h_by, "library_ms": None},
+        {"name": f"hstep_search (wide path, Z{ZDIM} T{LENGTH} window=None, clusters of "
+                 f"{wide['plan']['nb']}, {wide['plan']['per']} blocks an evaluation, "
+                 f"{wide['plan']['rounds']} rounds)", "route": "cuda",
+         "source": "vlgp_tpu_torch/csrc/hstep.cu", "replaces": "vlgp_tpu/models/gp.py:255",
+         "launches": wn_launches, "max_abs_err": h_err, "ms": wide["ms"][0],
+         "plain_ms": wide["plain_ms"][0], "bound_ms": wide["bound_ms"],
+         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"][0]},
     ]
     # the H-step's statistic (6d): launches of phase 8's first default fit;
     # max_abs_err is the largest gap relative to each sum's largest |entry|

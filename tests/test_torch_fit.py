@@ -56,6 +56,23 @@ def test_fit_f64_matches_jax():
     assert tr["params"] is tr.params and tr["config"] is tr.config
 
 
+def test_fit_window_none_f64_matches_jax():
+    """window=None: whole trials (160 bins), no cutting, so the H-step
+    searches omega on the full trial length.  The port against
+    vlgp_tpu.fit in float64, a, b and noise given, 3 EM iterations."""
+    trials, a, _ = pin_trials(length=160)
+    kw = dict(_fit_kw(a, "float64", 3), window=None)
+    jr = vlgp_tpu.fit(trials, 2, **kw)
+    tr = vlgp_tpu_torch.fit(trials, 2, device="cpu", **kw)
+    assert tr.runtime["it"] == jr.runtime["it"] == 3
+    np.testing.assert_allclose(np_of(tr.data.mu), np.asarray(jr.data.mu), rtol=1e-8,
+                               atol=1e-12)
+    for name in ("a", "b", "omega", "sigma"):
+        np.testing.assert_allclose(np_of(getattr(tr.params, name)),
+                                   np.asarray(getattr(jr.params, name)), rtol=1e-8,
+                                   err_msg=name)
+
+
 def test_fit_f32_quality_matches_jax():
     """float32: the port runs its Newton-Schulz route (the kernels' plain
     versions on the CPU), JAX its exact route, so quality is compared:

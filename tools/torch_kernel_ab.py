@@ -30,10 +30,14 @@ flagship's default fit and prints the SHA-256 of its params and posterior
 means (equal across two trees when their fits are equal bit for bit), then
 times the H-step's kernels on that fit's state as ``chip_smoke.py`` 6c and
 6d record it: ``hstep_search`` at the first refinement's C (Z5 T50, its x
-in hex), ``hstep_stat`` at the fit's segments (Z5 S2000 T50 R40) and at
-whole trials (Z5 S100 T1000 R50, ``chip_smoke.hstat_case``), each beside
-its plain version, and the SM clock and power (``nvidia-smi``) while the
-T1000 call runs back to back.  The inputs are made with
+in hex), and on that refinement's settings at T150, T200 and T1000
+(``window=None``: the wide path, C from ``chip_smoke.gp_statistic``, its x
+in hex; 3 calls at T1000) with the plan it picks and, on a tree with the
+wide path's plans, every plan of 8 or more blocks a cluster (3 calls
+each), ``hstep_stat`` at the fit's segments (Z5 S2000
+T50 R40) and at whole trials (Z5 S100 T1000 R50, ``chip_smoke.hstat_case``),
+each beside its plain version, and the SM clock and power (``nvidia-smi``)
+while the T1000 call runs back to back.  The inputs are made with
 ``chip_smoke.py``'s helpers, from seed 0 (the sweep's from the seed of its
 draw).  Needs a CUDA device.
 """
@@ -186,6 +190,22 @@ def time_hstep(device, gen, out):
     out["hstep_search Z5 T50"] = cs.time_ms(lambda: og.hstep_search(*args, **kw))
     out["hstep_search plain"] = cs.time_ms(lambda: og._hstep_search_plain(
         *args, kw["polish"], kw["grid"], kw["tiebreak"], kw["profile_sigma"]))
+    for T in (150, 200, cs.LENGTH):
+        C = cs.gp_statistic(cs.ZDIM, T, 100.0, torch.float32, device, gen.manual_seed(0))
+        a = [C, *args[1:]]
+        out[f"hstep_search Z5 T{T} x (hex)"] = [
+            float.hex(v) for v in og.hstep_search(*a, **kw).tolist()]
+        out[f"hstep_search Z5 T{T}"] = cs.time_ms(lambda: og.hstep_search(*a, **kw),
+                                                  reps=3 if T == cs.LENGTH else 10)
+        plan = og.cluster_plan(cs.ZDIM, T, C.dtype, kw["grid"], args[7], kw["polish"], device)
+        if "per" not in plan:  # a tree without the wide path's plans
+            continue
+        out[f"hstep_search Z5 T{T} plan"] = plan
+        for nb, per in cs.search_plans(T, C.dtype):
+            if nb >= 8:
+                out[f"hstep_search Z5 T{T} nb {nb} per {per}"] = cs.time_ms(
+                    lambda: og._hstep_search_cuda(*a, kw["polish"], kw["grid"], kw["tiebreak"],
+                                                  kw["profile_sigma"], nb=nb, per=per), reps=3)
     cases = [("Z5 S2000 T50 R40", list(calls["hstep_stat"][0][0])),
              ("Z5 S100 T1000 R50", cs.hstat_case(5, 100, 1000, 50, torch.float32, device,
                                                  gen.manual_seed(0)))]

@@ -64,10 +64,10 @@ _SIGNATURES = {
     },
     "hstep": {
         "hstep_search_scratch": ([_i, _i], _i),
-        "hstep_search_cluster": ([_i] * 6, _i),
+        "hstep_search_cluster": ([_i] * 6 + [_p], _i),
         "hstep_search_resident": ([_i] * 3, _i),
         "hstep_search_rounds": ([_i] * 4, _i),
-        "hstep_search": ([_p] * 7 + [_i] * 2 + [_d] * 2 + [_i] * 4 + [_d, _i, _i, _p], _i),
+        "hstep_search": ([_p] * 7 + [_i] * 2 + [_d] * 2 + [_i] * 4 + [_d, _i, _i, _i, _p], _i),
     },
     "hstep_stat": {
         "hstep_stat_plan": ([_i] * 5, _i),

@@ -7,11 +7,14 @@ of the hand-written CUDA kernel ``csrc/hstep.cu`` runs the whole search
 for every latent, one thread-block cluster per latent: the grid scan, the
 golden-section shrinks and the optional parabolic polish, each evaluation
 one ``gp_elbo_stats`` (the Cholesky of the candidate SE kernel,
-tr(K^-1 C) and log|L|) computed in a block's shared memory.  The blocks
-of a cluster evaluate the grid's candidates side by side and, after it,
-every point the next few golden shrinks can reach, so a search is a few
-rounds instead of a chain of evaluations (the schedule is in the kernel's
-header); the result does not depend on the cluster's size.
+tr(K^-1 C) and log|L|).  The cluster's blocks evaluate the grid's
+candidates side by side and, after it, every point the next few golden
+shrinks can reach, so a search is a few rounds instead of a chain of
+evaluations (the schedule is in the kernel's header).  Up to T = 138
+(float32; 97 in float64) a block evaluates a point in its shared memory;
+above it (``window=None``, whole trials) a group of ``per`` blocks shares
+each evaluation, a Cholesky blocked by 64-wide panels over global scratch.
+The result does not depend on the plan (the cluster's size, ``per``).
 
 ``_golden_min`` and ``gp_elbo_stats`` (the port's torch versions of
 ``vlgp_tpu``'s, ``models/gp.py`` keeps both names) make up the plain
@@ -30,9 +33,9 @@ __all__ = ["hstep_search", "gp_elbo_stats", "cluster_plan", "GRID_MAX"]
 
 # largest grid of candidates the kernel takes (its objectives sit in shared memory)
 GRID_MAX = 256
-# the kernel's cluster size per (device, T, dtype, Z, grid, iters, polish):
-# queried once from the card (csrc/hstep.cu:hstep_search_cluster), never
-# inside a capture
+# the kernel's plan (cluster size, blocks per evaluation, resident
+# clusters) per (device, T, dtype, Z, grid, iters, polish): queried once
+# from the card (csrc/hstep.cu:hstep_search_cluster), never inside a capture
 _CLUSTER: dict = {}
 
 
@@ -138,10 +141,11 @@ def _hstep_search_plain(C, nseg, sigsq, gp_noise, dt, lo, hi, iters: int, polish
 def cluster_plan(Z: int, T: int, dtype, grid: int, iters: int, polish: bool,
                  device=None) -> dict:
     """The kernel's launch at this shape on ``device``'s card: ``nb``, the
-    blocks of each latent's cluster (``hstep_search_cluster``'s choice,
-    cached), ``rounds`` of a search, ``resident`` clusters of that size the
-    card holds at once, and ``scratch_bytes`` of global scratch (0 when the
-    buffers sit in shared memory)."""
+    blocks of each latent's cluster, and ``per``, the blocks that share one
+    evaluation (``hstep_search_cluster``'s choice, cached); ``points`` =
+    nb / per evaluated a round, ``rounds`` of a search, ``resident``
+    clusters of nb blocks the card holds at once, and ``scratch_bytes`` of
+    global scratch (0 when a block's buffers sit in shared memory)."""
     from ._build import load_library
 
     device = torch.device("cuda") if device is None else torch.device(device)
@@ -152,27 +156,39 @@ def cluster_plan(Z: int, T: int, dtype, grid: int, iters: int, polish: bool,
     if key not in _CLUSTER:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("hstep_search's first call at a shape must run before a capture "
-                               "(its cluster size is read from the card)")
+                               "(its plan is read from the card)")
+        per = ctypes.c_int(1)
         with torch.cuda.device(index):
-            nb = lib.hstep_search_cluster(T, is_double, Z, grid, iters, int(polish))
+            nb = lib.hstep_search_cluster(T, is_double, Z, grid, iters, int(polish),
+                                          ctypes.byref(per))
             resident = lib.hstep_search_resident(T, is_double, nb) if nb > 0 else 0
         if nb < 1:
             raise RuntimeError(f"hstep_search: no cluster size fits Z={Z} T={T} on this card "
                                f"(hstep_search_cluster returned {nb})")
-        _CLUSTER[key] = (nb, resident)
-    nb, resident = _CLUSTER[key]
-    per_block = lib.hstep_search_scratch(T, is_double)
-    return dict(nb=nb, rounds=lib.hstep_search_rounds(nb, grid, iters, int(polish)),
-                resident=resident,
-                scratch_bytes=Z * nb * per_block * (8 if is_double else 4))
+        _CLUSTER[key] = (nb, per.value, resident)
+    nb, per, resident = _CLUSTER[key]
+    points = nb // per
+    return dict(nb=nb, per=per, points=points,
+                rounds=lib.hstep_search_rounds(points, grid, iters, int(polish)),
+                resident=resident, scratch_bytes=Z * points * _scratch_values(lib, T, is_double)
+                * (8 if is_double else 4))
+
+
+def _scratch_values(lib, T, is_double) -> int:
+    """Values of global scratch one evaluation takes (0 in shared memory)."""
+    values = lib.hstep_search_scratch(T, is_double)
+    if values < 0:
+        raise ValueError(f"hstep_search: T={T} needs more scratch than the kernel addresses")
+    return values
 
 
 def _hstep_search_cuda(C, nseg, sigsq, gp_noise, dt, lo, hi, iters, polish, grid, tiebreak,
-                       profile_sigma, nb=None):
-    """Launch ``hstep_search``: one cluster of ``nb`` blocks per latent
-    (default ``cluster_plan``'s; ``nb=1`` runs the chain of single
-    evaluations, with the same result); global scratch for each block's
-    factor when it does not fit in shared memory."""
+                       profile_sigma, nb=None, per=None):
+    """Launch ``hstep_search``: one cluster of ``nb`` blocks per latent,
+    ``per`` of them to an evaluation (default ``cluster_plan``'s; ``nb=1``
+    runs the chain of single evaluations; every plan gives the same x);
+    global scratch for the evaluations when a block's buffers do not fit
+    in shared memory."""
     from ._build import load_library
 
     Z, T = C.shape[0], C.shape[1]
@@ -186,22 +202,25 @@ def _hstep_search_cuda(C, nseg, sigsq, gp_noise, dt, lo, hi, iters, polish, grid
     if nseg.numel() != 1 or any(tuple(t.shape) != (Z,) for t in (sigsq, lo, hi)):
         raise ValueError("hstep_search takes one nseg and sigsq, lo, hi of shape (Z,)")
     if nb is None:
-        nb = cluster_plan(Z, T, C.dtype, grid, iters, polish, C.device)["nb"]
-    elif not 1 <= nb <= 16:
-        raise ValueError(f"hstep_search takes 1 <= nb <= 16 blocks per latent, got {nb}")
+        plan = cluster_plan(Z, T, C.dtype, grid, iters, polish, C.device)
+        nb, per = plan["nb"], plan["per"]
+    else:
+        per = 1 if per is None else per
+        if not (1 <= nb <= 16 and per >= 1 and nb % per == 0):
+            raise ValueError(f"hstep_search takes 1 <= nb <= 16 blocks per latent and per "
+                             f"dividing nb, got nb={nb}, per={per}")
     C, nseg, sigsq, lo, hi = (t.contiguous() for t in (C, nseg, sigsq, lo, hi))
     is_double = int(C.dtype == torch.float64)
     lib = load_library("hstep")
-    per_block = lib.hstep_search_scratch(T, is_double)
-    scratch = (torch.empty((Z * nb * per_block,), dtype=C.dtype, device=C.device)
-               if per_block else None)
+    values = Z * (nb // per) * _scratch_values(lib, T, is_double)
+    scratch = torch.empty((values,), dtype=C.dtype, device=C.device) if values else None
     x = torch.empty((Z,), dtype=C.dtype, device=C.device)
     with torch.cuda.device(C.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(C.device).cuda_stream)
         rc = lib.hstep_search(_ptr(C), _ptr(nseg), _ptr(sigsq), _ptr(lo), _ptr(hi), _ptr(x),
                               _ptr(scratch), Z, T, float(gp_noise), float(dt),
                               int(profile_sigma), iters, int(polish), grid, float(tiebreak),
-                              is_double, nb, stream)
+                              is_double, nb, per, stream)
     _raise_on(rc, lib, "hstep_search")
     KERNEL_LAUNCHES["hstep_search"] += 1
     return x
