@@ -56,12 +56,16 @@ Phases, each of which raises on failure:
    (6c, run after phase 8, whose last default fit gives it a real state)
    mstep_stats and mstep_update (csrc/mstep.cu) against their plain
    versions at the flagship segments (Z5 S2000 T50 Y100 X1, the fit's
-   state), X3 (history 2), Z1, Z12, a ragged mask, inert channels, the
-   gradient mode and a NaN in one channel's y (which must stay in that
-   channel), in float32 and float64: each statistic and output within
-   MSTEP_TOL, the whole iteration within MSTEP_ITER_TOL, both routes (the
-   update reducing the partial sums, and the reduce launch of a sharded
-   fit) and a second call bit for bit; hstep_search (csrc/hstep.cu, one
+   state), X3 (history 2), Z1 S300, Z12 S200 X2, Z 1, 5 and 8 by X 1 and
+   2 and Z12 X2 in the Newton and the gradient mode with two inert
+   channels, a ragged mask,
+   inert channels, the gradient mode and a NaN in one channel's y (which
+   must stay in that channel), in float32 and float64: each statistic and
+   output within MSTEP_TOL, the whole iteration within MSTEP_ITER_TOL, the
+   update's four squared norms (the M-step exit test's) within NORMS_TOL
+   of torch.sum of its own outputs, both routes (the update reducing the
+   partial sums, and the reduce launch of a sharded fit) and a second
+   call bit for bit; hstep_search (csrc/hstep.cu, one
    thread-block cluster per latent) on the flagship C recorded from one
    H-step of the fit, polish and the profiled sigma on and off, grid 20
    with 7 shrinks and polish, Z12 at T50 and T200 (more blocks than the
@@ -82,8 +86,10 @@ Phases, each of which raises on failure:
    of one H-step on the fit's segments (Z5 S2000 T50 R40), at T1000 R50
    S100 (window=None), T1 R1, T17 R17, T65 R40 and T130 R50 (ragged tiles
    of the T > 64 route), T200 R128, a ragged S301 with
-   valid-0 segments and one whose w~ is 0, and a NaN segment (valid 0)
-   whose latent alone must come out NaN, in float32 and float64: each sum
+   valid-0 segments and one whose w~ is 0, a NaN segment (valid 0)
+   whose latent alone must come out NaN, and the T <= 64 kernel's edges
+   (T 1, 13, 50, 64 by R 1, 5, 40, T; S 1, 7, 2000; Z 1, 5; a valid-0
+   NaN segment), in float32 and float64: each sum
    within HSTAT_TOL of its largest |entry|, a second call bit for bit, and
    hstep_search on the kernel's C as good as on the plain C under the
    float64 objective (6c's rule); timed at the flagship (beside the plain
@@ -192,7 +198,8 @@ Phases, each of which raises on failure:
 Times are per call, each between its own pair of CUDA events, over 10
 calls after a warm-up, printed as median [min-max] (mstep_update and its
 plain version as replays of a captured call, whose device time is shorter
-than a launch's host cost).  Ends with one JSON
+than a launch's host cost, and mstep_update's device time a launch from a
+trace of 20 calls).  Ends with one JSON
 line of per-kernel results (launches on their path, the worst |kernel -
 plain|, the median kernel, plain and library times, and the bound computed
 from this run's shapes and counts; ns_gram and ns_packed also at 9c's
@@ -1224,6 +1231,10 @@ MSTEP_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # against the plain one: the statistics' gap times the Newton system's
 # condition, relative to each output's largest |value|
 MSTEP_ITER_TOL = {torch.float32: 1e-3, torch.float64: 1e-8}
+# mstep_update's four squared norms (the exit test's) against torch.sum of
+# squares of its own outputs, relative: the same terms, summed by channel
+# and then over channels in a fixed order by the kernel, pairwise by torch
+NORMS_TOL = {torch.float32: 1e-6, torch.float64: 1e-13}
 # hstep_search against its plain version: judged by the objective in
 # float64 (the plain gp_elbo_stats on C in float64), since in float32 the
 # objective's own rounding (tr(K^-1 C) carries ~cond(K) eps) is larger
@@ -1326,15 +1337,25 @@ def mstep_compare(tag, args, active=None, use_hessian=True, eps=1e-8):
     again = om.mstep_update(om.mstep_stats(y, x, mask, mu, v, a, b, use_hessian, partial=True),
                             n, a, b, noise_prev, active, **kw)
     itol = MSTEP_ITER_TOL[dtype]
-    for name, g1, g2, g3, p in zip(outs, one, two, again, ref_u):
+    for name, g1, g2, g3, p in zip(outs + ("norms",), one, two, again, ref_u):
         if not (same_bits(g1, g2) and same_bits(g1, g3)):
             raise AssertionError(f"6c mstep {tag}: {name} differs between the two routes or "
                                  f"two calls")
+        if name == "norms":
+            continue
         d, _ = _rel(g1, p)
         if d > itol:
             raise AssertionError(f"6c mstep iteration {tag}: {name} {d:.2e} from the plain "
                                  f"version (tolerance {itol:.0e})")
         worst_it = max(worst_it, d)
+    # the exit test's squared norms against torch.sum of the kernel's own
+    # outputs, both routes
+    ntol = NORMS_TOL[dtype]
+    for route, out in (("partials", one), ("flat", two)):
+        d, same = _rel(out[5], om.squared_norms(out[3], out[0], out[4], out[1]))
+        if d > ntol or not same:
+            raise AssertionError(f"6c mstep_update {tag} ({route}): norms {out[5].tolist()} "
+                                 f"{d:.2e} from torch.sum of its outputs (tolerance {ntol:.0e})")
     if active is not None:
         off = ~active
         for name, g, carried in (("a", one[0], a), ("b", one[1], b),
@@ -1351,11 +1372,14 @@ def mstep_compare(tag, args, active=None, use_hessian=True, eps=1e-8):
 
 def check_mstep(device, gen, result):
     """6c, first part: mstep_stats and mstep_update at the flagship shape
-    from phase 8's fit (Z5 S2000 T50 Y100 X1), at X3 (history 2), Z1, Z12, a
-    ragged mask, an inert channel, the gradient mode and a NaN in one
-    channel's y, in float32 and float64; times the flagship.  Returns (worst
-    gap, stats ms, stats plain ms, update ms, update plain ms, their bounds
-    and what binds them)."""
+    from phase 8's fit (Z5 S2000 T50 Y100 X1), at X3 (history 2), Z1 S300,
+    Z12 S200 X2 (the update's block path, every channel active), Z 1, 5
+    and 8 by X 1 and 2 (the update's warp path) and Z12 X2 in the Newton
+    and the gradient mode with two inert channels, a ragged
+    mask, inert channels, the gradient mode and a NaN in one channel's y, in
+    float32 and float64, with the exit test's norms; times the flagship.
+    Returns (worst gap, stats ms, stats plain ms, update ms, update plain
+    ms, their bounds and what binds them)."""
     from vlgp_tpu_torch.ops import mstep as om
 
     seg, params, cfg = fit_segments(result)
@@ -1371,6 +1395,16 @@ def check_mstep(device, gen, result):
                                 dict(ragged=True))):
             args = mstep_case(*shape, dtype, device, gen, **kw)
             worst = max(worst, mstep_compare(tag, args))
+        # the update's warp path (Z <= 8, X <= 2) at its edges, both modes,
+        # channels 0 and 29 inert; Z12 X2 above takes the block path
+        for Z, X in ((1, 1), (1, 2), (5, 1), (5, 2), (8, 1), (8, 2), (12, 2)):
+            args = mstep_case(200, 50, 30, Z, X, dtype, device, gen)
+            active = torch.ones(30, dtype=torch.bool, device=device)
+            active[[0, 29]] = False
+            for hess in (True, False):
+                worst = max(worst, mstep_compare(
+                    f"Z{Z} X{X} S200 T50 Y30 {'Newton' if hess else 'gradient'}, channels 0, "
+                    f"29 inert", args, active=active, use_hessian=hess))
         args = mstep_case(300, 50, 37, 5, 2, dtype, device, gen)
         active = torch.ones(37, dtype=torch.bool, device=device)
         active[[3, 36]] = False
@@ -1389,11 +1423,31 @@ def check_mstep(device, gen, result):
     n = torch.sum(mask)
     noise = params.noise
     part = om.mstep_stats(y, x, mask, mu, v, a, b, partial=True)
+    # the last block's ticket counter is kept per (device, stream): a launch
+    # on a side stream takes a counter of its own and gives the same bits
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        got = om.mstep_update(part, n, a, b, noise)
+    cur.wait_stream(side)
+    ref = om.mstep_update(part, n, a, b, noise)
+    if (om._ticket(a.device, side.cuda_stream).data_ptr()
+            == om._ticket(a.device, cur.cuda_stream).data_ptr()):
+        raise AssertionError("6c mstep_update: two streams share a ticket counter")
+    if not all(same_bits(g, r) for g, r in zip(got, ref)):
+        raise AssertionError("6c mstep_update: a side stream's launch differs from the default "
+                             "stream's")
+    log("  mstep_update on a side stream: its own ticket counter, the default stream's bits")
     s_ms = time_ms(lambda: om.mstep_stats(y, x, mask, mu, v, a, b, partial=True))
     s_pms = time_ms(lambda: om._mstep_stats_plain(y, x, mask, mu, v, a, b, True))
     # the update takes less device time than its launch costs the host:
-    # both versions timed as replays of a captured call
+    # both versions timed as replays of a captured call, and the kernel's
+    # device time a launch from the trace of 20 eager calls
     u_ms = graph_ms(lambda: om.mstep_update(part, n, a, b, noise))
+    _, _, by_name = trace_kernels(lambda: [om.mstep_update(part, n, a, b, noise)
+                                           for _ in range(20)])
+    u_dev_us = 1e6 * sum(t for k, t in by_name.items() if "mstep_update" in k) / 20
     plain = om._mstep_stats_plain(y, x, mask, mu, v, a, b, True)
     u_pms = graph_ms(lambda: om._mstep_update_plain(plain, n, a, b, noise, None, True, 1e-8,
                                                     1.0, 5.0, 5.0))
@@ -1404,12 +1458,16 @@ def check_mstep(device, gen, result):
     # FMAs: eta, the variance term and the regressors, one per statistic
     s_bms, s_by = bound(S * T * Y * (2 * Z + X + ne),
                         4 * (S * T * Y * (1 + X) + S * T * (1 + 2 * Z) + (Z + X) * Y + Y * ne))
+    # the update reads the partial sums (Y, chunks, ne), a, b and the noise
+    # and writes a, b, da, db, the noise and the four norms
+    chunks = part.part.shape[1]
     u_bms, u_by = bound(Y * (Z ** 3 // 3 + X ** 3 // 3 + 4 * Z * Z),
-                        4 * (Y * ne + 2 * (Z + X) * Y + 2 * (Z + X) * Y + 2 * Y))
+                        4 * (Y * chunks * ne + 2 * (Z + X) * Y + 2 * (Z + X) * Y + 2 * Y + 4))
     log(f"  mstep_stats Z{Z} S{S} T{T} Y{Y} X{X} float32: kernel {fmt_ms(s_ms)} "
-        f"({part.part.shape[0]} chunks), plain {fmt_ms(s_pms)}, bound {s_bms:.4f} ms ({s_by})")
-    log(f"  mstep_update Z{Z} Y{Y} X{X} float32 (prologue reduces the partials), graph "
-        f"replays: kernel {fmt_ms(u_ms)}, plain {fmt_ms(u_pms)}, bound {u_bms:.2e} ms ({u_by})")
+        f"({chunks} chunks), plain {fmt_ms(s_pms)}, bound {s_bms:.4f} ms ({s_by})")
+    log(f"  mstep_update Z{Z} Y{Y} X{X} float32 (prologue reduces the partials, norms "
+        f"included), graph replays: kernel {fmt_ms(u_ms)}, plain {fmt_ms(u_pms)}, bound "
+        f"{u_bms:.2e} ms ({u_by}); device time a launch {u_dev_us:.2f} us (trace of 20 calls)")
     return worst, s_ms, s_pms, s_bms, s_by, u_ms, u_pms, u_bms, u_by
 
 
@@ -1750,10 +1808,10 @@ def hstat_case(Z, S, T, R, dtype, device, gen):
     return [G, wt2, X, torch.ones(S, dtype=dtype, device=device)]
 
 
-def hstat_compare(tag, args):
+def hstat_compare(tag, args, quiet=False):
     """One case: the kernel's three sums against the plain version's
     (HSTAT_TOL, NaNs in the same places) and a second call bit for bit.
-    Returns the worst relative gap."""
+    Returns the worst relative gap; logs it unless ``quiet``."""
     from vlgp_tpu_torch.ops import hstat as oh
 
     dtype = args[0].dtype
@@ -1770,10 +1828,47 @@ def hstat_compare(tag, args):
             raise AssertionError(f"6d hstep_stat {tag}: {name} {d:.2e} from the plain version "
                                  f"(tolerance {tol:.0e}), NaNs in the same places: {same}")
         gaps.append(d)
+    if quiet:
+        return max(gaps)
     log(f"  hstep_stat {tag} {str(dtype)[6:]}: "
         + ", ".join(f"{n} {d:.2e}" for n, d in zip(HSTAT_NAMES, gaps))
         + f" relative to each sum's largest |entry| (tolerance {tol:.0e}); repeat bit for bit")
     return max(gaps)
+
+
+def check_hstat_edges(device, gen, dtype):
+    """6d: the T <= 64 kernel at its edges, T 1, 13, 50 and 64 by R 1, 5,
+    40 and T (R <= T), each at S 1, 7 and 2000 and Z 1 and 5; at S7 Z5
+    segment 3 has valid 0 and NaN w~ and X in latent 0, which must fill
+    latent 0's sums alone.  One log line per (T, R); returns the worst gap."""
+    from vlgp_tpu_torch.ops import hstat as oh
+
+    worst = 0.0
+    for T in (1, 13, 50, 64):
+        for R in sorted({r for r in (1, 5, 40, T) if r <= T}):
+            gaps = []
+            for S in (1, 7, 2000):
+                for Z in (1, 5):
+                    args = hstat_case(Z, S, T, R, dtype, device, gen)
+                    nan = S == 7 and Z == 5
+                    if nan:
+                        args[3][3] = 0.0
+                        args[1], args[2] = args[1].clone(), args[2].clone()
+                        args[1][0, 3] = float("nan")
+                        args[2][0, 3] = float("nan")
+                    gaps.append(hstat_compare(f"Z{Z} S{S} T{T} R{R}", args, quiet=True))
+                    if nan:
+                        for name, t in zip(HSTAT_NAMES, oh.hstep_stat(*args)):
+                            if not (bool(torch.isnan(t[0]).all())
+                                    and bool(torch.isfinite(t[1:]).all())):
+                                raise AssertionError(f"6d hstep_stat Z5 S7 T{T} R{R}: the NaN of "
+                                                     f"latent 0 did not fill latent 0's {name} "
+                                                     f"alone")
+            log(f"  hstep_stat T{T} R{R} {str(dtype)[6:]}, S 1 / 7 / 2000 by Z 1 / 5: worst "
+                f"{max(gaps):.2e} relative (tolerance {HSTAT_TOL[dtype]:.0e}); repeat bit for "
+                f"bit; the valid-0 NaN segment in its latent alone")
+            worst = max(worst, max(gaps))
+    return worst
 
 
 def check_hstep_stat(device, gen, result):
@@ -1781,8 +1876,9 @@ def check_hstep_stat(device, gen, result):
     one H-step on phase 8's fit (Z5 S2000 T50 R40), the search on its C
     against the search on the plain C (6c's rule), then at T1000 R50 S100
     (window=None), T1 R1, T17 R17, T200 R128, a ragged S301 with valid-0
-    segments and one whose w~ is 0, and a NaN segment (valid 0) of latent
-    1, in float32 and float64; times the flagship and T1000.  Returns (worst
+    segments and one whose w~ is 0, a NaN segment (valid 0) of latent 1,
+    and the T <= 64 kernel's edges (check_hstat_edges), in float32 and
+    float64; times the flagship and T1000.  Returns (worst
     gap, worst search gap, kernel ms, plain ms, bound ms, what binds,
     sum_QP GEMM ms)."""
     from vlgp_tpu_torch.ops import hstat as oh
@@ -1827,6 +1923,7 @@ def check_hstep_stat(device, gen, result):
                     torch.isfinite(t[torch.arange(5, device=device) != 1]).all()):
                 raise AssertionError(f"6d hstep_stat: the NaN of latent 1 did not fill latent "
                                      f"1's {name} alone")
+        worst = max(worst, check_hstat_edges(device, gen, dtype))
     # time the flagship and T1000, float32
     G, wt2, X, valid = flagship
     Z, T, R = G.shape

@@ -92,11 +92,11 @@ def test_flat_layout_round_trip():
         assert all(torch.equal(v, p) for v, p in zip(views, plain))
 
 
-@pytest.mark.parametrize("use_hessian,active", [(True, True), (False, True), (False, False)])
-def test_mstep_update_plain_matches_jax(use_hessian, active):
-    """One Newton (or gradient) iteration from _mstep_stats_plain and
-    _mstep_update_plain against vlgp_tpu.mstep with Mniter=1 on the pin
-    workload, float64: a, b, noise, da and db, with channel 4 inert."""
+def _one_iteration(use_hessian, active):
+    """vlgp_tpu.mstep(Mniter=1) on the pin workload (v drawn, channel 4
+    inert when ``active``) and the port's plain statistics and update on the
+    same inputs: (reference as numpy, the port's outputs, port config, the
+    port's params)."""
     (jseg, jp, _, jcfg), (tseg, tp, _, _) = pin_state()
     rng = np.random.default_rng(3)
     v = rng.uniform(0.01, 0.2, size=np.asarray(jseg.v).shape)
@@ -106,16 +106,64 @@ def test_mstep_update_plain_matches_jax(use_hessian, active):
         jp = jp.replace(active=act)
     jcfg = jcfg.replace(Mniter=1, mstep_tol=0.0, use_hessian=use_hessian, learning_rate=1e-3)
     cfg = port_config(jcfg)
-    ref = to_np(jv.mstep(jseg, jp, jcfg))
+    ref = jv.mstep(jseg, jp, jcfg)
     stats = om._mstep_stats_plain(tseg.y, tseg.x, tseg.mask, tseg.mu, tseg.v, tp.a, tp.b,
                                   use_hessian)
     got = om._mstep_update_plain(stats, torch.sum(tseg.mask), tp.a, tp.b, tp.noise,
                                  None if act is None else torch.tensor(act), use_hessian,
                                  cfg.eps, cfg.learning_rate, cfg.da_bound, cfg.db_bound)
+    return ref, got, tp
+
+
+@pytest.mark.parametrize("use_hessian,active", [(True, True), (False, True), (False, False)])
+def test_mstep_update_plain_matches_jax(use_hessian, active):
+    """One Newton (or gradient) iteration from _mstep_stats_plain and
+    _mstep_update_plain against vlgp_tpu.mstep with Mniter=1 on the pin
+    workload, float64: a, b, noise, da and db, with channel 4 inert."""
+    jref, got, tp = _one_iteration(use_hessian, active)
+    ref = to_np(jref)
     for name, g in zip(("a", "b", "noise", "da", "db"), got):
         assert_close(g, ref[name], atol=1e-13, err_msg=name)
     if active:
         assert torch.equal(got[0][:, 4], tp.a[:, 4]) and not bool(got[3][:, 4].any())
+
+
+@pytest.mark.parametrize("use_hessian,active", [(True, True), (False, True), (True, False)])
+def test_mstep_update_plain_norms_match_jax(use_hessian, active):
+    """The exit test's four squared norms that _mstep_update_plain returns
+    (sum da^2, sum a_new^2, sum db^2, sum b_new^2) against vlgp_tpu's _gn2
+    of the same iteration's outputs (vlgp_tpu/models/vlgp.py:483-484, one
+    device), float64 at 1e-13, channel 4 inert."""
+    jref, got, _ = _one_iteration(use_hessian, active)
+    want = [jnp.sum(jref.da * jref.da), jnp.sum(jref.a * jref.a), jnp.sum(jref.db * jref.db),
+            jnp.sum(jref.b * jref.b)]
+    assert got[5].shape == (4,)
+    assert_close(got[5], np.array([float(w) for w in want]), rtol=1e-13, atol=0.0)
+    assert torch.equal(got[5], om.squared_norms(got[3], got[0], got[4], got[1]))
+
+
+@pytest.mark.parametrize("use_hessian", [True, False])
+def test_mstep_adaptive_trips_match_jax(use_hessian):
+    """models.vlgp.mstep with mstep_tol > 0 (its exit test on mstep_update's
+    norms) on the pin workload takes vlgp_tpu's number of Newton iterations:
+    vlgp_tpu's fit of that many fixed iterations equals its adaptive one,
+    and one fewer does not; a, b, noise, da and db at 1e-12, float64."""
+    from vlgp_tpu_torch.models import vlgp as tv
+    from vlgp_tpu_torch.ops import control
+
+    (jseg, jp, _, jcfg), (tseg, tp, _, _) = pin_state()
+    jcfg = jcfg.replace(Mniter=25, mstep_tol=5e-3, use_hessian=use_hessian, learning_rate=1e-3)
+    ref = to_np(jv.mstep(jseg, jp, jcfg))
+    before = control.TRIPS["mstep_iters"]
+    got = tv.mstep(tseg, tp, port_config(jcfg))
+    trips = control.TRIPS["mstep_iters"] - before
+    assert 2 < trips < 25  # the exit test decided, not the floor of 2 or the cap
+    for name in ("a", "b", "noise", "da", "db"):
+        assert_close(getattr(got, name), ref[name], atol=1e-12, err_msg=name)
+    fixed = to_np(jv.mstep(jseg, jp, jcfg.replace(Mniter=trips, mstep_tol=0.0)))
+    fewer = to_np(jv.mstep(jseg, jp, jcfg.replace(Mniter=trips - 1, mstep_tol=0.0)))
+    assert_close(fixed["a"], ref["a"], atol=1e-12)
+    assert np.max(np.abs(fewer["a"] - ref["a"])) > 1e-9
 
 
 def _search_problem(T=20, Z=3, seed=1):

@@ -64,6 +64,18 @@ def test_hstep_stat_plain_matches_jax():
     assert all(torch.equal(p, q) for p, q in zip(via, got))
 
 
+@pytest.mark.parametrize("Z,S,T,R", [(1, 1, 1, 1), (2, 7, 13, 13), (1, 5, 50, 40), (1, 3, 64, 64)])
+def test_hstep_stat_plain_matches_jax_at_kernel_edges(Z, S, T, R):
+    """The plain version against vlgp_tpu's einsums at the T <= 64 kernel's
+    edge shapes on the card (T = 1, 13, 50 and 64; R = 1, T, 40), float64
+    at 1e-12, with a fully masked and a ragged segment where S > 4."""
+    args = _stat_inputs(Z=Z, S=S, T=T, R=R)
+    ref = _jax_stat(*args)
+    for name, g, r in zip(_NAMES, oh.hstep_stat(*[torch.tensor(t) for t in args]), ref):
+        assert g.shape == r.shape, name
+        assert_close(g, np.asarray(r), rtol=1e-12, atol=1e-12, err_msg=name)
+
+
 def test_hstep_stat_nan_stays_in_its_latent():
     """A NaN w~ in a segment with valid 0 poisons its latent's sums (valid
     multiplies, 0 * NaN), as the kernel must too; the other latent stays

@@ -17,35 +17,24 @@
 // still poisons its latent's sums as 0 * NaN does in the plain version.  P
 // and Q never reach device memory.
 //
-// hstep_stat_kernel: a block of 256 threads per (latent, tile pair, chunk
-// of segments).  A tile pair is a 64 x 64 tile (t, u) of sum_QP; T <= 64
-// (the flagship's window-50 segments) is one tile.  Over its chunk's
-// segments, in order, the block
-//
-//   1. stages P_s[t-tile, q-chunk] (w~ times G, rounded as the plain
-//      version rounds P) and X_s[q-chunk, r-tile] in shared memory, 64 x
-//      64 each, and P_s[u-tile, r-tile];
-//   2. forms Q_s[t-tile, r-tile] = sum over the q-chunks of P X, a 4 x 4
-//      register tile per thread (a 16 x 16 grid of them);
-//   3. stores valid_s Q_s in shared memory and adds valid_s Q_s P_s' into
-//      the 4 x 4 register tile of sum_QP that the thread owns.
-//
-// The r-tiles (64 columns of Q) are the outermost loop, so sum_QP's
-// accumulators live in registers through the whole chunk.  The diagonal
-// tile pairs (t-tile = u-tile) also add valid_s (P_s - Q_s) into registers
-// (P_s[t, r] is their u-tile's P) and, for the q-chunk of their own index,
-// valid_s X_s, both written out after each r-tile.  Each of the three is
-// summed by exactly one block per (latent, chunk), in segment order.
-//
-// What each tile re-reads.  X_s[:, r-tile] is read once per tile pair: at
-// T <= 64 once in all; at T = 1000 (window=None) by the 16 tile pairs of
-// each t-tile row and column, 256 times in all, from L2 mostly.  Q_s[t-tile]
-// is recomputed by each of the T / 64 u-tiles of its row: T R^2 FMAs each
-// time, against the T^2 R of sum_QP (at T1000 R50 the two are 2.5e6 x 16
-// and 5e7 per segment).  G's tiles are staged in shared memory once per
-// r-tile (G[t-tile] too when R <= 64, else per q-chunk from L1 and L2), w~
-// comes from L1 and L2, and each X chunk is copied (cp.async) into one of
-// two buffers while the block works on the chunk before it.
+// hstep_stat_kernel (T <= 64, the flagship's window-50 segments): a block
+// per (latent, chunk of segments), sized to the live shape.  With T and R
+// padded to multiples of 4 (tp, rp), sum_QP has ntg^2 4 x 4 tiles and Q
+// ntg nrg (ntg = tp / 4, nrg = rp / 4); the block holds one warp per 32
+// tiles of each, so every lane but those of the last warp of each kind
+// owns a live tile (at T50 R40: 169 and 130 tiles, 6 + 5 warps, 85% of the
+// lanes).  The two kinds of warps work a segment apart: while the Q warps
+// form Q_s = P_s X_s, store valid_s Q_s' in shared memory and add valid_s
+// (P_s - Q_s) and valid_s X_s into registers, the sum_QP warps add valid
+// Q_{s-1} P_{s-1}' into theirs, stage P_{s+1} = diag(w~_{s+1}) G (rounded
+// once, as the plain version rounds P; G' read from shared memory, where
+// the block copies it once, in float32) and start the cp.async copy of a
+// later segment's X (three stages in float32, two in float64): one block
+// barrier a segment.  P is read from shared memory in three buffers, Q in
+// two; X's live R x R only (16-byte copies where R sizeof(T) is a multiple
+// of 16).  Each entry is summed in the order of the 64 x 64 kernel before
+// it (the chunk map, segments in order within a chunk, r or q in order
+// within a segment), so the two give the same bits.
 //
 // Above T = 64 (window=None) hstep_stat_wide_kernel (below) takes the tiles
 // instead: each block forms Q once for 256 columns of sum_QP.
@@ -60,12 +49,32 @@
 // What bounds it on this card.  At the flagship (Z5 S2000 T50 R40 float32)
 // the function reads X and w~ (64 MB and 2 MB: ~20 us at 3.35 TB/s) and
 // does 2 Z S T R (R + T) = 3.6 GFLOP (~54 us at 67 TFLOP/s): FLOPs bind.
-// The 64 x 64 tiles hold 50 x 40 (Q) and 50 x 50 (sum_QP) live entries;
-// the register tiles of dead rows and columns skip the products, so the
-// FMA slots are 52 x 40 and 52 x 52, ~1.3x the useful work; each k step of
-// a 4 x 4 tile reads two 16-byte words from shared memory per 16 FMAs.  On
-// an H100 it takes 0.25 ms there, ~4.7x the bound, two blocks an SM
-// (128 registers; one block an SM, 188 registers, took 0.36 ms).
+// On an H100 (tools/torch_variant_ab.py, in turns) it takes 0.201 ms
+// against the 64 x 64 kernel's 0.248 (256 threads over a 64 x 64 tile, of
+// which 130 formed Q and 169 summed Q P', three block barriers and P
+// staged twice a segment, a 64 x 64 copy of X, 112 KB of shared memory);
+// forming P from strided device loads of G every segment, before G' was
+// staged in shared memory, cost it a few percent.  Its products issue well
+// below one instruction a clock a scheduler: in draft timing builds (not
+// in the repo) running each product twice cost about two thirds of the
+// kernel's time more, while dropping the B operand's loads saved almost
+// nothing, so shared-memory bandwidth does not bind them.  Each k step's
+// loads are issued a few FMAs ahead of their use (80 registers leave no
+// room for more), and the warps that each phase's barrier releases
+// together likely wait on them together.  Tried in such builds and not
+// kept, all with the same bits and all slower: 8 x 8 tiles of sum_QP and
+// 8 x 4 of Q (a quarter-warp a row of tiles, conflict-free; 5 warps, 168
+// registers: too few warps to hide the loads' latency and each warp's
+// serial issue), 4 x 8 and 8 x 4 tiles (7 warps, 128 registers and
+// spills), sum_X on the sum_QP warps, one block an SM, the tile loop
+// unrolled 1, 2 or 8 times in place of 4.  Measured in turns and not
+// kept: independent segment groups (tools/variants/hstep_stat_groups.cu:
+// 6-warp groups, each forming Q and then adding Q P' for its own segments
+// behind its own named barrier) 0.264-0.277 ms, a barrier a segment all
+// the same, spills at 80-96 registers, no overlap of the two products;
+// the products on the FP64 tensor cores (tools/variants/hstep_stat_tc.cu,
+// mma.sync m16n8k16 .f64) 0.348 ms, bound by their float64 operands'
+// trips through shared memory and three barriers a segment.
 //
 // At T1000 R50 S100 (window=None) the 64 x 64 kernel took 3.6 ms against
 // the plain version's 2.06: half its FMA slots recomputed Q.  The wide
@@ -93,25 +102,23 @@
 
 namespace {
 
-constexpr int NT = 256;   // threads per block: a 16 x 16 grid of 4 x 4 register tiles
-constexpr int BT = 64;    // rows t and columns u of a tile of sum_QP
-constexpr int RC = 64;    // columns r of Q per r-tile
-constexpr int KC = 64;    // rows q of X per chunk of the contraction Q = P X
-constexpr int PER = BT * KC / NT;  // staged values per thread of a 64 x 64 tile
+constexpr int BT = 64;    // largest T of hstep_stat_kernel; the wide kernel's tiles above
+constexpr int RC = 64;    // columns r of Q per r-tile of the wide kernel
+constexpr int KC = 64;    // rows q of X per chunk of the wide kernel's contraction Q = P X
 constexpr int NTR = 256;  // threads per block of the reduction
 // blocks a launch aims at (two per SM of an H100); a constant, so that the
 // chunks, and with them the bits, are a function of the shape alone
 constexpr int BLOCK_TARGET = 264;
 
 struct Plan {
-  int nt, nr, nq, spc, chunks;
+  int nr, nq, spc, chunks;
   long long ne;
 };
 
-// T > 64 takes hstep_stat_wide_kernel (below), T <= 64 the 64 x 64 kernel
+// T > 64 takes hstep_stat_wide_kernel (below), T <= 64 hstep_stat_kernel
 inline bool is_wide(int T) { return T > BT; }
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+__device__ __forceinline__ void load4p(const float* p, float* v) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   v[0] = a.x;
   v[1] = a.y;
@@ -119,7 +126,7 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   v[3] = a.w;
 }
 
-__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+__device__ __forceinline__ void load4p(const double* p, double* v) {
   const double2 a = *reinterpret_cast<const double2*>(p);
   const double2 b = *reinterpret_cast<const double2*>(p + 2);
   v[0] = a.x;
@@ -137,28 +144,11 @@ __device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
   *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
 }
 
-// acc[i][j] += sum_{k < n} A[k][4 ti + i] B[k][4 tj + j]: A and B 64 wide,
-// each k step two vector loads and 16 FMAs, k in increasing order
-template <typename T>
-__device__ __forceinline__ void tile_fma(const T* __restrict__ A, const T* __restrict__ B, int n,
-                                         int ti, int tj, T (&acc)[4][4]) {
-#pragma unroll 4
-  for (int k = 0; k < n; ++k) {
-    T a[4], b[4];
-    load4(A + k * BT + 4 * ti, a);
-    load4(B + k * BT + 4 * tj, b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-  }
-}
-
 // the X chunk (q0.., r0..) of a segment into dst, element i = tid + NTH e
 // of the KC x RC tile (row i / RC), 0 outside the live ql x rl corner: by
 // cp.async, committed as one group, so the chunk bypasses the registers and
 // arrives while the block works on the chunk before it
-template <typename T, int NTH = NT>
+template <typename T, int NTH>
 __device__ __forceinline__ void copy_x(T* dst, const T* __restrict__ Xs, int R, int q0, int ql,
                                        int r0, int rl) {
 #pragma unroll
@@ -177,164 +167,240 @@ __device__ __forceinline__ void copy_x(T* dst, const T* __restrict__ Xs, int R, 
   asm volatile("cp.async.commit_group;" ::);
 }
 
-// two blocks an SM in float32; float64's tiles fill an SM's shared memory
-// with one, so its registers are not capped
+// ---------------------------------------------------------------------------
+// The T <= 64 route: hstep_stat_kernel
+// ---------------------------------------------------------------------------
+
 template <typename T>
-__global__ void __launch_bounds__(NT, sizeof(T) == sizeof(float) ? 2 : 1) hstep_stat_kernel(
+struct Small;
+template <>
+struct Small<float> {
+  static constexpr int NS = 3;     // stages of X
+  static constexpr bool GS = true;  // G' in shared memory
+};
+template <>
+struct Small<double> {
+  static constexpr int NS = 2;  // three would not fit beside P and Q at T = R = 64
+  static constexpr bool GS = false;  // nor would G': P is staged from device memory
+};
+constexpr int SMALL_NT_MAX = 512;  // threads at T = R = 64: 8 + 8 warps
+// sum_X entries a Q-warp lane holds: R rp <= 16 ntg nrg <= 16 lanes of the Q warps
+constexpr int SX_MAX = 16;
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+
+// threads of the sum_QP warps and of the whole block at (T, R)
+__host__ __device__ inline int small_prod_threads(int T) {
+  const int ntg = pad4(T) / 4;
+  return 32 * ((ntg * ntg + 31) / 32);
+}
+inline int small_threads(int T, int R) {
+  const int nq = (pad4(T) / 4) * (pad4(R) / 4);
+  return small_prod_threads(T) + 32 * ((nq + 31) / 32);
+}
+template <typename T>
+size_t small_smem(int Tn, int R) {  // P (3 buffers), Q (2) and G' of rp x tp, NS stages of X
+  return (size_t)((5 + Small<T>::GS) * pad4(R) * pad4(Tn) + Small<T>::NS * R * pad4(R)) *
+         sizeof(T);
+}
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+}
+
+// wait until at most NS - 2 of this thread's cp.async groups are pending
+template <int NS>
+__device__ __forceinline__ void wait_x() {
+  if constexpr (NS == 3)
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// acc[i][j] = fma(A[k][i], B[k][j], acc[i][j]) for k < n in order: A and B
+// 4 wide at row strides lda and ldb
+template <typename T>
+__device__ __forceinline__ void tile4(const T* __restrict__ A, int lda, const T* __restrict__ B,
+                                      int ldb, int n, T (&acc)[4][4]) {
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) {
+    T a[4], b[4];
+    load4p(A + k * lda, a);
+    load4p(B + k * ldb, b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
+  }
+}
+
+// Threads [0, nprod) are the sum_QP warps, the rest the Q warps (see the
+// head of the file).  Phase k (k = 0 .. n, n segments in the chunk) ends
+// in the block's barrier k + 1: the Q warps take segment k (P_k in P
+// buffer k % 3, X_k in stage k % NS, valid Q_k' into Q buffer k % 2), the
+// sum_QP warps segment k - 1, and stage P_{k+1} and start X_{k+NS-1}.
+template <typename T, int NTMAX, int MINB>
+__global__ void __launch_bounds__(NTMAX, MINB) hstep_stat_kernel(
     const T* __restrict__ G, const T* __restrict__ w, const T* __restrict__ X,
-    const T* __restrict__ valid, T* __restrict__ part, int S, int Tn, int R, int nt, int nr,
-    int nq, int spc, int chunks, long long ne) {
+    const T* __restrict__ valid, T* __restrict__ part, int S, int Tn, int R, int spc, int chunks,
+    long long ne, int vec) {
+  constexpr int NS = Small<T>::NS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Pt = reinterpret_cast<T*>(smem_raw);  // [k][t]: P_s[t-tile, q-chunk]
-  T* Xk = Pt + BT * KC;                    // [k][r]: X_s[q-chunk, r-tile]
-  T* Pu = Xk + KC * RC;                    // [r][u]: P_s[u-tile, r-tile]
-  T* Qs = Pu + RC * BT;                    // [r][t]: valid_s Q_s[t-tile, r-tile]
-  T* Gt = Qs + RC * BT;                    // [k][t]: G[t-tile, q-chunk] when nq == 1
-  T* Gu = Gt + KC * BT;                    // [r][u]: G[u-tile, r-tile]
-  T* Xk1 = Gu + RC * BT;                   // the other buffer of the X chunks
+  const int tp = pad4(Tn), rp = pad4(R);
+  const int ntg = tp / 4, nrg = rp / 4;
+  const int nprod = small_prod_threads(Tn);
+  const size_t pbuf = (size_t)rp * tp;
+  T* Pb = reinterpret_cast<T*>(smem_raw);  // 3 x [rp][tp]: P_s[t, q] at [q][t]
+  T* Qb = Pb + 3 * pbuf;                   // 2 x [rp][tp]: valid_s Q_s[t, r] at [r][t]
+  T* Xb = Qb + 2 * pbuf;                   // NS x [R][rp]: X_s
+  T* Gs = Xb + (size_t)NS * R * rp;        // [rp][tp]: G', where Small<T>::GS
   const int tid = threadIdx.x;
-  const int ti = tid % 16, tj = tid / 16;
   const int c = blockIdx.x, z = blockIdx.z;
-  const int tt = blockIdx.y / nt, tu = blockIdx.y - tt * nt;
-  const int t0 = tt * BT, u0 = tu * BT;
-  const bool diag = tt == tu;
-  const int s_begin = c * spc, s_end = min(S, s_begin + spc);
+  const int s0 = c * spc, n = min(S, s0 + spc) - s0;
   const T* Gz = G + (size_t)z * Tn * R;
-  const T* wz = w + (size_t)z * S * Tn;
-  const T* Xz = X + (size_t)z * S * R * R;
+  const T* wz = w + ((size_t)z * S + s0) * Tn;
+  const T* Xz = X + ((size_t)z * S + s0) * R * R;
+  const T* vz = valid + s0;
   T* pz = part + ((size_t)z * chunks + c) * ne;
-  // the staging map of a 64 x 64 tile [row][col]: col tid % 64 (t or u),
-  // rows tid / 64 + 4 e (k or r).  Gt and Gu are written and read by the
-  // same thread under this map, so they need no barrier of their own
-  const int col = tid % BT, row0 = tid / BT;
-  constexpr int RSTEP = NT / BT;
-  const int t = t0 + col, u = u0 + col;
-  // register tiles holding live rows t and columns u: the others skip the
-  // products (at T = 50, 13 x 13 of the 16 x 16)
-  const bool live_t = 4 * ti < Tn - t0, live_u = 4 * tj < Tn - u0;
 
-  T acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = (T)0;
-  // the X chunk of step j of the block's order (r-tiles, segments,
-  // q-chunks) lands in buffer j % 2, copied during step j - 1
-  copy_x(Xk, Xz + (size_t)s_begin * R * R, R, 0, min(KC, R), 0, min(RC, R));
-  int step = 0;
-
-  for (int rt = 0; rt < nr; ++rt) {
-    const int r0 = rt * RC, rl = min(RC, R - r0);
-#pragma unroll 4
-    for (int e = 0; e < RC / RSTEP; ++e) {
-      const int r = row0 + RSTEP * e;
-      Gu[r * BT + col] = u < Tn && r < rl ? Gz[(size_t)u * R + r0 + r] : (T)0;
-    }
-    if (nq == 1) {
-#pragma unroll 4
-      for (int e = 0; e < KC / RSTEP; ++e) {
-        const int k = row0 + RSTEP * e;
-        Gt[k * BT + col] = t < Tn && k < R ? Gz[(size_t)t * R + k] : (T)0;
+  if (tid < nprod) {
+    // ---- the sum_QP warps: tile (tg, ug), rows t0.., columns u0.. ----
+    const int tg = tid / ntg, t0 = 4 * tg, u0 = 4 * (tid - tg * ntg);
+    const bool live = tg < ntg;
+    // staging map of P: column pt, rows pq0, pq0 + pstep, ... (threads
+    // from pstep tp on stage nothing); a thread's w~[pt] is loaded a phase
+    // ahead.  Where Small<T>::GS, each stager first copies its entries of
+    // G' to shared memory (it alone reads them: no barrier), so that P is
+    // formed from conflict-free shared loads in place of strided device ones
+    const int pstep = nprod / tp, pt = tid % tp, pq0 = tid / tp;
+    const bool stager = pq0 < pstep;
+    auto w_of = [&](int k) { return stager && pt < Tn && k < n ? wz[(size_t)k * Tn + pt] : (T)0; };
+    auto g_at = [&](int q) { return pt < Tn ? __ldg(Gz + (size_t)pt * R + q) : (T)0; };
+    if (Small<T>::GS && stager)
+      for (int q = pq0; q < R; q += pstep) Gs[q * tp + pt] = g_at(q);
+    auto stage_p = [&](int b, T wk) {
+      T* dst = Pb + b * pbuf;
+      if (stager)
+        for (int q = pq0; q < R; q += pstep)
+          dst[q * tp + pt] = wk * (Small<T>::GS ? Gs[q * tp + pt] : g_at(q));
+    };
+    auto copy_x_stage = [&](int k) {  // X_k into stage k % NS, one cp.async group a call
+      if (k < n) {
+        T* dst = Xb + (size_t)(k % NS) * R * rp;
+        const T* src = Xz + (size_t)k * R * R;
+        if (vec) {
+          constexpr int VW = 16 / sizeof(T);
+          const int rw = R / VW;
+          for (int i = tid; i < R * rw; i += nprod) {
+            const int q = i / rw, r = (i - q * rw) * VW;
+            cp_async16(dst + q * rp + r, src + q * R + r);
+          }
+        } else {
+          for (int e = tid; e < R * R; e += nprod) {
+            const int q = e / R;
+            cp_async(dst + q * rp + (e - q * R), src + e);
+          }
+        }
       }
+      asm volatile("cp.async.commit_group;" ::);
+    };
+    T acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = (T)0;
+    for (int k = 0; k < NS - 1; ++k) copy_x_stage(k);
+    stage_p(0, w_of(0));
+    T wnext = w_of(1);
+    wait_x<NS>();
+    __syncthreads();
+    for (int k = 0; k <= n; ++k) {
+      copy_x_stage(k + NS - 1);
+      if (k + 1 < n) stage_p((k + 1) % 3, wnext);
+      wnext = w_of(k + 2);
+      if (k >= 1 && live)
+        tile4(Qb + ((k - 1) & 1) * pbuf + t0, tp, Pb + ((k - 1) % 3) * pbuf + u0, tp, R, acc);
+      wait_x<NS>();  // X_{k+1} is here
+      __syncthreads();
     }
-    T qa[4][4], sx[PER];
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (t0 + i < Tn && u0 + j < Tn) pz[(size_t)(t0 + i) * Tn + u0 + j] = acc[i][j];
+    }
+  } else {
+    // ---- the Q warps: tile (tg, rg) of Q, rows t0.., columns r0.. ----
+    const int tq = tid - nprod, nqt = blockDim.x - nprod;
+    const int tg = tq / nrg, t0 = 4 * tg, r0 = 4 * (tq - tg * nrg);
+    const bool live = tg < ntg;
+    T qa[4][4], sx[SX_MAX];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) qa[i][j] = (T)0;
 #pragma unroll
-    for (int e = 0; e < PER; ++e) sx[e] = (T)0;
-
-    for (int s = s_begin; s < s_end; ++s) {
-      const T v = valid[s];
-      const T* ws = wz + (size_t)s * Tn;
-      const T wt = t < Tn ? ws[t] : (T)0;
-      T q[4][4];
+    for (int m = 0; m < SX_MAX; ++m) sx[m] = (T)0;
+    __syncthreads();
+    for (int k = 0; k <= n; ++k) {
+      if (k < n) {
+        const T v = vz[k];
+        const T* Pk = Pb + (k % 3) * pbuf;
+        const T* Xk = Xb + (size_t)(k % NS) * R * rp;
+        if (live) {
+          T q[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) q[i][j] = (T)0;
-      for (int qc = 0; qc < nq; ++qc) {
-        const int q0 = qc * KC, ql = min(KC, R - q0);
-        __syncthreads();  // the last step's readers of Pt, its X buffer, Pu and Qs are done
-        {
-          int nqc = qc + 1, ns = s, nrt = rt;
-          if (nqc == nq) {
-            nqc = 0;
-            if (++ns == s_end) {
-              ns = s_begin;
-              ++nrt;
+            for (int j = 0; j < 4; ++j) q[i][j] = (T)0;
+          tile4(Pk + t0, tp, Xk + r0, rp, R, q);
+          T* Qk = Qb + (k & 1) * pbuf;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            T p[4], vq[4];
+            load4p(Pk + (r0 + j) * tp + t0, p);  // P_k[t, r]
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              qa[i][j] = fma(v, p[i] - q[i][j], qa[i][j]);
+              vq[i] = v * q[i][j];
             }
-          }
-          if (nrt < nr) {
-            const int nq0 = nqc * KC, nr0 = nrt * RC;
-            copy_x(step & 1 ? Xk : Xk1, Xz + (size_t)ns * R * R, R, nq0, min(KC, R - nq0), nr0,
-                   min(RC, R - nr0));
-          } else {
-            asm volatile("cp.async.commit_group;" ::);  // none: keep one group per step
+            store4(Qk + (r0 + j) * tp + t0, vq);
           }
         }
-        // P = w~ G, rounded once as the plain version's P
-        for (int k = row0; k < ql; k += RSTEP)
-          Pt[k * BT + col] = wt * (nq == 1 ? Gt[k * BT + col]
-                                           : (t < Tn ? Gz[(size_t)t * R + q0 + k] : (T)0));
-        if (qc == 0) {
-          const T wu = u < Tn ? ws[u] : (T)0;
-          for (int r = row0; r < rl; r += RSTEP) Pu[r * BT + col] = wu * Gu[r * BT + col];
-        }
-        asm volatile("cp.async.wait_group 1;" ::: "memory");  // this step's X chunk
-        __syncthreads();
-        const T* Xc = step & 1 ? Xk1 : Xk;
-        ++step;
-        if (diag && qc == tt) {  // this block sums X's q-chunk tt
+        // sum_X over the padded layout [q][rp]: entries tq + nqt m
 #pragma unroll
-          for (int e = 0; e < PER; ++e) sx[e] = fma(v, Xc[tid + NT * e], sx[e]);
+        for (int m = 0; m < SX_MAX; ++m) {
+          const int e = tq + nqt * m;
+          if (e < R * rp) sx[m] = fma(v, Xk[e], sx[m]);
         }
-        if (live_t && 4 * tj < rl) tile_fma(Pt, Xc, ql, ti, tj, q);
-      }
-      // Q_s[t-tile, r-tile] is in q: the diagonal blocks add valid (P - Q),
-      // P_s[t, r] being their u-tile's Pu[r][t] (rows r < rl are live; the
-      // others are never written out); then valid Q to Qs
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        T vq[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (diag) qa[i][j] = fma(v, Pu[(4 * tj + j) * BT + 4 * ti + i] - q[i][j], qa[i][j]);
-          vq[i] = v * q[i][j];
-        }
-        store4(Qs + (4 * tj + j) * BT + 4 * ti, vq);
       }
       __syncthreads();
-      if (live_t && live_u) tile_fma(Qs, Pu, rl, ti, tj, acc);
     }
-
-    if (diag) {
+    T* qa_out = pz + (size_t)Tn * Tn;
+    if (live) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int tr = t0 + 4 * ti + i, r = 4 * tj + j;
-          if (tr < Tn && r < rl) pz[(size_t)Tn * Tn + (size_t)tr * R + r0 + r] = qa[i][j];
-        }
-      if (tt < nq) {
-        const int q0 = tt * KC, ql = min(KC, R - q0);
+        for (int j = 0; j < 4; ++j)
+          if (t0 + i < Tn && r0 + j < R) qa_out[(size_t)(t0 + i) * R + r0 + j] = qa[i][j];
+    }
+    T* sx_out = qa_out + (size_t)Tn * R;
 #pragma unroll
-        for (int e = 0; e < PER; ++e) {
-          const int i = tid + NT * e, k = i / RC, r = i - k * RC;
-          if (k < ql && r < rl)
-            pz[(size_t)Tn * Tn + (size_t)Tn * R + (size_t)(q0 + k) * R + r0 + r] = sx[e];
-        }
-      }
+    for (int m = 0; m < SX_MAX; ++m) {
+      const int e = tq + nqt * m, q = e / rp, r = e - q * rp;
+      if (e < R * rp && r < R) sx_out[(size_t)q * R + r] = sx[m];
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int tr = t0 + 4 * ti + i, uc = u0 + 4 * tj + j;
-      if (tr < Tn && uc < Tn) pz[(size_t)tr * Tn + uc] = acc[i][j];
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -346,9 +412,9 @@ __global__ void __launch_bounds__(NT, sizeof(T) == sizeof(float) ? 2 : 1) hstep_
 // (4 x 4).  Per r-tile and segment the block forms Q_s[t-tile, r-tile]
 // once (4 x 4 register tiles over its BM x 64 corner) and adds valid_s Q_s
 // P_s[u-tile]' into its BM x BN accumulators, so Q is formed once per BN
-// columns of sum_QP where the T <= 64 kernel forms it once per 64: at
-// T1000 R50 its share of the FMA slots is R / (R + BN) ~ 1/6 (1/2 in the
-// T <= 64 kernel).  A thread's 8 x 8 tile is two 4-row groups BM / 2 apart
+// columns of sum_QP where a 64 x 64 tile would form it once per 64: at
+// T1000 R50 its share of the FMA slots is R / (R + BN) ~ 1/6 (1/2 with
+// 64 x 64 tiles).  A thread's 8 x 8 tile is two 4-row groups BM / 2 apart
 // by two 4-column groups BN / 2 apart, and a warp holds 4 x 8 threads of
 // the grid, so per k step its 4 16-byte reads of Qs and Pu are 4
 // shared-memory wavefronts for 64 FMAs.  G[t-tile] (R <= 64) and
@@ -379,22 +445,6 @@ struct Wide<double> {
 // H100, a constant, so that the chunks are a function of the shape alone
 constexpr int WIDE_TARGET = 4 * 132;
 
-__device__ __forceinline__ void load4p(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = a.z;
-  v[3] = a.w;
-}
-
-__device__ __forceinline__ void load4p(const double* p, double* v) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
-}
 
 // acc[4 g + i][4 h + j] += sum_{k < n} A[k][4 ti + i + SA g] B[k][4 tj + j +
 // SB h]: A rows LDA wide, B rows LDB wide, k in increasing order
@@ -652,7 +702,6 @@ __global__ void __launch_bounds__(NTR) hstep_stat_reduce_kernel(
 
 inline Plan make_plan(int Z, int S, int T, int R, bool dbl) {
   Plan p;
-  p.nt = (T + BT - 1) / BT;
   p.nr = (R + RC - 1) / RC;
   p.nq = (R + KC - 1) / KC;
   long long tiles, target;
@@ -662,7 +711,7 @@ inline Plan make_plan(int Z, int S, int T, int R, bool dbl) {
     tiles = (long long)Z * ((T + bm - 1) / bm) * ((T + bn - 1) / bn);
     target = WIDE_TARGET + tiles - 1;  // at least WIDE_TARGET blocks where S allows
   } else {
-    tiles = (long long)Z * p.nt * p.nt;
+    tiles = Z;  // one block per (latent, chunk)
     target = BLOCK_TARGET;
   }
   long long want = target / tiles;
@@ -690,13 +739,18 @@ cudaError_t launch(const T* G, const T* w, const T* X, const T* valid, T* part, 
     hstep_stat_wide_kernel<T><<<grid, Wide<T>::NTW, smem, st>>>(
         G, w, X, valid, part, S, Tn, R, nt, nu, p.nr, p.nq, p.spc, p.chunks, p.ne);
   } else {
-    const size_t smem = (size_t)(2 * BT * KC + 2 * KC * RC + 3 * RC * BT) * sizeof(T);
-    err = cudaFuncSetAttribute(hstep_stat_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    // two blocks an SM (registers capped at 85) where a block has at most
+    // 384 threads in float32; T = R = 64 (512 threads) and float64 one
+    const int nth = small_threads(Tn, R);
+    auto kernel = hstep_stat_kernel<T, SMALL_NT_MAX, 1>;
+    if constexpr (sizeof(T) == sizeof(float))
+      if (nth <= 384) kernel = hstep_stat_kernel<T, 384, 2>;
+    const size_t smem = small_smem<T>(Tn, R);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(p.chunks, p.nt * p.nt, Z);
-    hstep_stat_kernel<T><<<grid, NT, smem, st>>>(G, w, X, valid, part, S, Tn, R, p.nt, p.nr,
-                                                 p.nq, p.spc, p.chunks, p.ne);
+    const int vec = (R * sizeof(T)) % 16 == 0 && reinterpret_cast<size_t>(X) % 16 == 0;
+    const dim3 grid(p.chunks, 1, Z);
+    kernel<<<grid, nth, smem, st>>>(G, w, X, valid, part, S, Tn, R, p.spc, p.chunks, p.ne, vec);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

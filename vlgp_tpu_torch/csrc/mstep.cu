@@ -35,8 +35,9 @@
 // RB FMAs in two chains (even and odd rows), the per-row factors (mu, v,
 // mu m, v m) read as broadcasts; where a channel's entries do not fit in
 // shared memory (large Z in float64) they are split in slabs over
-// gridDim.z.  Either writes its partial sums to part (C, Y, NE): no
-// atomics, so every run gives the same bits.
+// gridDim.z.  Either writes its partial sums to part (Y, C, NE), a
+// channel's partials contiguous: no atomics, so every run gives the same
+// bits.
 //
 // The partials are reduced over the C chunks in a fixed order by one
 // device routine (reduce_channel: chunk c goes to group c mod G, each group
@@ -46,15 +47,31 @@
 // all-reduce of a data-sharded fit.  Both give the same bits, so a world of
 // one repeats the unsharded fit bit for bit.
 //
-// mstep_update_kernel: a block per channel reduces (or gathers) its
-// entries, forms noise = s2/n - (s1/n)^2, grad_a = C1 - a C2, the Hessian
-// E1 + a_z E2 + a_k E2' + a_z a_k E3 + diag(C2) + eps I (nhess_b + eps I
-// for b), solves both by Gaussian elimination with partial pivoting (a zero
-// or NaN pivot gives NaN, as torch.linalg.solve_ex and jnp.linalg.solve
-// do) or takes learning_rate * grad in gradient mode, clamps to
-// da_bound / db_bound, and writes a + da, b + db, noise, da and db.  An
-// inert channel (active[c] == 0) keeps its a, b and noise with da = db = 0
-// exactly.
+// The update: a block per channel reduces (or gathers) its entries, forms
+// noise = s2/n - (s1/n)^2, grad_a = C1 - a C2, the Hessian E1 + a_z E2 +
+// a_k E2' + a_z a_k E3 + diag(C2) + eps I (nhess_b + eps I for b), solves
+// both by Gaussian elimination with partial pivoting (a zero or NaN pivot
+// gives NaN, as torch.linalg.solve_ex and jnp.linalg.solve do) or takes
+// learning_rate * grad in gradient mode, clamps to da_bound / db_bound, and
+// writes a + da, b + db, noise, da and db.  An inert channel (active[c] ==
+// 0) keeps its a, b and noise with da = db = 0 exactly.  It also writes the
+// exit test's four squared norms (sum da^2, sum a_new^2, sum db^2, sum
+// b_new^2 over the channels; vlgp_tpu/models/vlgp.py:483-490 sums them in
+// its while_loop): each block its channel's, and the last block to finish
+// the sums over the channels in a fixed order (finish_norms), so the
+// M-step's exit test needs no reduction launch of its own.  The last block
+// is found by a ticket counter that must be 0 at launch and that the last
+// block sets back to 0, so launches that share a counter must run one
+// after another: the wrapper keeps one per (device, stream)
+// (ops/mstep.py:_ticket).  For Z <= 8 and
+// X <= 2 (mstep_update_reg_kernel) the channel's partial sums, contiguous
+// in part, come to shared memory by bulk copies (the tensor memory
+// accelerator) and are summed from there, and each system is solved in one
+// thread's registers (no barrier); above (mstep_update_kernel) the
+// prologue loads from device memory eight loads at a time and the block
+// solves in shared memory, four barriers a column.  Both add in
+// reduce_channel's order and solve with the same operations, so they give
+// the same bits.
 //
 // What bounds it on this card.  At the flagship (Z5 X1 S2000 T50 Y100) the
 // pass reads y and x (40 MB each), mu, v and the mask (4.4 MB): ~25 us at
@@ -71,8 +88,19 @@
 // bound; a third stage, 512 threads a block or more chunks did not help,
 // tools/torch_variant_ab.py).  Its row loop is 133 instructions, 85 of
 // them FFMA: ~40 us at the flagship at 4 instructions a clock.  The update
-// is ~Z^3 + X^3 operations per channel; its time is the reduction's loads,
-// ~13 us of device time with 512 threads a channel (33 us with 128).
+// is ~Z^3 + X^3 operations per channel; its time is the partial sums' trip
+// from L2 (7.3 MB at the flagship: 264 chunks x 100 channels x 69
+// entries) and the latency of each step's chain.  With eight loads in
+// flight per thread, the block solving with four barriers a column and the
+// back-substitution on one thread it took ~12.3 us of device time on an
+// H100 (33 us with 128 threads); mstep_update_reg_kernel takes ~7.3 us
+// (tools/torch_variant_ab.py, in turns), against a bound of ~2.2 us for
+// reading the partials once.  A clock-stamped draft build (not in the
+// repo) put the largest share in the wait for the copy, then the sums, the
+// solve and writes, and the norms' ticket, in that order.  Tried in draft
+// builds and not kept, both slower: each system solved by a warp, a row a
+// lane, with shuffles; four pieces of the copy, each on its own mbarrier,
+// the sums of each starting as it lands.
 
 #include <cmath>
 
@@ -347,12 +375,13 @@ __global__ void __launch_bounds__(NT) mstep_stats_kernel(
     }
   }
   __syncthreads();
-  // partials of this block: part[ch][c][e], entries of a channel contiguous
+  // partials of this block: part[c][ch][e], a channel's chunks contiguous
   const int nc = min(NT, Y - (int)blockIdx.y * NT);
   const int ecnt = e1 - e0;
   for (int i = tid; i < nc * ecnt; i += NT) {
     const int yl = i / ecnt, el = i - yl * ecnt;
-    part[((size_t)ch * Y + (size_t)blockIdx.y * NT + yl) * L.ne + e0 + el] = acc[(size_t)el * YS + yl];
+    part[(((size_t)blockIdx.y * NT + yl) * gridDim.x + ch) * L.ne + e0 + el] =
+        acc[(size_t)el * YS + yl];
   }
 }
 
@@ -584,7 +613,7 @@ __global__ void __launch_bounds__(NTG) mstep_stats_reg_kernel(
     __syncthreads();  // tile k is read: its stage takes tile k + 2
   }
   // the groups' sums added in group order, ES entries at a time, and
-  // written as this chunk's partial sums part[chunk][c][e]
+  // written as this chunk's partial sums part[c][chunk][e]
 #pragma unroll
   for (int e0 = 0; e0 < NE; e0 += ES) {
     for (int gg = 0; gg < groups; ++gg) {
@@ -599,7 +628,7 @@ __global__ void __launch_bounds__(NTG) mstep_stats_reg_kernel(
     const int ecnt = min(ES, ne - e0);
     for (int i = threadIdx.x; i < nc * ecnt; i += blockDim.x) {
       const int yl = i / ecnt, el = i - yl * ecnt;
-      part[((size_t)blockIdx.x * Y + (size_t)blockIdx.y * lanes + yl) * ne + e0 + el] =
+      part[(((size_t)blockIdx.y * lanes + yl) * gridDim.x + blockIdx.x) * ne + e0 + el] =
           sacc[el * lanes + yl];
     }
     __syncthreads();
@@ -626,8 +655,8 @@ __device__ void reduce_channel(const T* __restrict__ part, int C, int Y, int ne,
   const int G = groups(ne, C);
   for (int i = threadIdx.x; i < G * ne; i += NTU) {
     const int gi = i / ne, e = i - gi * ne;
-    const T* p = part + (size_t)c * ne + e;
-    const size_t stride = (size_t)Y * ne;
+    const T* p = part + (size_t)c * C * ne + e;
+    const size_t stride = ne;
     T s = p[(size_t)gi * stride];
     int k = gi + G;
     // eight loads in flight, added in chunk order
@@ -735,14 +764,64 @@ __device__ void solve_block(T* M, int n, T* lcol, int* piv, T* sol) {
   __syncthreads();
 }
 
+// The exit test's squared norms.  Thread 0 writes its channel's (sum
+// da^2, sum a_new^2, sum db^2, sum b_new^2), vals[0 .. 3], to cn (Y, 4)
+// and takes a ticket (an atomic add with release and acquire order at the
+// device's scope); the block with the last ticket adds cn over the
+// channels into norms (4) in a fixed order: thread i the channels i, i +
+// NTH, ... in order, then lane l of warp 0 the threads l, l + 32, ... in
+// order, then the lanes in a fixed tree.  The ticket decides which block
+// adds, never what is added, and the last block resets the counter for the
+// next launch (and graph replay): two launches on one counter must not
+// overlap, or their tickets interleave.  All NTH threads of the block, vals read
+// by thread 0 after the block's barrier.
+template <typename T, int NTH>
+__device__ void finish_norms(const T* vals, T* cn, T* __restrict__ norms, unsigned* counter,
+                             int Y) {
+  __shared__ bool last;
+  __shared__ T part_s[NTH][4];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) cn[4 * (size_t)blockIdx.x + j] = vals[j];
+    unsigned ticket;
+    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;" : "=r"(ticket) : "l"(counter) : "memory");
+    last = ticket == (unsigned)Y - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  T s[4] = {(T)0, (T)0, (T)0, (T)0};
+  for (int c = threadIdx.x; c < Y; c += NTH)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] += __ldcg(cn + 4 * (size_t)c + j);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) part_s[threadIdx.x][j] = s[j];
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = (T)0;
+  for (int i = threadIdx.x; i < NTH && i < Y; i += 32)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] += part_s[i][j];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] += __shfl_down_sync(0xffffffffu, s[j], off);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) norms[j] = s[j];
+    *counter = 0u;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NTU) mstep_update_kernel(
     const T* __restrict__ part, int C, const T* __restrict__ flat, T* __restrict__ red,
     const T* __restrict__ n_ptr, const T* __restrict__ a, const T* __restrict__ b,
     const T* __restrict__ noise_prev, const unsigned char* __restrict__ active,
     T* __restrict__ a_new, T* __restrict__ b_new, T* __restrict__ noise, T* __restrict__ da,
-    T* __restrict__ db, int Y, int Z, int X, int hess, double eps_, double lr_, double da_bound_,
-    double db_bound_) {
+    T* __restrict__ db, T* __restrict__ cn, T* __restrict__ norms, unsigned* counter, int Y,
+    int Z, int X, int hess, double eps_, double lr_, double da_bound_, double db_bound_) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Layout L(Z, X, hess);
   const int c = blockIdx.x;
@@ -827,7 +906,335 @@ __global__ void __launch_bounds__(NTU) mstep_update_kernel(
       db[(size_t)q * Y + c] = act ? d : (T)0;
     }
   }
+  __syncthreads();  // this channel's outputs are written
+  __shared__ T sums[4];
+  if (threadIdx.x == 0) {
+    T s[4] = {(T)0, (T)0, (T)0, (T)0};
+    for (int z = 0; z < Z; ++z) {
+      const T d = da[(size_t)z * Y + c], an = a_new[(size_t)z * Y + c];
+      s[0] = fma(d, d, s[0]);
+      s[1] = fma(an, an, s[1]);
+    }
+    for (int q = 0; q < X; ++q) {
+      const T d = db[(size_t)q * Y + c], bn = b_new[(size_t)q * Y + c];
+      s[2] = fma(d, d, s[2]);
+      s[3] = fma(bn, bn, s[3]);
+    }
+    for (int j = 0; j < 4; ++j) sums[j] = s[j];
+  }
+  finish_norms<T, NTU>(sums, cn, norms, counter, Y);
 }
+
+// ---------------------------------------------------------------------------
+// The update for Z <= 8 and X <= 2: mstep_update_reg_kernel
+// ---------------------------------------------------------------------------
+
+constexpr int NTF = 512;                      // threads per block
+constexpr int UPDATE_BUF_BYTES = 96 * 1024;   // a batch of chunks' partials in shared memory
+constexpr int SLOTS = SG / NTF;               // (group, entry) sums a thread keeps
+
+// A bulk copy (the tensor memory accelerator) of bytes from global src to
+// shared dst, both 16-byte aligned, bytes a multiple of 16, completing on
+// the mbarrier bar.  One thread.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const unsigned m = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(d), "l"(src), "r"(bytes), "r"(m)
+      : "memory");
+}
+
+// wait until the mbarrier bar has completed the phase of parity `parity`;
+// a copy that never completes traps rather than hangs
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned m = (unsigned)__cvta_generic_to_shared(bar);
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, "
+        "p; }"
+        : "=r"(done)
+        : "r"(m), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1ll << 26)) __trap();
+  }
+}
+
+// The entries of channel c reduced as reduce_channel reduces them (chunk k
+// in group k mod G, each group summed in chunk order, the groups added in
+// order: the same additions, so the same bits), into st.  The channel's
+// partials (contiguous in part) come to shared memory first, kb chunks a
+// batch, by bulk copies of the 16-byte aligned span around them (part
+// holds VW values past its end, so the last span stays inside it), issued
+// by one thread and waited on by all; each (group, entry) sum then reads
+// eight values ahead of its additions.  Needs G ne <= SG; all threads of
+// the block; ends with a barrier.
+template <typename T>
+__device__ void reduce_staged(const T* __restrict__ part, int C, int kb, int ne, int c, T* buf,
+                              T* sg, T* st) {
+  constexpr int VW = 16 / sizeof(T);
+  constexpr unsigned PIECE = 32768;  // bytes a bulk copy
+  __shared__ unsigned long long bar;
+  const int G = groups(ne, C);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(&bar))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // each slot's (group, entry): i = tid + NTF m, gi = i / ne, e = i mod ne
+  int gi[SLOTS], ei[SLOTS];
+  {
+    const int dq = NTF / ne, dr = NTF - dq * ne;
+    int g = threadIdx.x / ne, e = threadIdx.x - g * ne;
+#pragma unroll
+    for (int m = 0; m < SLOTS; ++m) {
+      gi[m] = g;
+      ei[m] = e;
+      g += dq;
+      e += dr;
+      if (e >= ne) {
+        e -= ne;
+        ++g;
+      }
+    }
+  }
+  T s[SLOTS];
+  unsigned parity = 0;
+  for (int k0 = 0; k0 < C; k0 += kb) {
+    const int k1 = min(C, k0 + kb);
+    const size_t o = ((size_t)c * C + k0) * ne, a0 = o - o % VW;
+    const int off = (int)(o - a0);
+    const unsigned bytes = (unsigned)((off + (k1 - k0) * ne + VW - 1) / VW * 16);
+    if (threadIdx.x == 0) {
+      const unsigned m = (unsigned)__cvta_generic_to_shared(&bar);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(m), "r"(bytes)
+                   : "memory");
+      for (unsigned b0 = 0; b0 < bytes; b0 += PIECE)
+        bulk_copy(reinterpret_cast<char*>(buf) + b0,
+                  reinterpret_cast<const char*>(part + a0) + b0, min(PIECE, bytes - b0), &bar);
+    }
+    bar_wait(&bar, parity);
+    parity ^= 1u;
+    const int k0g = k0 % G, stride = G * ne;
+#pragma unroll
+    for (int m = 0; m < SLOTS; ++m) {
+      if (gi[m] >= G) continue;
+      int k = k0 + gi[m] - k0g + (gi[m] < k0g ? G : 0);  // the group's first chunk of the batch
+      const T* p = buf + off + (k - k0) * ne + ei[m];       // chunk k's entry
+      if (k == gi[m] && k < k1) {  // the group's first chunk: its sum starts there
+        s[m] = p[0];
+        p += stride;
+        k += G;
+      }
+      for (; k + 7 * G < k1; k += 8 * G, p += 8 * stride) {
+        T v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = p[u * stride];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) s[m] += v[u];
+      }
+      for (; k < k1; k += G, p += stride) s[m] += p[0];
+    }
+    __syncthreads();  // the batch is read: its buffer takes the next
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+#pragma unroll
+  for (int m = 0; m < SLOTS; ++m)
+    if (gi[m] < G) (G == 1 ? st : sg)[gi[m] * ne + ei[m]] = s[m];
+  __syncthreads();
+  if (G > 1) {
+    for (int e = threadIdx.x; e < ne; e += NTF) {
+      T v[GMAX];
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) v[g] = g < G ? sg[(size_t)g * ne + e] : (T)0;
+      T t = v[0];
+#pragma unroll
+      for (int g = 1; g < GMAX; ++g)
+        if (g < G) t += v[g];
+      st[e] = t;
+    }
+    __syncthreads();
+  }
+}
+
+// Solve [M | rhs] (N x N + 1, in one thread's registers) as solve_block
+// solves it: Gaussian elimination, the pivot the first row of largest
+// magnitude from the diagonal, a zero or NaN pivot giving NaN; the same
+// operations in the same order, with no barrier and no shuffle.
+template <typename T, int N>
+__device__ __forceinline__ void reg_solve(T (&M)[N][N + 1], T (&x)[N]) {
+  bool singular = false;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    int p = k;
+    T best = fabs(M[k][k]);
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      const T m = fabs(M[i][k]);
+      if (m > best) {
+        best = m;
+        p = i;
+      }
+    }
+    if (!(best > (T)0)) singular = true;
+#pragma unroll
+    for (int i = k + 1; i < N; ++i)
+      if (p == i) {
+#pragma unroll
+        for (int j = k; j <= N; ++j) {
+          const T t = M[k][j];
+          M[k][j] = M[i][j];
+          M[i][j] = t;
+        }
+      }
+    const T d = M[k][k];
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      const T l = M[i][k] / d;
+#pragma unroll
+      for (int j = k + 1; j <= N; ++j) M[i][j] -= l * M[k][j];
+    }
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    T s = M[i][N];
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) s -= M[i][j] * x[j];
+    x[i] = singular ? (T)NAN : s / M[i][i];
+  }
+}
+
+// A block of NTF threads per channel: the reduction (reduce_staged, or the
+// all-reduced flat statistics gathered), then warp 0 solves the loading's
+// Z x Z system and warp 1 the regression's X x X in registers (reg_solve;
+// every lane the whole system, lane z writing z), each adding its channel's
+// squared norms; thread 64 the noise.  The same arithmetic as
+// mstep_update_kernel.
+template <typename T, int ZC, int XC>
+__global__ void __launch_bounds__(NTF) mstep_update_reg_kernel(
+    const T* __restrict__ part, int C, int kb, const T* __restrict__ flat,
+    const T* __restrict__ n_ptr, const T* __restrict__ a, const T* __restrict__ b,
+    const T* __restrict__ noise_prev, const unsigned char* __restrict__ active,
+    T* __restrict__ a_new, T* __restrict__ b_new, T* __restrict__ noise, T* __restrict__ da,
+    T* __restrict__ db, T* __restrict__ cn, T* __restrict__ norms, unsigned* counter, int Y,
+    int hess, double eps_, double lr_, double da_bound_, double db_bound_) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T sg[SG];
+  __shared__ T st[entries(ZC, XC, 1)];
+  __shared__ T sums[4];  // this channel's squared norms
+  const Layout L(ZC, XC, hess);
+  const int c = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const T eps = (T)eps_, lr = (T)lr_, dab = (T)da_bound_, dbb = (T)db_bound_;
+  // this channel's a (warp 0), b (warp 1), n and the carried noise (thread
+  // 64), loaded before the reduction so that their latency hides behind it
+  T av[ZC], bv[XC], nn = (T)0, nprev = (T)0;
+#pragma unroll
+  for (int z = 0; z < ZC; ++z) av[z] = warp == 0 ? a[(size_t)z * Y + c] : (T)0;
+#pragma unroll
+  for (int q = 0; q < XC; ++q) bv[q] = warp == 1 ? b[(size_t)q * Y + c] : (T)0;
+  if (threadIdx.x == 64) {
+    nn = n_ptr[0];
+    nprev = noise_prev[c];
+  }
+  const bool act = active == nullptr || active[c] != 0;
+  if (part != nullptr) {
+    reduce_staged(part, C, kb, L.ne, c, reinterpret_cast<T*>(smem_raw), sg, st);
+  } else {
+    for (int e = threadIdx.x; e < L.ne; e += NTF) {
+      long long mirror;
+      st[e] = flat[flat_offset(L, e, c, Y, &mirror)];
+    }
+    __syncthreads();
+  }
+  // ---- the loading: grad_a = C1 - a C2; warp 0, every lane the whole
+  // system, lane z writes z ----
+  if (warp == 0) {
+    T M[ZC][ZC + 1], x[ZC];
+    if (hess) {
+#pragma unroll
+      for (int z = 0; z < ZC; ++z) {
+#pragma unroll
+        for (int k = 0; k < ZC; ++k) {
+          const int zl = z < k ? z : k, kh = z < k ? k : z;
+          T h = st[L.e1 + tri_index(zl, kh, ZC)];
+          h = h + av[z] * st[L.e2 + z * ZC + k];
+          h = h + av[k] * st[L.e2 + k * ZC + z];
+          h = h + (av[z] * av[k]) * st[L.e3 + tri_index(zl, kh, ZC)];
+          h = h + st[L.c2 + z] * (T)(z == k);
+          h = h + eps * (T)(z == k);
+          M[z][k] = h;
+        }
+        M[z][ZC] = st[L.c1 + z] - av[z] * st[L.c2 + z];
+      }
+      reg_solve<T, ZC>(M, x);
+    } else {
+#pragma unroll
+      for (int z = 0; z < ZC; ++z) x[z] = lr * (st[L.c1 + z] - av[z] * st[L.c2 + z]);
+    }
+    T s_d = (T)0, s_a = (T)0;
+#pragma unroll
+    for (int z = 0; z < ZC; ++z) {
+      const T d = clampb(x[z], dab);
+      const T an = act ? av[z] + d : av[z], dd = act ? d : (T)0;
+      if (lane == z) {
+        a_new[(size_t)z * Y + c] = an;
+        da[(size_t)z * Y + c] = dd;
+      }
+      s_d = fma(dd, dd, s_d);
+      s_a = fma(an, an, s_a);
+    }
+    if (lane == 0) {
+      sums[0] = s_d;
+      sums[1] = s_a;
+    }
+  } else if (warp == 1) {
+    // ---- the regression: nhess_b + eps I ----
+    T M[XC][XC + 1], x[XC];
+    if (hess) {
+#pragma unroll
+      for (int q = 0; q < XC; ++q) {
+#pragma unroll
+        for (int p = 0; p < XC; ++p) {
+          const int ql = q < p ? q : p, ph = q < p ? p : q;
+          M[q][p] = st[L.nh + tri_index(ql, ph, XC)] + eps * (T)(q == p);
+        }
+        M[q][XC] = st[L.gb + q];
+      }
+      reg_solve<T, XC>(M, x);
+    } else {
+#pragma unroll
+      for (int q = 0; q < XC; ++q) x[q] = lr * st[L.gb + q];
+    }
+    T s_d = (T)0, s_b = (T)0;
+#pragma unroll
+    for (int q = 0; q < XC; ++q) {
+      const T d = clampb(x[q], dbb);
+      const T bn = act ? bv[q] + d : bv[q], dd = act ? d : (T)0;
+      if (lane == q) {
+        b_new[(size_t)q * Y + c] = bn;
+        db[(size_t)q * Y + c] = dd;
+      }
+      s_d = fma(dd, dd, s_d);
+      s_b = fma(bn, bn, s_b);
+    }
+    if (lane == 0) {
+      sums[2] = s_d;
+      sums[3] = s_b;
+    }
+  } else if (threadIdx.x == 64) {
+    const T mean = st[0] / nn;
+    const T var = st[1] / nn - mean * mean;
+    noise[c] = act ? var : nprev;
+  }
+  finish_norms<T, NTF>(sums, cn, norms, counter, Y);
+}
+
 
 // ---------------------------------------------------------------------------
 // Launch plans
@@ -958,6 +1365,52 @@ size_t update_smem(int Z, int X) {
   return ((size_t)n * (n + 1) + 2 * (size_t)n + SG) * sizeof(T);
 }
 
+// the update kernel of (ZC, XC) for Z <= 8, X <= 2
+template <typename T, int XC>
+auto update_reg_kernel_z(int Z) -> decltype(&mstep_update_reg_kernel<T, 1, 1>) {
+  switch (Z) {
+    case 1: return mstep_update_reg_kernel<T, 1, XC>;
+    case 2: return mstep_update_reg_kernel<T, 2, XC>;
+    case 3: return mstep_update_reg_kernel<T, 3, XC>;
+    case 4: return mstep_update_reg_kernel<T, 4, XC>;
+    case 5: return mstep_update_reg_kernel<T, 5, XC>;
+    case 6: return mstep_update_reg_kernel<T, 6, XC>;
+    case 7: return mstep_update_reg_kernel<T, 7, XC>;
+    default: return mstep_update_reg_kernel<T, 8, XC>;
+  }
+}
+
+template <typename T>
+cudaError_t launch_update(const T* part, int C, const T* flat, T* red, const T* n, const T* a,
+                          const T* b, const T* noise_prev, const unsigned char* act, T* a_new,
+                          T* b_new, T* noise, T* da, T* db, T* cn, T* norms, unsigned* counter,
+                          int Y, int Z, int X, int hess, double eps, double lr, double da_bound,
+                          double db_bound, cudaStream_t st) {
+  cudaError_t err;
+  if (Z <= ZR_MAX && X <= XR_MAX) {
+    const int ne = Layout(Z, X, hess).ne;
+    constexpr int VW = 16 / sizeof(T);  // reduce_staged's batch: kb chunks and an alignment
+    int kb = part == nullptr ? 1 : (UPDATE_BUF_BYTES / (int)sizeof(T) - 2 * VW) / ne;
+    kb = kb < C ? kb : (C > 0 ? C : 1);
+    const size_t smem = ((size_t)kb * ne + 2 * VW) * sizeof(T);
+    auto kernel = X == 1 ? update_reg_kernel_z<T, 1>(Z) : update_reg_kernel_z<T, 2>(Z);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<Y, NTF, smem, st>>>(part, C, kb, flat, n, a, b, noise_prev, act, a_new, b_new, noise,
+                                 da, db, cn, norms, counter, Y, hess, eps, lr, da_bound,
+                                 db_bound);
+    return cudaGetLastError();
+  }
+  const size_t smem = update_smem<T>(Z, X);
+  err = cudaFuncSetAttribute(mstep_update_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  mstep_update_kernel<T><<<Y, NTU, smem, st>>>(part, C, flat, red, n, a, b, noise_prev, act,
+                                               a_new, b_new, noise, da, db, cn, norms, counter, Y,
+                                               Z, X, hess, eps, lr, da_bound, db_bound);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -978,7 +1431,7 @@ int mstep_stats_plan(int N, int Y, int Z, int X, int hess, int is_double, int* c
 }
 
 // y (N, Y), x (N, X, Y), mask (N,), mu and v (N, Z), a (Z, Y), b (X, Y),
-// part (chunks, Y, entries), all contiguous, float64 when is_double else
+// part (Y, chunks, entries), all contiguous, float64 when is_double else
 // float32; N = S T rows.
 int mstep_stats(const void* y, const void* x, const void* mask, const void* mu, const void* v,
                 const void* a, const void* b, void* part, int N, int Y, int Z, int X, int hess,
@@ -994,7 +1447,7 @@ int mstep_stats(const void* y, const void* x, const void* mask, const void* mu, 
                            Z, X, hess, st);
 }
 
-// part (chunks, Y, entries) reduced over the chunks into flat (today's
+// part (Y, chunks, entries) reduced over the chunks into flat (today's
 // layouts) and red (Y, entries).
 int mstep_reduce(const void* part, int chunks, void* flat, void* red, int Y, int Z, int X,
                  int hess, int is_double, void* stream) {
@@ -1010,42 +1463,35 @@ int mstep_reduce(const void* part, int chunks, void* flat, void* red, int Y, int
   return (int)cudaGetLastError();
 }
 
-// One update from part (chunks, Y, entries), reduced in the prologue, or
-// when part is NULL from flat (today's layouts, all-reduced); red (Y,
-// entries) is scratch; n a one-element tensor; active NULL or (Y,) bytes.
+// One update from part (Y, chunks, entries, and 16 bytes of storage past
+// its end), reduced in the prologue, or when part is NULL from flat
+// (today's layouts, all-reduced); red (Y,
+// entries) and cn (Y, 4) are scratch; n a one-element tensor; active NULL
+// or (Y,) bytes; norms (4) gets the exit test's squared norms (sum da^2,
+// sum a_new^2, sum db^2, sum b_new^2 over the Y channels); counter one
+// unsigned int, 0 before the launch and after it.
 int mstep_update(const void* part, int chunks, const void* flat, void* red, const void* n,
                  const void* a, const void* b, const void* noise_prev, const void* active,
-                 void* a_new, void* b_new, void* noise, void* da, void* db, int Y, int Z, int X,
-                 int hess, double eps, double lr, double da_bound, double db_bound, int is_double,
-                 void* stream) {
+                 void* a_new, void* b_new, void* noise, void* da, void* db, void* cn, void* norms,
+                 void* counter, int Y, int Z, int X, int hess, double eps, double lr,
+                 double da_bound, double db_bound, int is_double, void* stream) {
   if (Y < 1 || Z < 1 || Z > ZMAX || X < 1 || X > XMAX || (part == nullptr) == (flat == nullptr) ||
       (part != nullptr && chunks < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned char* act = (const unsigned char*)active;
-  cudaError_t err;
-  if (is_double) {
-    const size_t smem = update_smem<double>(Z, X);
-    err = cudaFuncSetAttribute(mstep_update_kernel<double>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    mstep_update_kernel<double><<<Y, NTU, smem, st>>>(
-        (const double*)part, chunks, (const double*)flat, (double*)red, (const double*)n,
-        (const double*)a, (const double*)b, (const double*)noise_prev, act, (double*)a_new,
-        (double*)b_new, (double*)noise, (double*)da, (double*)db, Y, Z, X, hess, eps, lr,
-        da_bound, db_bound);
-  } else {
-    const size_t smem = update_smem<float>(Z, X);
-    err = cudaFuncSetAttribute(mstep_update_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    mstep_update_kernel<float><<<Y, NTU, smem, st>>>(
-        (const float*)part, chunks, (const float*)flat, (float*)red, (const float*)n,
-        (const float*)a, (const float*)b, (const float*)noise_prev, act, (float*)a_new,
-        (float*)b_new, (float*)noise, (float*)da, (float*)db, Y, Z, X, hess, eps, lr, da_bound,
-        db_bound);
-  }
-  return (int)cudaGetLastError();
+  unsigned* ctr = (unsigned*)counter;
+  if (is_double)
+    return (int)launch_update((const double*)part, chunks, (const double*)flat, (double*)red,
+                              (const double*)n, (const double*)a, (const double*)b,
+                              (const double*)noise_prev, act, (double*)a_new, (double*)b_new,
+                              (double*)noise, (double*)da, (double*)db, (double*)cn,
+                              (double*)norms, ctr, Y, Z, X, hess, eps, lr, da_bound, db_bound, st);
+  return (int)launch_update((const float*)part, chunks, (const float*)flat, (float*)red,
+                            (const float*)n, (const float*)a, (const float*)b,
+                            (const float*)noise_prev, act, (float*)a_new, (float*)b_new,
+                            (float*)noise, (float*)da, (float*)db, (float*)cn, (float*)norms, ctr,
+                            Y, Z, X, hess, eps, lr, da_bound, db_bound, st);
 }
 
 }  // extern "C"

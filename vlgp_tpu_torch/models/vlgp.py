@@ -31,7 +31,7 @@ from ..data import TrialSet
 from ..ops import control
 from ..ops.linalg import svd_loading
 from ..ops.math import trunc_exp
-from ..ops.mstep import _solve, mstep_stats, mstep_update
+from ..ops.mstep import _solve, moving, mstep_stats, mstep_update, squared_norms
 from ..ops.spd import FALLBACKS, _ok, inv_one_plus_gram, inv_one_plus_psd
 from ..ops.sweep import sweep as fused_sweep
 from ..ops.sweep import sweep_fused_eligible
@@ -459,9 +459,11 @@ def mstep(data: TrialSet, params: Params, config: Config,
     (one all_reduce per Newton iteration, and one of the mask's count per
     M-step), so a, b, da and db come out bitwise equal on every rank of a
     model column.  Every update is per channel, so ``dist.model`` adds
-    nothing to an iteration; the exit test's squared norms are summed over
-    the model group (``vlgp_tpu/models/vlgp.py:483-490``), so every model
-    rank takes the same trip count.  ``params.active`` pins the channels it
+    nothing to an iteration; the exit test's four squared norms (from
+    ``mstep_update`` on a pure Poisson fit: on the card its kernel sums
+    them, so the test launches only its compare) are summed over the model
+    group (``vlgp_tpu/models/vlgp.py:483-490``), so every model rank takes
+    the same trip count.  ``params.active`` pins the channels it
     marks False (the padding of ``parallel.mesh.pad_channels``) to their
     state."""
     niter = config.Mniter if niter is None else niter
@@ -494,19 +496,21 @@ def mstep(data: TrialSet, params: Params, config: Config,
                                torch.einsum("stxn,stqn->nxq", xm, x)), dist, "data")
         Mg = Mg + torch.diag(vsum)
 
-    def iteration(a, b, noise_prev):
+    mtol = config.mstep_tol
+
+    def iteration(a, b, noise_prev, norms):
         if need_pois:
             # ---- Poisson loading and regression update (core.py:182-218) ----
             stats = mstep_stats(y, x, mask, data.mu, data.v, a, b, config.use_hessian,
                                 partial=partial)
             if not partial:
                 stats = _psum(stats, dist, "data")
-            a_pois, b_pois, noise, delta_a, delta_b = mstep_update(
+            a_pois, b_pois, noise, delta_a, delta_b, norms_pois = mstep_update(
                 stats, n, a, b, noise_prev, active_pois, use_hessian=config.use_hessian,
                 eps=eps, learning_rate=config.learning_rate, da_bound=config.da_bound,
                 db_bound=config.db_bound)
             if not need_gauss:
-                return a_pois, b_pois, noise, delta_a, delta_b
+                return a_pois, b_pois, noise, delta_a, delta_b, norms_pois
         else:
             noise = _masked_var(y - _eta(muz, a, _xb(x, b)), mask, dist)
 
@@ -535,21 +539,21 @@ def mstep(data: TrialSet, params: Params, config: Config,
             noise = torch.where(act, noise, noise_prev)
             da = torch.where(act, da, torch.zeros_like(da))
             db = torch.where(act, db, torch.zeros_like(db))
-        return a_new, b_new, noise, da, db
-
-    mtol = config.mstep_tol
+        if mtol > 0:
+            norms = squared_norms(da, a_new, db, b_new)
+        return a_new, b_new, noise, da, db, norms
 
     def keep_going(i, carry):
         if not (mtol > 0 and i >= 2):
             return None
-        a, b, _, da, db = carry
-        nda, na, ndb, nb = _psum((torch.sum(da * da), torch.sum(a * a),
-                                  torch.sum(db * db), torch.sum(b * b)), dist, "model")
-        return (nda > mtol * mtol * na) | (ndb > mtol * mtol * nb)
+        # this device's squared norms (the update kernel's own on a pure
+        # Poisson fit), summed over the model group's channels
+        return moving(_psum(carry[5], dist, "model"), mtol)
 
-    a, b, noise, da, db = control.bounded_while(
-        niter, keep_going, lambda c: iteration(c[0], c[1], c[2]),
-        (params.a, params.b, params.noise, params.da, params.db), name="mstep_iters")
+    a, b, noise, da, db, _ = control.bounded_while(
+        niter, keep_going, lambda c: iteration(c[0], c[1], c[2], c[5]),
+        (params.a, params.b, params.noise, params.da, params.db, params.a.new_zeros(4)),
+        name="mstep_iters")
     return params.replace(a=a, b=b, noise=noise, da=da, db=db)
 
 

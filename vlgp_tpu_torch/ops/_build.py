@@ -60,7 +60,7 @@ _SIGNATURES = {
         "mstep_stats_plan": ([_i] * 6 + [_p, _p], _i),
         "mstep_stats": ([_p] * 8 + [_i] * 6 + [_p], _i),
         "mstep_reduce": ([_p, _i, _p, _p] + [_i] * 5 + [_p], _i),
-        "mstep_update": ([_p, _i] + [_p] * 12 + [_i] * 4 + [_d] * 4 + [_i, _p], _i),
+        "mstep_update": ([_p, _i] + [_p] * 15 + [_i] * 4 + [_d] * 4 + [_i, _p], _i),
     },
     "hstep": {
         "hstep_search_scratch": ([_i, _i], _i),

@@ -15,7 +15,9 @@ CUDA kernels carry it on the card (``csrc/mstep.cu``):
     routine in one order, so the two routes give the same bits.
   * ``mstep_update``: per channel, the noise, the Newton step on the
     loading and the regression (or the gradient step), the clamps, and the
-    pinning of inert channels (``active``).
+    pinning of inert channels (``active``); and the exit test's four
+    squared norms over the channels (``vlgp_tpu/models/vlgp.py:483-490``),
+    summed by the kernel's last block in a fixed channel order.
 
 Each has a plain PyTorch version beside it (``_mstep_stats_plain``,
 ``_mstep_update_plain``): the einsum code the M-step ran before, unchanged
@@ -33,7 +35,8 @@ import torch
 from .math import trunc_exp
 from .spd import KERNEL_LAUNCHES, _ptr, _raise_on
 
-__all__ = ["Partials", "mstep_stats", "mstep_update", "Z_MAX", "X_MAX"]
+__all__ = ["Partials", "mstep_stats", "mstep_update", "squared_norms", "moving", "Z_MAX",
+           "X_MAX"]
 
 # largest Z and X the kernels take: the update solves a Z x Z and an X x X
 # system in one block's shared memory
@@ -41,9 +44,13 @@ Z_MAX = 128
 X_MAX = 128
 
 
+# values of storage a Partials tensor holds past its end (16 bytes or more)
+_PART_TAIL = 4
+
+
 class Partials(NamedTuple):
-    """The per-chunk partial sums of one ``mstep_stats`` launch, (chunks,
-    Y, entries), reduced by ``mstep_update``'s prologue."""
+    """The per-chunk partial sums of one ``mstep_stats`` launch, (Y,
+    chunks, entries), reduced by ``mstep_update``'s prologue."""
 
     part: torch.Tensor
 
@@ -88,11 +95,26 @@ def _solve(A, B):
     return torch.linalg.solve_ex(A, B, check_errors=False)[0]
 
 
+def squared_norms(da, a, db, b):
+    """The M-step exit test's (sum da^2, sum a^2, sum db^2, sum b^2), one
+    (4,) tensor."""
+    return torch.stack([torch.sum(da * da), torch.sum(a * a), torch.sum(db * db),
+                        torch.sum(b * b)])
+
+
+def moving(norms, tol: float):
+    """The M-step's exit predicate on :func:`squared_norms`' (or the
+    kernel's) norms: |da|^2 > tol^2 |a|^2 or |db|^2 > tol^2 |b|^2."""
+    m = norms[0::2] > (tol * tol) * norms[1::2]
+    return m[0] | m[1]
+
+
 def _mstep_update_plain(stats, n, a, b, noise_prev, active, use_hessian: bool, eps: float,
                         learning_rate: float, da_bound: float, db_bound: float):
-    """(a + da, b + db, noise, da, db) from the summed statistics; ``active``
-    (Y,) bool or None pins the channels it marks False to a, b and
-    ``noise_prev`` with da = db = 0."""
+    """(a + da, b + db, noise, da, db, norms) from the summed statistics;
+    ``active`` (Y,) bool or None pins the channels it marks False to a, b
+    and ``noise_prev`` with da = db = 0; norms is :func:`squared_norms` of
+    da, a + da, db and b + db."""
     s1, s2, C1, C2, grad_b, *hess = stats
     mean = s1 / n
     noise = s2 / n - mean * mean
@@ -129,7 +151,7 @@ def _mstep_update_plain(stats, n, a, b, noise_prev, active, use_hessian: bool, e
         noise = torch.where(active, noise, noise_prev)
         delta_a = torch.where(active, delta_a, torch.zeros_like(delta_a))
         delta_b = torch.where(active, delta_b, torch.zeros_like(delta_b))
-    return a_new, b_new, noise, delta_a, delta_b
+    return a_new, b_new, noise, delta_a, delta_b, squared_norms(delta_a, a_new, delta_b, b_new)
 
 
 def _check_shapes(y, x, mask, mu, v, a, b, kernel: bool):
@@ -197,7 +219,11 @@ def _mstep_stats_cuda(y, x, mask, mu, v, a, b, use_hessian: bool, partial: bool)
     is_double = int(y.dtype == torch.float64)
     lib = load_library("mstep")
     chunks, entries = _plan(lib, N, Y, Z, X, use_hessian, is_double)
-    part = torch.empty((chunks, Y, entries), dtype=y.dtype, device=y.device)
+    # (Y, chunks, entries) and _PART_TAIL values of storage past the end:
+    # mstep_update's prologue copies the 16-byte span around a channel's
+    size = chunks * Y * entries
+    part = torch.empty((size + _PART_TAIL,), dtype=y.dtype,
+                       device=y.device)[:size].view(Y, chunks, entries)
     with torch.cuda.device(y.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream)
         rc = lib.mstep_stats(_ptr(y), _ptr(x), _ptr(mask), _ptr(mu), _ptr(v), _ptr(a), _ptr(b),
@@ -231,6 +257,37 @@ def mstep_stats(y, x, mask, mu, v, a, b, use_hessian: bool = True, partial: bool
     return _mstep_stats_plain(y, x, mask, mu, v, a, b, use_hessian)
 
 
+# the ticket counters of mstep_update's last block.  The kernel needs its
+# counter at 0 at launch and leaves it at 0, so launches that share a
+# counter must not overlap: each (device, stream) has its own, and launches
+# on one stream are ordered.  The counters are slots of one zeroed block per
+# device, made at the device's first call (outside any capture: a capture
+# would not run the fill), so that a stream's first call may be captured.
+# A graph keeps the counter of the stream its launch was captured on: two
+# graphs captured on one stream must not be replayed at once.
+_TICKET_SLOTS = 256
+_TICKETS: dict = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    block, slots = _TICKETS.get(device, (None, None))
+    if block is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("mstep_update's first call on a device must not be captured: "
+                               "call it once eagerly first")
+        block = torch.zeros(_TICKET_SLOTS, dtype=torch.int32, device=device)
+        torch.cuda.synchronize(device)  # zero before any stream's launch reads it
+        slots = {}
+        _TICKETS[device] = (block, slots)
+    slot = slots.get(stream)
+    if slot is None:
+        if len(slots) == _TICKET_SLOTS:
+            raise RuntimeError(f"mstep_update ran on more than {_TICKET_SLOTS} streams of "
+                               f"{device}")
+        slot = slots[stream] = len(slots)
+    return block[slot:slot + 1]
+
+
 def _mstep_update_cuda(stats, n, a, b, noise_prev, active, use_hessian, eps, learning_rate,
                        da_bound, db_bound):
     """Launch ``mstep_update``: one block per channel."""
@@ -253,10 +310,14 @@ def _mstep_update_cuda(stats, n, a, b, noise_prev, active, use_hessian, eps, lea
     if isinstance(stats, Partials):
         part = stats.part
         _check_cuda(dict(part=part), a)
-        chunks = part.shape[0]
-        if tuple(part.shape[1:]) != (Y, entries) or not part.is_contiguous():
+        chunks = part.shape[1]
+        if (part.ndim != 3 or part.shape[0] != Y or part.shape[2] != entries
+                or not part.is_contiguous()):
             raise ValueError(f"partials of shape {tuple(part.shape)} do not fit Y={Y} and "
                              f"{entries} statistics a channel")
+        end = (part.storage_offset() + part.numel() + _PART_TAIL) * part.element_size()
+        if part.untyped_storage().nbytes() < end:
+            raise ValueError("Partials need the storage tail that mstep_stats allocates")
         flat = None
     else:
         part, chunks = None, 0
@@ -270,27 +331,35 @@ def _mstep_update_cuda(stats, n, a, b, noise_prev, active, use_hessian, eps, lea
     a_new, b_new = torch.empty_like(a), torch.empty_like(b)
     da, db = torch.empty_like(a), torch.empty_like(b)
     noise = torch.empty_like(noise_prev)
+    cn = torch.empty((Y, 4), dtype=a.dtype, device=a.device)
+    norms = torch.empty((4,), dtype=a.dtype, device=a.device)
     active = None if active is None else active.contiguous()
     with torch.cuda.device(a.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream)
+        handle = torch.cuda.current_stream(a.device).cuda_stream
+        counter = _ticket(a.device, handle)
+        stream = ctypes.c_void_p(handle)
         rc = lib.mstep_update(_ptr(part), chunks, _ptr(flat), _ptr(red), _ptr(n), _ptr(a),
                               _ptr(b), _ptr(noise_prev), _ptr(active), _ptr(a_new), _ptr(b_new),
-                              _ptr(noise), _ptr(da), _ptr(db), Y, Z, X, int(use_hessian),
-                              float(eps), float(learning_rate), float(da_bound),
-                              float(db_bound), is_double, stream)
+                              _ptr(noise), _ptr(da), _ptr(db), _ptr(cn), _ptr(norms),
+                              _ptr(counter), Y, Z, X, int(use_hessian), float(eps),
+                              float(learning_rate), float(da_bound), float(db_bound), is_double,
+                              stream)
     _raise_on(rc, lib, "mstep_update")
     KERNEL_LAUNCHES["mstep_update"] += 1
-    return a_new, b_new, noise, da, db
+    return a_new, b_new, noise, da, db, norms
 
 
 def mstep_update(stats, n, a, b, noise_prev, active: Optional[torch.Tensor] = None, *,
                  use_hessian: bool = True, eps: float = 1e-8, learning_rate: float = 1.0,
                  da_bound: float = 5.0, db_bound: float = 5.0):
-    """(a + da, b + db, noise, da, db) of one Newton step (gradient step
-    without ``use_hessian``) from ``mstep_stats``' output summed over the
-    data ranks (or its :class:`Partials` on one CUDA device) and ``n`` =
+    """(a + da, b + db, noise, da, db, norms) of one Newton step (gradient
+    step without ``use_hessian``) from ``mstep_stats``' output summed over
+    the data ranks (or its :class:`Partials` on one CUDA device) and ``n`` =
     sum(mask) (one value).  ``active`` (Y,) bool pins the channels it marks
-    False.  CPU tensors run the plain version."""
+    False.  norms (4,) is (sum da^2, sum (a + da)^2, sum db^2, sum (b +
+    db)^2) over this device's channels, the exit test's squared norms (the
+    kernel sums them in another order than ``torch.sum``).  CPU tensors run
+    the plain version."""
     if a.is_cuda:
         return _mstep_update_cuda(stats, n, a, b, noise_prev, active, use_hessian, eps,
                                   learning_rate, da_bound, db_bound)
