@@ -5,7 +5,7 @@
 Phases, each of which raises on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the nine sources of vlgp_tpu_torch/csrc/ with nvcc
+2. build: compiles the ten sources of vlgp_tpu_torch/csrc/ with nvcc
    (sm_90a), one process each, all at once;
 3. ns_gram against its plain PyTorch version on the card, at the two
    main-path shapes (E/H-step segments and the final full-length
@@ -94,6 +94,19 @@ Phases, each of which raises on failure:
    hstep_search on the kernel's C as good as on the plain C under the
    float64 objective (6c's rule); timed at the flagship (beside the plain
    version's sum_QP GEMM alone) and at T1000;
+   (6e, after 6d on the same state) estep_project and estep_step
+   (csrc/estep.cu, the E-step's per-sweep chain: stage a, then the Woodbury
+   step and the weight refresh) against their plain versions on the first
+   sweep of one E-step on the fit's segments (Z5 S2000 T50 Y100 R40) and of
+   the final inference on its whole trials (Z5 S100 T1000 R50), at edge
+   shapes (ESTEP_EDGES: T 1, 13, 64, 200; R 1 to 128; Z 1, 5, 8, 12, 40
+   and 128; Y 37, 99, 100 and 300; X 1 and 2; a Gaussian half, a padded
+   zero-noise channel and a NaN noise on a Poisson channel; a ragged mask)
+   and with the clip engaged, in float32 and float64: s and w within
+   ESTEP_TOL of their largest |entry|, mu and delta of the largest |mu|,
+   each kernel's second call bit for bit; a NaN planted in one segment's y
+   left in that segment alone; both timed at the flagship and at T1000
+   beside the plain versions and the bounds;
 7. a small fit (4 trials x 120 bins x 10 neurons x 2 latents) on the card
    in float32 against the same fit on the CPU in float64 (exact route);
 8. the main paths, each with the launch counters set to 0 just before it
@@ -104,7 +117,8 @@ Phases, each of which raises on failure:
    with its ns_gram launches split by caller and mode; transform of 10
    fresh trials under the last fit's result; spd_solve at B10000 R40;
    every fit of phase 8 must launch mstep_stats, mstep_update,
-   hstep_search and hstep_stat;
+   hstep_search and hstep_stat, the default fits and transform
+   estep_project and estep_step;
    inv_one_plus_psd from a drifted carry with the fused probe;
 9. the model-selection path, each sub-phase with the counters set to 0
    just before it: (9a) fit with track_elbo=True, its ELBO series (first,
@@ -204,7 +218,8 @@ line of per-kernel results (launches on their path, the worst |kernel -
 plain|, the median kernel, plain and library times, and the bound computed
 from this run's shapes and counts; ns_gram and ns_packed also at 9c's
 chunk shapes, with 9c's launches at batch 25; hstep_search also on its
-wide path at T1000, with phase 13's launches) and, last, one JSON line
+wide path at T1000, with phase 13's launches; estep_project and estep_step
+at the flagship and at T1000) and, last, one JSON line
 naming the device.  Imports nothing of JAX.
 """
 import collections
@@ -1286,15 +1301,17 @@ def same_bits(p, q):
         torch.nan_to_num(p), torch.nan_to_num(q))
 
 
-def _rel(got, ref):
-    """max |got - ref| / max |ref| over the finite entries of ref, and
-    whether the NaNs sit in the same places."""
+def _rel(got, ref, scale=None):
+    """max |got - ref| over the finite entries of ref, divided by ``scale``
+    (default: their max |ref|), and whether the NaNs sit in the same
+    places."""
     fin = torch.isfinite(ref)
     same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(ref)))
     if not bool(fin.any()):
         return 0.0, same_nan
-    d = (got[fin] - ref[fin]).abs().max() / ref[fin].abs().max().clamp_min(1e-30)
-    return float(d), same_nan
+    if scale is None:
+        scale = float(ref[fin].abs().max())
+    return float((got[fin] - ref[fin]).abs().max()) / max(scale, 1e-30), same_nan
 
 
 def mstep_compare(tag, args, active=None, use_hessian=True, eps=1e-8):
@@ -1958,6 +1975,271 @@ def hstat_bound(Z, S, T, R):
                  4 * (Z * T * R + Z * S * T + Z * S * R * R + S + Z * (T * T + T * R + R * R)))
 
 
+# ---------------------------------------------------------------------------
+# 6e: the E-step's per-sweep chain
+# ---------------------------------------------------------------------------
+
+# estep_project and estep_step against their plain versions.  s and w are
+# judged relative to their own largest |entry|; mu and delta relative to
+# the largest |mu|: delta = u - G X G'(w u) is a difference of terms of
+# mu's scale, so near convergence it is small beside the rounding of its
+# terms.  Both sides sum the same products in other orders (the kernels per
+# lane and through a butterfly of shuffles, the plain version in cuBLAS's
+# GEMMs), and exp(min(., 10)) carries the predictor's rounding into the
+# rates: 1e-4 in float32 (the fit's own float32 tolerances are of that
+# order: MSTEP_TOL, HSTAT_TOL); float64 1e-10.  The Woodbury step's float32
+# rounding grows with R and the conditioning of I + G'WG (on the NVIDIA H100
+# 80GB HBM3 / 700 W card: 2e-5 at T64 R64, 1.4e-4 at T130 R128 between the
+# two sides), so a float32 gap above 1e-4 passes where the kernel lies no
+# farther than ESTEP_REF_FACTOR times the plain version from a float64
+# evaluation of the same float32 inputs.
+ESTEP_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+ESTEP_REF_FACTOR = 4.0
+ESTEP_NAMES = ("s", "mu", "delta", "w")
+
+
+def record_estep(seg, params, G, cfg):
+    """The arguments of the first estep_project and estep_step calls of one
+    sweep of models/vlgp.estep on ``seg``: (project args, step args)."""
+    from vlgp_tpu_torch.models import vlgp as tv
+
+    calls = {}
+    real = {name: getattr(tv, name) for name in ("estep_project", "estep_step")}
+
+    def recorder(name):
+        def record(*args):
+            calls.setdefault(name, args)
+            return real[name](*args)
+        return record
+
+    for name in real:
+        setattr(tv, name, recorder(name))
+    try:
+        tv.estep(seg, params, G, cfg, niter=1)
+    finally:
+        for name, fn in real.items():
+            setattr(tv, name, fn)
+    return list(calls["estep_project"]), list(calls["estep_step"])
+
+
+def estep_case(S, T, Y, Z, R, X, dtype, device, gen, mixed=False, ragged=False,
+               dmu_bound=5.0):
+    """Synthetic inputs of one sweep (tests/test_torch_estep_kernels.py's
+    cases on the card): SE factors as the fit builds them, mu, v and w drawn
+    from gen, counts from the rates, x the bias and X - 1 lags of y, X the
+    Woodbury inverses at the masked w; ``mixed`` makes the second half of
+    the channels Gaussian, the last one padded (zero loading, data and
+    noise) and channel 0's unused noise NaN; ``ragged`` ends each segment
+    at a random bin and masks segment 0 whole.  (project args, step args)
+    with s left as None."""
+    from vlgp_tpu_torch.models.vlgp import _xb
+
+    kw = dict(device=device, dtype=dtype)
+    G = realistic_factor(Z, T, R, device).to(dtype)
+    mu = 0.5 * torch.randn((Z, S, T), generator=gen, **kw)
+    v = 0.01 + 0.09 * torch.rand((Z, S, T), generator=gen, **kw)
+    w = 0.1 + 2.9 * torch.rand((Z, S, T), generator=gen, **kw)
+    a = 0.4 * torch.randn((Z, Y), generator=gen, **kw)
+    b = torch.zeros((X, Y), **kw)
+    b[0] = -0.5
+    if X > 1:
+        b[1:] = 0.05 * torch.randn((X - 1, Y), generator=gen, **kw)
+    eta = torch.einsum("zst,zy->sty", mu, a) + b[0]
+    y = torch.poisson(torch.exp(eta), generator=gen)
+    poisson = torch.ones(Y, dtype=torch.bool, device=device)
+    noise = torch.ones(Y, **kw)
+    if mixed:
+        gauss = torch.arange(Y, device=device) >= Y // 2
+        poisson[gauss] = False
+        noise[gauss] = 0.5 + 1.5 * torch.rand((int(gauss.sum()),), generator=gen, **kw)
+        y[..., gauss] = eta[..., gauss] + torch.randn((S, T, int(gauss.sum())), generator=gen,
+                                                      **kw)
+        a[:, -1] = 0.0
+        b[:, -1] = 0.0
+        y[..., -1] = 0.0
+        noise[-1] = 0.0
+        noise[0] = float("nan")
+    x = torch.ones((S, T, X, Y), **kw)
+    for q in range(1, X):
+        x[:, q:, q] = y[:, :-q]
+        x[:, :q, q] = 0.0
+    mask = torch.ones((S, T), **kw)
+    if ragged:
+        ends = torch.randint(1, T + 1, (S,), generator=gen, device=device)
+        mask = (torch.arange(T, device=device)[None] < ends[:, None]).to(dtype)
+        mask[0] = 0.0
+    wm = w * mask[None]
+    eye = torch.eye(R, **kw)
+    Xinv = torch.linalg.inv(eye + torch.einsum("ztr,zst,ztq->zsrq", G, wm, G))
+    xb = _xb(x, b)
+    return ([y, xb, mask, a, mu, v, poisson, noise],
+            [G, None, mu, wm, Xinv, mask, a, xb, v, poisson, noise, dmu_bound])
+
+
+def estep_gaps(s, out, ref_s, ref_out):
+    """[(gap, NaNs in the same places)] of s, mu, delta and w against a
+    reference: s and w relative to their largest |entry|, mu and delta to
+    the reference's largest |mu|."""
+    fin = ref_out[0][torch.isfinite(ref_out[0])]
+    mu_scale = float(fin.abs().max()) if fin.numel() else 1.0
+    return [_rel(s, ref_s), _rel(out[0], ref_out[0], mu_scale),
+            _rel(out[1], ref_out[1], mu_scale), _rel(out[2], ref_out[2])]
+
+
+def estep_compare(tag, project, step, quiet=False):
+    """One case: estep_project's s against the plain version's, then
+    estep_step from the plain s against its plain version (ESTEP_TOL, NaNs
+    in the same places; a float32 gap above it against the float64
+    evaluation, ESTEP_REF_FACTOR), each kernel's second call bit for bit.
+    Returns the worst gap; logs the gaps unless ``quiet``."""
+    from vlgp_tpu_torch.ops import estep as oe
+
+    dtype = project[0].dtype
+    tol = ESTEP_TOL[dtype]
+    s_p = oe._estep_project_plain(*project)
+    s_k = oe.estep_project(*project)
+    if not same_bits(s_k, oe.estep_project(*project)):
+        raise AssertionError(f"6e estep_project {tag}: two calls differ")
+    step = [step[0], s_p] + list(step[2:])
+    plain = oe._estep_step_plain(*step)
+    got = oe.estep_step(*step)
+    for name, g, h in zip(ESTEP_NAMES[1:], got, oe.estep_step(*step)):
+        if not same_bits(g, h):
+            raise AssertionError(f"6e estep_step {tag}: {name} differs between two calls")
+    gaps = estep_gaps(s_k, got, s_p, plain)
+    notes = ""
+    if dtype == torch.float32 and max(d for d, _ in gaps) > tol:
+        def up(args):
+            return [t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+                    for t in args]
+        ref_s, ref = oe._estep_project_plain(*up(project)), oe._estep_step_plain(*up(step))
+        by_k, by_p = estep_gaps(s_k, got, ref_s, ref), estep_gaps(s_p, plain, ref_s, ref)
+        notes = "; from float64: kernel " + ", ".join(
+            f"{n} {k:.2e}" for n, (k, _) in zip(ESTEP_NAMES, by_k)) + ", plain " + ", ".join(
+            f"{n} {q:.2e}" for n, (q, _) in zip(ESTEP_NAMES, by_p))
+    for i, (name, (d, same)) in enumerate(zip(ESTEP_NAMES, gaps)):
+        if not same or (d > tol and not (
+                notes and by_k[i][0] <= ESTEP_REF_FACTOR * by_p[i][0])):
+            raise AssertionError(f"6e estep {tag}: {name} {d:.2e} from the plain version "
+                                 f"(tolerance {tol:.0e}), NaNs in the same places: {same}"
+                                 f"{notes}")
+    worst = max(d for d, _ in gaps)
+    if not quiet or notes:
+        log(f"  estep {tag} {str(dtype)[6:]}: "
+            + ", ".join(f"{n} {d:.2e}" for n, (d, _) in zip(ESTEP_NAMES, gaps))
+            + f" (s, w of their largest |entry|, mu and delta of the largest |mu|; tolerance "
+              f"{tol:.0e}){notes}; repeat bit for bit")
+    return worst
+
+
+# the edge shapes of 6e: (S, T, Y, Z, R, X); every one with mixed channels
+# (a Gaussian half, a padded zero-noise channel) and a ragged mask
+ESTEP_EDGES = ((37, 1, 37, 1, 1, 1), (37, 1, 37, 8, 1, 2), (37, 13, 37, 1, 1, 1),
+               (37, 13, 37, 8, 13, 2), (37, 13, 37, 5, 1, 1), (37, 64, 37, 1, 17, 2),
+               (37, 64, 37, 8, 64, 1), (37, 64, 37, 5, 17, 1), (11, 200, 37, 5, 128, 2),
+               (53, 50, 99, 5, 40, 1), (29, 50, 100, 12, 40, 2), (5, 130, 30, 40, 128, 1),
+               (3, 20, 300, 128, 10, 1))
+
+
+def estep_bounds(Z, S, T, Y, R, nbytes=4):
+    """((ms, binds) of estep_project, (ms, binds) of estep_step) at one
+    shape: bytes of each input read once and each output written once (the
+    channel flags as bytes), FMAs of the predictor, the rates' argument and
+    the channel sums (3 Z a row and channel) and of the Woodbury step (4 Z T
+    R + Z R^2 a segment)."""
+    N = S * T
+    rows = 3 * Z * N * Y
+    proj = bound(rows, nbytes * (2 * N * Y + N + 2 * Z * N + Z * Y + Y + Z * N) + Y)
+    step = bound(rows + Z * S * (4 * T * R + R * R),
+                 nbytes * (Z * T * R + 4 * Z * N + Z * S * R * R + N + Z * Y + N * Y + Y
+                           + 3 * Z * N) + Y)
+    return proj, step
+
+
+def check_estep(device, gen, result):
+    """6e: estep_project and estep_step against their plain versions on the
+    first sweep of one E-step on phase 8's fit (Z5 S2000 T50 Y100 R40, the
+    fit's segments) and of the final inference (Z5 S100 T1000 R50, the
+    fit's whole trials), then at the edge shapes (ESTEP_EDGES: T 1, 13, 64,
+    200; R 1, 13, 17, 64, 128; Z 1, 5, 8, 12, 40 (two latent groups) and 128;
+    Y 37, 99, 100, 300; X 1 and 2; mixed channels, a ragged mask) and a
+    Poisson-only case with the clip engaged, in float32 and float64; a NaN
+    planted in one segment's y must stay in that segment; times both
+    kernels at the flagship and at T1000 beside the plain versions and the
+    bounds.  Returns {"flagship"/"final": (project (ms, plain ms, bound ms,
+    binds), step (...)), "err": worst gap}."""
+    from vlgp_tpu_torch.models.gp import make_cholesky
+    from vlgp_tpu_torch.ops import estep as oe
+
+    seg, params, cfg = fit_segments(result)
+    worst = 0.0
+    recorded = {}
+    for dtype in (torch.float32, torch.float64):
+        p_d = _on(params, dtype)
+        for tag, data, rank in (("flagship", _on(seg, dtype), 40),
+                                ("final inference", _on(result.data, dtype), None)):
+            G = make_cholesky(data.nbin, p_d, rank=rank)
+            project, step = record_estep(data, p_d, G, cfg)
+            (Z, T, R), S = G.shape, data.y.shape[0]
+            worst = max(worst, estep_compare(f"{tag} Z{Z} S{S} T{T} R{R} (fit state)", project,
+                                             step))
+            if dtype == torch.float32:
+                recorded["flagship" if rank else "final"] = (project, step)
+        gaps = []
+        for S, T, Y, Z, R, X in ESTEP_EDGES:
+            project, step = estep_case(S, T, Y, Z, R, X, dtype, device, gen, mixed=True,
+                                       ragged=True)
+            gaps.append(estep_compare(f"S{S} T{T} Y{Y} Z{Z} R{R} X{X}", project, step,
+                                      quiet=True))
+        log(f"  estep at {len(ESTEP_EDGES)} edge shapes {str(dtype)[6:]} (mixed channels with "
+            f"a padded zero-noise one and a NaN noise on a Poisson channel, ragged mask): worst "
+            f"{max(gaps):.2e} (tolerance {ESTEP_TOL[dtype]:.0e}); repeat bit for bit")
+        worst = max(worst, max(gaps))
+        project, step = estep_case(64, 50, 100, 5, 40, 1, dtype, device, gen, dmu_bound=0.05)
+        worst = max(worst, estep_compare("Poisson only, dmu_bound 0.05", project, step))
+        if float(oe._estep_step_plain(*step[:1], oe._estep_project_plain(*project),
+                                      *step[2:])[1].abs().max()) != float(torch.tensor(0.05,
+                                                                                      dtype=dtype)):
+            raise AssertionError("6e estep: the clip case does not reach dmu_bound")
+    # a NaN in one segment's y stays in that segment
+    project, step = [list(t) for t in recorded["flagship"]]
+    project[0] = project[0].clone()
+    project[0][7, 3, 5] = float("nan")
+    worst = max(worst, estep_compare("flagship, NaN in segment 7's y", project, step))
+    s = oe.estep_project(*project)
+    step[1] = s
+    out = (s,) + tuple(oe.estep_step(*step))
+    other = torch.arange(s.shape[1], device=device) != 7
+    for name, t in zip(ESTEP_NAMES, out):
+        if bool(torch.isfinite(t[:, 7]).all()) or not bool(torch.isfinite(t[:, other]).all()):
+            raise AssertionError(f"6e estep: the NaN in segment 7's y did not stay in segment "
+                                 f"7's {name}")
+    log("  estep: a NaN in segment 7's y: s, mu, delta and w NaN in segment 7, every other "
+        "segment finite")
+    times = {}
+    for key in ("flagship", "final"):
+        # contiguous inputs, as every sweep but an E-step's first passes them
+        # (its mu is a transposed view, which the wrapper copies)
+        project, step = ([t.contiguous() if torch.is_tensor(t) else t for t in args]
+                         for args in recorded[key])
+        step = [step[0], oe._estep_project_plain(*project)] + list(step[2:])
+        Z, S, T = step[2].shape
+        Y, R = project[0].shape[2], step[0].shape[2]
+        kp, pp = time_ms(lambda: oe.estep_project(*project)), \
+            time_ms(lambda: oe._estep_project_plain(*project))
+        ks, ps = time_ms(lambda: oe.estep_step(*step)), \
+            time_ms(lambda: oe._estep_step_plain(*step))
+        (bp, bp_by), (bs, bs_by) = estep_bounds(Z, S, T, Y, R)
+        log(f"  estep_project Z{Z} S{S} T{T} Y{Y} float32 ({key}): kernel {fmt_ms(kp)}, plain "
+            f"{fmt_ms(pp)}, bound {bp:.4f} ms ({bp_by})")
+        log(f"  estep_step Z{Z} S{S} T{T} Y{Y} R{R} float32 ({key}): kernel {fmt_ms(ks)}, "
+            f"plain {fmt_ms(ps)}, bound {bs:.4f} ms ({bs_by}); the sweep's chain "
+            f"{kp[0] + ks[0]:.4f} ms in the kernels against {pp[0] + ps[0]:.4f} ms plain")
+        times[key] = ((kp, pp, bp, bp_by), (ks, ps, bs, bs_by))
+    times["err"] = worst
+    return times
+
+
 def make_workload(seed=0, ntrial=NTRIAL, a=None, length=LENGTH, ydim=YDIM):
     """bench.py's flagship workload (seed 0): (trials, loading, true
     latents).  Another seed with the flagship's loading `a` gives fresh
@@ -2070,7 +2352,7 @@ def run_fit(fused, **fit_kw):
             raise AssertionError(f"sweep_core took {fallbacks['sweep_core']} of "
                                  f"{calls['sweep']} sweep route calls")
     else:
-        for name in ("ns_gram", "ns_packed"):
+        for name in ("ns_gram", "ns_packed", "estep_project", "estep_step"):
             if launches[name] == 0:
                 raise AssertionError(f"the default fit never launched {name}")
     return launches, calls, fallbacks, wall, e_s, r2, result
@@ -2108,7 +2390,7 @@ def run_transform(result, ntrial=10):
     log(f"transform ({ntrial} new trials, seed 1): {wall:.3f} s wall, recovery R^2 "
         f"(lstsq-aligned) {r2:.4f}; kernel launches {launches}; fallback counters "
         f"{dict(spd.FALLBACKS)}")
-    for name in ("ns_packed", "ns_gram"):
+    for name in ("ns_packed", "ns_gram", "estep_project", "estep_step"):
         if launches[name] == 0:
             raise AssertionError(f"transform never launched {name}")
     if r2 < R2_MIN:
@@ -3234,6 +3516,8 @@ def run_graph_fits(card, r2_eager, walls_eager):
                 f"s, {rt['it']} iterations (converged_at {rt.get('converged_at')}), "
                 f"{reads[0]} host reads of the norms, peak memory {mem / 2**20:.0f} MiB, "
                 f"R^2 {r2:.4f} vs {r2_eager:.4f}; counts {rt['counts']}")
+            if launches["estep_project"] == 0 or launches["estep_step"] == 0:
+                raise AssertionError(f"{tag}: the E-step's kernels were not launched: {launches}")
             k = kw.get("block", 1)
             if reads[0] != -(-rt["it"] // k):
                 raise AssertionError(f"{tag}: {reads[0]} norms reads for {rt['it']} iterations")
@@ -3611,7 +3895,12 @@ def main():
     log(f"6d hstep_stat against its plain version [{card}]:")
     st_out = check_hstep_stat(device, seeded(), fits[3][6])
     log(f"6d: {time.perf_counter() - tic:.1f} s")
-    run_transform(fits[3][6])
+    # 6e, the E-step's per-sweep chain on the same state
+    tic = time.perf_counter()
+    log(f"6e estep_project / estep_step against their plain versions [{card}]:")
+    es_out = check_estep(device, seeded(), fits[3][6])
+    log(f"6e: {time.perf_counter() - tic:.1f} s")
+    tr_launches = run_transform(fits[3][6])[0]
     n_solve = run_spd_solve(device, seeded())
     n_probe = run_fused_probe(device, seeded())
 
@@ -3720,6 +4009,21 @@ def main():
          "replaces": "vlgp_tpu/models/gp.py:435", "launches": default[0]["hstep_stat"],
          "max_abs_err": st_err, "ms": st_ms[0], "plain_ms": st_pms[0], "bound_ms": st_bms,
          "bound_by": st_by, "library_ms": None})
+    # the E-step's per-sweep chain (6e): launches of phase 8's first default
+    # fit at the segments' shape, of transform's inference at T1000;
+    # max_abs_err is the largest gap on 6e's scales
+    for key, shape, launched in (
+            ("flagship", f"Z{ZDIM} S2000 T50 Y{YDIM} R40", default[0]),
+            ("final", f"Z{ZDIM} S{NTRIAL} T{LENGTH} Y{YDIM} R50, transform's inference",
+             tr_launches)):
+        for name, source_line, (ms, pms, b_ms, b_by) in zip(
+                ("estep_project", "estep_step"), ("202", "206"), es_out[key]):
+            kernels.append(
+                {"name": f"{name} ({shape})", "route": "cuda",
+                 "source": "vlgp_tpu_torch/csrc/estep.cu",
+                 "replaces": f"vlgp_tpu/models/vlgp.py:{source_line}",
+                 "launches": launched[name], "max_abs_err": es_out["err"], "ms": ms[0],
+                 "plain_ms": pms[0], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     # the kernels at the shapes of a leave_one_neuron_out chunk, launches of
     # 9c's run at the default batch
     lono_launches = lono[max(LONO_BATCHES)][0]

@@ -1,6 +1,6 @@
 """Time builds of one CUDA source of vlgp_tpu_torch on the card, in turns:
 
-    python3 tools/torch_variant_ab.py OUT.json --source {mstep,hstep_stat} \\
+    python3 tools/torch_variant_ab.py OUT.json --source {mstep,hstep_stat,estep} \\
         --variant NAME[@FILE.cu][=FLAGS] [--variant ...]
 
 Each variant is ``csrc/<source>.cu`` (or FILE.cu, e.g. the same source of
@@ -27,7 +27,11 @@ largest |value|; for the plain version's float32 output too).  Cases:
     time a launch from the trace of 20 eager calls (``device_us``);
   * ``hstep_stat``: the flagship's segments (Z5 S2000 T50 R40) and whole
     trials (Z5 S100 T1000 R50, ``window=None``), inputs as chip_smoke's 6d
-    draws them.
+    draws them;
+  * ``estep``: ``estep_project`` and ``estep_step`` (from the plain s) at
+    the flagship's segments (Z5 S2000 T50 Y100 R40) and the final
+    inference's trials (Z5 S100 T1000 Y100 R50), Poisson channels, inputs
+    as chip_smoke's 6e draws them (``estep_case``), contiguous.
 
 Prints one JSON line with the card's name and power limit.  Needs a CUDA
 device and nvcc.
@@ -195,6 +199,28 @@ def cases(source, device, gen):
                     lambda: om._mstep_update_plain(stats, n, a, b, noise, None, True, 1e-8, 1.0,
                                                    5.0, 5.0)[:5],
                     cs.graph_ms, lambda: device_us(lambda: run_update(*upd()), "mstep_update")))
+    elif source == "estep":
+        from vlgp_tpu_torch.ops import estep as oe
+
+        def up(args):
+            return [t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+                    for t in args]
+
+        for S, T, R in ((2000, 50, 40), (100, 1000, 50)):
+            proj, step = cs.estep_case(S, T, 100, 5, R, 1, torch.float32, device,
+                                       gen.manual_seed(0))
+            proj = [t.contiguous() for t in proj]
+            step = [step[0], oe._estep_project_plain(*proj)] + step[2:]
+            step = [t.contiguous() if torch.is_tensor(t) else t for t in step]
+            p64, s64 = up(proj), up(step)
+            out.append((f"estep_project Z5 S{S} T{T} Y100", lambda a=proj: oe.estep_project(*a),
+                        lambda a=proj: [oe.estep_project(*a)],
+                        lambda a=p64: [oe._estep_project_plain(*a)],
+                        lambda a=proj: [oe._estep_project_plain(*a)], cs.time_ms, None))
+            out.append((f"estep_step Z5 S{S} T{T} Y100 R{R}", lambda a=step: oe.estep_step(*a),
+                        lambda a=step: list(oe.estep_step(*a)),
+                        lambda a=s64: list(oe._estep_step_plain(*a)),
+                        lambda a=step: list(oe._estep_step_plain(*a)), cs.time_ms, None))
     else:
         from vlgp_tpu_torch.ops import hstat as oh
 
@@ -211,7 +237,7 @@ def cases(source, device, gen):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("out")
-    ap.add_argument("--source", choices=("mstep", "hstep_stat"), required=True)
+    ap.add_argument("--source", choices=("mstep", "hstep_stat", "estep"), required=True)
     ap.add_argument("--variant", action="append", required=True)
     opts = ap.parse_args()
     if not torch.cuda.is_available():

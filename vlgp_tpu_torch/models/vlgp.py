@@ -29,6 +29,7 @@ import torch.distributed as tdist
 from ..config import Config, Params
 from ..data import TrialSet
 from ..ops import control
+from ..ops.estep import _eta, _rates, _safe_noise, _woodbury_delta, estep_project, estep_step
 from ..ops.linalg import svd_loading
 from ..ops.math import trunc_exp
 from ..ops.mstep import _solve, moving, mstep_stats, mstep_update, squared_norms
@@ -130,22 +131,6 @@ def _xb(x, b):
     return torch.einsum("stxy,xy->sty", x, b)
 
 
-def _eta(muz, a, xb):
-    """Linear predictor (S, T, Y) from latent-major mu (core.py:69)."""
-    return torch.einsum("zst,zy->sty", muz, a) + xb
-
-
-def _rates(eta, vz, a):
-    """Posterior mean of the Poisson rate exp(eta + 0.5 Var[eta]) with a
-    truncated exponent (core.py:70)."""
-    return trunc_exp(eta + torch.einsum("zst,zy->sty", vz, 0.5 * a * a))
-
-
-def _safe_noise(noise):
-    """Division-safe Gaussian noise (padded channels may carry 0)."""
-    return torch.clamp(noise, min=1e-30)
-
-
 def _residual(y, eta, r, params: Params):
     """GLM working residual (core.py:82-83)."""
     return torch.where(params.poisson, y - r, (y - eta) / _safe_noise(params.noise))
@@ -163,16 +148,6 @@ def _woodbury_inverse(G, wmz, iters: int = 16, warm=None, warm_iters: int = 8):
     route (float32) or the exact route."""
     GtWG = torch.einsum("ztr,zst,ztq->zsrq", G, wmz, G)
     return inv_one_plus_psd(GtWG, iters=iters, warm=warm, warm_iters=warm_iters)
-
-
-def _woodbury_delta(G, s, muz, wmz, X):
-    """Natural-gradient E-step update by the low-rank Woodbury identity,
-    delta = u - G (I + G'WG)^{-1} G'(w u)  (core.py:85-97)."""
-    Gts = torch.einsum("ztr,zst->zsr", G, s)
-    u = torch.einsum("ztr,zsr->zst", G, Gts) - muz
-    Gwu = torch.einsum("ztr,zst->zsr", G, wmz * u)
-    M = torch.einsum("zsrq,zsq->zsr", X, Gwu)
-    return u - torch.einsum("ztr,zsr->zst", G, M)
 
 
 def _marginal_variance(G, wmz, iters: int = 16):
@@ -213,23 +188,18 @@ def estep(
     a = params.a
     vb = config.method == "VB"
     maskz = mask[None]
-    poisson_U = params.poisson
-    inv_noise = 1.0 / _safe_noise(params.noise)
+    poisson, noise = params.poisson, params.noise
 
     def sweep(muz, wz, vz, X):
-        # X is (I + G'WG)^{-1} at the carried weights wz (core.py:85-89)
-        eta = _eta(muz, a, xb)
-        r = _rates(eta, vz, a)
-        residual = _residual(y, eta, r, params) * mask[..., None]
-        s = _psum(torch.einsum("sty,zy->zst", residual, a), dist, "model")
-        delta = _woodbury_delta(G, s, muz, wz * maskz, X)
-        delta = torch.clamp(delta, -config.dmu_bound, config.dmu_bound) * maskz
-        muz = muz + delta
-        # refresh the weights under the updated posterior (core.py:100-104)
-        eta = _eta(muz, a, xb)
-        r = _rates(eta, vz, a)
-        U = torch.where(poisson_U, r, inv_noise)
-        wz = _weights(U, a, dist) * maskz
+        # X is (I + G'WG)^{-1} at the carried weights wz (core.py:85-89).
+        # Stage a (predictor, rates, residual, s) and stages b-c (the
+        # Woodbury step, then the weights under the updated posterior,
+        # core.py:100-104) are one kernel each on the card (ops/estep.py);
+        # s and w are summed over the model group between and after them.
+        s = _psum(estep_project(y, xb, mask, a, muz, vz, poisson, noise), dist, "model")
+        muz, delta, wz = estep_step(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise,
+                                    config.dmu_bound)
+        wz = _psum(wz, dist, "model")
         if vb:
             X, vz = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=X,
                                       warm_iters=config.ns_warm_iters, want_v=True)

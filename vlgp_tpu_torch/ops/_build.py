@@ -25,7 +25,7 @@ __all__ = ["build", "load_library", "BUILD_SECONDS", "SOURCES"]
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = ("ns_inverse", "sweep", "spd_inverse", "graph_cond", "svd_loading", "lorenz",
-           "mstep", "hstep", "hstep_stat")
+           "mstep", "hstep", "hstep_stat", "estep")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -72,6 +72,10 @@ _SIGNATURES = {
     "hstep_stat": {
         "hstep_stat_plan": ([_i] * 5, _i),
         "hstep_stat": ([_p] * 8 + [_i] * 5 + [_p], _i),
+    },
+    "estep": {
+        "estep_project": ([_p] * 9 + [_i] * 4 + [_p], _i),
+        "estep_step": ([_p] * 14 + [_i] * 5 + [_d, _i, _p], _i),
     },
 }
 

@@ -1,0 +1,218 @@
+"""The E-step's per-sweep chain in two kernels.
+
+Counterpart of the body of ``sweep`` in ``vlgp_tpu/models/vlgp.py:estep``
+(:196-216), which ``vlgp_tpu`` leaves to XLA inside one
+``lax.while_loop`` (no Pallas kernel).  Two hand-written CUDA kernels carry
+it on the card (``csrc/estep.cu``), split at the sweep's two sums over the
+channels, so that a fit whose channels are split over a model group sums s
+and w over that group between and after them:
+
+  * ``estep_project`` (stage a): the predictor eta = xb + mu a, the rates
+    r = exp(min(eta + v (0.5 a a), 10)), the masked working residual (y - r
+    on a Poisson channel, (y - eta) / max(noise, 1e-30) on a Gaussian one)
+    and its projection s = residual a', (Z, S, T);
+  * ``estep_step`` (stages b and c): the Woodbury step delta = u - G X G'(w
+    u) with u = G G's - mu, clipped to ``dmu_bound`` and masked, mu +
+    delta, and the weights w = (U (a a)') masked from the new mu and the
+    old v (U = r on a Poisson channel, 1 / max(noise, 1e-30) on a Gaussian
+    one).
+
+Each has a plain PyTorch version beside it (``_estep_project_plain``,
+``_estep_step_plain``): the torch code ``models/vlgp.estep``'s sweep ran
+before, moved here unchanged.  The wrappers run the plain version only for
+tensors on the CPU; a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .math import trunc_exp
+from .spd import KERNEL_LAUNCHES, _ptr, _raise_on
+
+__all__ = ["estep_project", "estep_step", "Z_MAX", "R_MAX"]
+
+# largest Z and R the kernels take (the step's latent groups keep three
+# R-vectors a latent in shared memory; ns_gram takes R <= 128 too)
+Z_MAX = 128
+R_MAX = 128
+
+
+def _eta(muz, a, xb):
+    """Linear predictor (S, T, Y) from latent-major mu (core.py:69)."""
+    return torch.einsum("zst,zy->sty", muz, a) + xb
+
+
+def _rates(eta, vz, a):
+    """Posterior mean of the Poisson rate exp(eta + 0.5 Var[eta]) with a
+    truncated exponent (core.py:70)."""
+    return trunc_exp(eta + torch.einsum("zst,zy->sty", vz, 0.5 * a * a))
+
+
+def _safe_noise(noise):
+    """Division-safe Gaussian noise (padded channels may carry 0)."""
+    return torch.clamp(noise, min=1e-30)
+
+
+def _woodbury_delta(G, s, muz, wmz, X):
+    """Natural-gradient E-step update by the low-rank Woodbury identity,
+    delta = u - G (I + G'WG)^{-1} G'(w u)  (core.py:85-97)."""
+    Gts = torch.einsum("ztr,zst->zsr", G, s)
+    u = torch.einsum("ztr,zsr->zst", G, Gts) - muz
+    Gwu = torch.einsum("ztr,zst->zsr", G, wmz * u)
+    M = torch.einsum("zsrq,zsq->zsr", X, Gwu)
+    return u - torch.einsum("ztr,zsr->zst", G, M)
+
+
+def _estep_project_plain(y, xb, mask, a, muz, vz, poisson, noise):
+    """s (Z, S, T): the masked working residual projected on the loading
+    (core.py:69-83), before the sum over the model group."""
+    eta = _eta(muz, a, xb)
+    r = _rates(eta, vz, a)
+    residual = torch.where(poisson, y - r, (y - eta) / _safe_noise(noise)) * mask[..., None]
+    return torch.einsum("sty,zy->zst", residual, a)
+
+
+def _estep_step_plain(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise, dmu_bound: float):
+    """(mu + delta, delta, w): the Woodbury step at the carried weights,
+    clipped and masked (core.py:85-99), then the masked weights under the
+    new mu and the old v (core.py:100-104), before the sum over the model
+    group."""
+    maskz = mask[None]
+    delta = _woodbury_delta(G, s, muz, wz * maskz, X)
+    delta = torch.clamp(delta, -dmu_bound, dmu_bound) * maskz
+    muz = muz + delta
+    eta = _eta(muz, a, xb)
+    r = _rates(eta, vz, a)
+    U = torch.where(poisson, r, 1.0 / _safe_noise(noise))
+    wz = torch.einsum("sty,zy->zst", U, a * a) * maskz
+    return muz, delta, wz
+
+
+def _check_shapes(name, tensors: dict, want: dict) -> None:
+    for key, t in tensors.items():
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {want[key]}")
+
+
+def _project_shapes(y, xb, mask, a, muz, vz, poisson, noise):
+    if y.ndim != 3 or a.ndim != 2:
+        raise ValueError("estep_project takes y and xb (S, T, Y), mask (S, T), a (Z, Y), mu and "
+                         "v (Z, S, T), poisson and noise (Y,)")
+    S, T, Y = y.shape
+    Z = a.shape[0]
+    _check_shapes("estep_project", dict(xb=xb, mask=mask, a=a, mu=muz, v=vz, poisson=poisson,
+                                        noise=noise),
+                  dict(xb=(S, T, Y), mask=(S, T), a=(Z, Y), mu=(Z, S, T), v=(Z, S, T),
+                       poisson=(Y,), noise=(Y,)))
+    return S, T, Y, Z
+
+
+def _step_shapes(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise):
+    if G.ndim != 3 or xb.ndim != 3:
+        raise ValueError("estep_step takes G (Z, T, R), s, mu, w and v (Z, S, T), X (Z, S, R, "
+                         "R), mask (S, T), a (Z, Y), xb (S, T, Y), poisson and noise (Y,)")
+    Z, T, R = G.shape
+    S, Y = xb.shape[0], xb.shape[2]
+    zst = (Z, S, T)
+    _check_shapes("estep_step", dict(s=s, mu=muz, w=wz, X=X, mask=mask, a=a, xb=xb, v=vz,
+                                     poisson=poisson, noise=noise),
+                  dict(s=zst, mu=zst, w=zst, X=(Z, S, R, R), mask=(S, T), a=(Z, Y),
+                       xb=(S, T, Y), v=zst, poisson=(Y,), noise=(Y,)))
+    return S, T, Y, Z, R
+
+
+def _check_cuda(name, tensors: dict, like: torch.Tensor, poisson: torch.Tensor) -> None:
+    if like.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the {name} kernel takes float32 or float64, got {like.dtype}")
+    for key, t in dict(tensors, poisson=poisson).items():
+        if not t.is_cuda or t.device != like.device:
+            raise ValueError(f"{key} must be a CUDA tensor on {like.device}, got {t.device}")
+        if key != "poisson" and t.dtype != like.dtype:
+            raise TypeError(f"{key} must be {like.dtype}, got {t.dtype}")
+    if poisson.dtype != torch.bool:
+        raise TypeError(f"poisson must be bool, got {poisson.dtype}")
+
+
+def _check_sizes(name, S, T, Y, Z, R=1) -> None:
+    if min(S, T, Y, Z, R) < 1:
+        raise ValueError(f"the {name} kernel takes no empty axis, got S={S} T={T} Y={Y} Z={Z}")
+    if Z > Z_MAX or R > R_MAX:
+        raise ValueError(f"the {name} kernel takes Z <= {Z_MAX} and R <= {R_MAX}, got Z={Z}, "
+                         f"R={R}")
+    if S * T >= 2 ** 31:
+        raise ValueError(f"the {name} kernel takes S T < 2^31 rows, got {S * T}")
+
+
+def _estep_project_cuda(y, xb, mask, a, muz, vz, poisson, noise):
+    """Launch ``estep_project``: a block per tile of 32 rows."""
+    from ._build import load_library
+
+    S, T, Y, Z = _project_shapes(y, xb, mask, a, muz, vz, poisson, noise)
+    _check_sizes("estep_project", S, T, Y, Z)
+    _check_cuda("estep_project", dict(y=y, xb=xb, mask=mask, a=a, mu=muz, v=vz, noise=noise), y,
+                poisson)
+    y, xb, mask, a, muz, vz, poisson, noise = (
+        t.contiguous() for t in (y, xb, mask, a, muz, vz, poisson, noise))
+    s = torch.empty((Z, S, T), dtype=y.dtype, device=y.device)
+    lib = load_library("estep")
+    with torch.cuda.device(y.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream)
+        rc = lib.estep_project(_ptr(y), _ptr(xb), _ptr(mask), _ptr(a), _ptr(muz), _ptr(vz),
+                               _ptr(poisson), _ptr(noise), _ptr(s), S * T, Y, Z,
+                               int(y.dtype == torch.float64), stream)
+    _raise_on(rc, lib, "estep_project")
+    KERNEL_LAUNCHES["estep_project"] += 1
+    return s
+
+
+def _estep_step_cuda(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise, dmu_bound):
+    """Launch ``estep_step``: a block per segment."""
+    from ._build import load_library
+
+    S, T, Y, Z, R = _step_shapes(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise)
+    _check_sizes("estep_step", S, T, Y, Z, R)
+    _check_cuda("estep_step", dict(G=G, s=s, mu=muz, w=wz, X=X, mask=mask, a=a, xb=xb, v=vz,
+                                   noise=noise), G, poisson)
+    G, s, muz, wz, X, mask, a, xb, vz, poisson, noise = (
+        t.contiguous() for t in (G, s, muz, wz, X, mask, a, xb, vz, poisson, noise))
+    mu_out, dmu, w_out = (torch.empty((Z, S, T), dtype=G.dtype, device=G.device)
+                          for _ in range(3))
+    lib = load_library("estep")
+    with torch.cuda.device(G.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(G.device).cuda_stream)
+        rc = lib.estep_step(_ptr(G), _ptr(s), _ptr(muz), _ptr(wz), _ptr(X), _ptr(mask), _ptr(a),
+                            _ptr(xb), _ptr(vz), _ptr(poisson), _ptr(noise), _ptr(mu_out),
+                            _ptr(dmu), _ptr(w_out), S, T, Y, Z, R, float(dmu_bound),
+                            int(G.dtype == torch.float64), stream)
+    _raise_on(rc, lib, "estep_step")
+    KERNEL_LAUNCHES["estep_step"] += 1
+    return mu_out, dmu, w_out
+
+
+def estep_project(y, xb, mask, a, muz, vz, poisson, noise):
+    """s (Z, S, T) of one sweep: y and xb (S, T, Y), mask (S, T), the
+    loading a (Z, Y), latent-major mu and v (Z, S, T), the channels'
+    ``poisson`` flags (Y,) bool and Gaussian ``noise`` (Y,).  Summed over
+    this device's channels only.  CPU tensors run the plain version."""
+    if y.is_cuda:
+        return _estep_project_cuda(y, xb, mask, a, muz, vz, poisson, noise)
+    if y.device.type != "cpu":
+        raise ValueError(f"estep_project runs on CUDA or the CPU, got {y.device}")
+    _project_shapes(y, xb, mask, a, muz, vz, poisson, noise)
+    return _estep_project_plain(y, xb, mask, a, muz, vz, poisson, noise)
+
+
+def estep_step(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise, dmu_bound: float):
+    """(mu + delta, delta, w) of one sweep from the prior factors G (Z, T,
+    R), the model-summed s (Z, S, T), the carried mu and weights w (Z, S, T)
+    and their inverses X (Z, S, R, R), the mask, the loading, xb, the old
+    v, the channel flags and noise; w is masked and summed over this
+    device's channels only.  CPU tensors run the plain version."""
+    if G.is_cuda:
+        return _estep_step_cuda(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise, dmu_bound)
+    if G.device.type != "cpu":
+        raise ValueError(f"estep_step runs on CUDA or the CPU, got {G.device}")
+    _step_shapes(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise)
+    return _estep_step_plain(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise, dmu_bound)

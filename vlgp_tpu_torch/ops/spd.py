@@ -93,13 +93,14 @@ _FUSED_PROBE = os.environ.get("VLGP_FUSED_PROBE", "0") == "1"
 # Launch, route and fallback counters of every kernel of the port, those of
 # the fused E-step sweep (ops/sweep.py), the loading's SVD (ops/linalg.py),
 # the Lorenz trajectory (simulation.py), the M-step's Newton iteration
-# (ops/mstep.py) and the H-step's search (ops/golden.py) included.  Host
+# (ops/mstep.py), the H-step's search (ops/golden.py) and the E-step's
+# per-sweep chain (ops/estep.py) included.  Host
 # integers: under a CUDA graph capture they count the capture, not the
 # replays (ops/control.py).
 KERNEL_LAUNCHES = {"ns_gram": 0, "ns_packed": 0, "probe_skip": 0,
                    "spd_inverse": 0, "sweep": 0, "svd_loading": 0, "lorenz": 0,
                    "mstep_stats": 0, "mstep_update": 0, "hstep_search": 0,
-                   "hstep_stat": 0}
+                   "hstep_stat": 0, "estep_project": 0, "estep_step": 0}
 ROUTE_CALLS = {"gram": 0, "packed": 0, "sweep": 0}
 FALLBACKS = {
     "gram_probe_reject": 0, "gram_refine_fail": 0,
