@@ -104,9 +104,15 @@ Phases, each of which raises on failure:
    zero-noise channel and a NaN noise on a Poisson channel; a ragged mask)
    and with the clip engaged, in float32 and float64: s and w within
    ESTEP_TOL of their largest |entry|, mu and delta of the largest |mu|,
-   each kernel's second call bit for bit; a NaN planted in one segment's y
-   left in that segment alone; both timed at the flagship and at T1000
-   beside the plain versions and the bounds;
+   each kernel's second call bit for bit, and bit for bit with the first
+   design (the block path) wherever the launch plan streams, the plan's
+   shared memory equal to the kernels' own layout; a NaN planted in one
+   segment's y left in that segment alone; the first 37 segments of the
+   fit's state and the first 3 trials of the final inference's, alone,
+   bit for bit with the full calls (a segment's bits depend neither on S
+   nor on the grid); both timed as graph replays at the flagship and at
+   T1000, the plan against the first design in turns, beside the plain
+   versions and the bounds;
 7. a small fit (4 trials x 120 bins x 10 neurons x 2 latents) on the card
    in float32 against the same fit on the CPU in float64 (exact route);
 8. the main paths, each with the launch counters set to 0 just before it
@@ -2086,26 +2092,56 @@ def estep_gaps(s, out, ref_s, ref_out):
             _rel(out[1], ref_out[1], mu_scale), _rel(out[2], ref_out[2])]
 
 
+def estep_plans(project, step):
+    """(plan, first design's plan) of estep_project and of estep_step at
+    the inputs' shape; the streaming plans' shared memory held against the
+    kernels' own layout (``estep_smem``)."""
+    from vlgp_tpu_torch.ops import _build
+    from vlgp_tpu_torch.ops import estep as oe
+
+    (S, T, Y), dtype = project[0].shape, project[0].dtype
+    Z, R = project[3].shape[0], step[0].shape[2]
+    plans = oe.project_plan(S, T, Y, Z, dtype), oe.step_plan(S, T, Y, Z, R, dtype)
+    lib = _build.load_library("estep")
+    for kind, plan in enumerate(plans):
+        if plan.path == "stream":
+            got = lib.estep_smem(kind, T, Y, Z, R, int(dtype == torch.float64), plan.units,
+                                 plan.stages)
+            if got != plan.smem:
+                raise AssertionError(f"6e estep: the kernels lay out {got} bytes of shared "
+                                     f"memory where ops/estep.py plans {plan}")
+    return tuple(zip(plans, oe.block_plans(S, T, Y, Z, R, dtype)))
+
+
 def estep_compare(tag, project, step, quiet=False):
     """One case: estep_project's s against the plain version's, then
     estep_step from the plain s against its plain version (ESTEP_TOL, NaNs
     in the same places; a float32 gap above it against the float64
-    evaluation, ESTEP_REF_FACTOR), each kernel's second call bit for bit.
+    evaluation, ESTEP_REF_FACTOR), each kernel's second call bit for bit
+    and the first design's (the block path) bit for bit with the plan's.
     Returns the worst gap; logs the gaps unless ``quiet``."""
     from vlgp_tpu_torch.ops import estep as oe
 
     dtype = project[0].dtype
     tol = ESTEP_TOL[dtype]
+    (pp, pb), (sp, sb) = estep_plans(project, step)
     s_p = oe._estep_project_plain(*project)
     s_k = oe.estep_project(*project)
     if not same_bits(s_k, oe.estep_project(*project)):
         raise AssertionError(f"6e estep_project {tag}: two calls differ")
+    if not same_bits(s_k, oe._estep_project_cuda(*project, plan=pb)):
+        raise AssertionError(f"6e estep_project {tag}: the {pp.path} path's s differs from the "
+                             f"block path's")
     step = [step[0], s_p] + list(step[2:])
     plain = oe._estep_step_plain(*step)
     got = oe.estep_step(*step)
-    for name, g, h in zip(ESTEP_NAMES[1:], got, oe.estep_step(*step)):
+    for name, g, h, b in zip(ESTEP_NAMES[1:], got, oe.estep_step(*step),
+                             oe._estep_step_cuda(*step, plan=sb)):
         if not same_bits(g, h):
             raise AssertionError(f"6e estep_step {tag}: {name} differs between two calls")
+        if not same_bits(g, b):
+            raise AssertionError(f"6e estep_step {tag}: the {sp.path} path's {name} differs "
+                                 f"from the block path's")
     gaps = estep_gaps(s_k, got, s_p, plain)
     notes = ""
     if dtype == torch.float32 and max(d for d, _ in gaps) > tol:
@@ -2132,6 +2168,9 @@ def estep_compare(tag, project, step, quiet=False):
     return worst
 
 
+# 6e's check that a segment's bits do not depend on S: the first segments
+# of the fit's state and the first trials of the final inference's, alone
+ESTEP_PREFIX = {"flagship": 37, "final": 3}
 # the edge shapes of 6e: (S, T, Y, Z, R, X); every one with mixed channels
 # (a Gaussian half, a padded zero-noise channel) and a ragged mask
 ESTEP_EDGES = ((37, 1, 37, 1, 1, 1), (37, 1, 37, 8, 1, 2), (37, 13, 37, 1, 1, 1),
@@ -2163,11 +2202,14 @@ def check_estep(device, gen, result):
     fit's whole trials), then at the edge shapes (ESTEP_EDGES: T 1, 13, 64,
     200; R 1, 13, 17, 64, 128; Z 1, 5, 8, 12, 40 (two latent groups) and 128;
     Y 37, 99, 100, 300; X 1 and 2; mixed channels, a ragged mask) and a
-    Poisson-only case with the clip engaged, in float32 and float64; a NaN
-    planted in one segment's y must stay in that segment; times both
-    kernels at the flagship and at T1000 beside the plain versions and the
-    bounds.  Returns {"flagship"/"final": (project (ms, plain ms, bound ms,
-    binds), step (...)), "err": worst gap}."""
+    Poisson-only case with the clip engaged, in float32 and float64, each
+    case's outputs bit for bit between the launch plan and the first design
+    (estep_compare); a NaN planted in one segment's y must stay in that
+    segment; the first segments alone (ESTEP_PREFIX) bit for bit with the
+    full call; times both kernels at the flagship and at T1000 (graph
+    replays, the plan and the first design in turns) beside the plain
+    versions and the bounds.  Returns {"flagship"/"final": (project (ms,
+    plain ms, bound ms, binds), step (...)), "err": worst gap}."""
     from vlgp_tpu_torch.models.gp import make_cholesky
     from vlgp_tpu_torch.ops import estep as oe
 
@@ -2216,6 +2258,29 @@ def check_estep(device, gen, result):
                                  f"7's {name}")
     log("  estep: a NaN in segment 7's y: s, mu, delta and w NaN in segment 7, every other "
         "segment finite")
+    # a segment's bits depend neither on S nor on the grid: the first
+    # ESTEP_PREFIX[key] segments alone against the full call's
+    for key, n in ESTEP_PREFIX.items():
+        project, step = recorded[key]
+        s = oe.estep_project(*project)
+        full = (s,) + tuple(oe.estep_step(step[0], s, *step[2:]))
+        y, xb, mask, a, mu, v, poisson, noise = project
+        cut = [y[:n], xb[:n], mask[:n], a, mu[:, :n], v[:, :n], poisson, noise]
+        s_n = oe.estep_project(*cut)
+        zst = [t[:, :n] for t in (s, step[2], step[3], step[4], step[8])]
+        out_n = (s_n,) + tuple(oe.estep_step(step[0], zst[0], zst[1], zst[2], zst[3],
+                                             step[5][:n], step[6], step[7][:n], zst[4],
+                                             *step[9:]))
+        for name, a, b in zip(ESTEP_NAMES, out_n, full):
+            if not same_bits(a, b[:, :n]):
+                raise AssertionError(f"6e estep ({key}): {name} of the first {n} segments "
+                                     f"alone differs from the full call's")
+        Z, S, T = step[2].shape
+        R = step[0].shape[2]
+        log(f"  estep ({key}, Z{Z} S{S} T{T} R{R}): the first {n} segments alone give the full "
+            f"call's s, mu, delta and w bit for bit (plans "
+            f"{'/'.join(pl.path for pl, _ in estep_plans(cut, [step[0]] + zst))} against "
+            f"{'/'.join(pl.path for pl, _ in estep_plans(project, step))})")
     times = {}
     for key in ("flagship", "final"):
         # contiguous inputs, as every sweep but an E-step's first passes them
@@ -2225,19 +2290,75 @@ def check_estep(device, gen, result):
         step = [step[0], oe._estep_project_plain(*project)] + list(step[2:])
         Z, S, T = step[2].shape
         Y, R = project[0].shape[2], step[0].shape[2]
-        kp, pp = time_ms(lambda: oe.estep_project(*project)), \
-            time_ms(lambda: oe._estep_project_plain(*project))
-        ks, ps = time_ms(lambda: oe.estep_step(*step)), \
-            time_ms(lambda: oe._estep_step_plain(*step))
+        (pk, pb), (sk, sb) = estep_plans(project, step)
+        # device time a launch (replays of a captured call: these calls are
+        # short enough for the host's launch cost to show in eager timing);
+        # the plan against the first design in turns, plan first and last
+        fns = {"kp": lambda: oe.estep_project(*project),
+               "kb": lambda: oe._estep_project_cuda(*project, plan=pb),
+               "ks": lambda: oe.estep_step(*step),
+               "sb": lambda: oe._estep_step_cuda(*step, plan=sb)}
+        turns = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                turns[k].append(graph_ms(fns[k]))
+        kp, kb, ks, bb = (min(turns[k], key=lambda t: t[0]) for k in ("kp", "kb", "ks", "sb"))
+        pp = graph_ms(lambda: oe._estep_project_plain(*project))
+        ps = graph_ms(lambda: oe._estep_step_plain(*step))
         (bp, bp_by), (bs, bs_by) = estep_bounds(Z, S, T, Y, R)
-        log(f"  estep_project Z{Z} S{S} T{T} Y{Y} float32 ({key}): kernel {fmt_ms(kp)}, plain "
-            f"{fmt_ms(pp)}, bound {bp:.4f} ms ({bp_by})")
-        log(f"  estep_step Z{Z} S{S} T{T} Y{Y} R{R} float32 ({key}): kernel {fmt_ms(ks)}, "
-            f"plain {fmt_ms(ps)}, bound {bs:.4f} ms ({bs_by}); the sweep's chain "
-            f"{kp[0] + ks[0]:.4f} ms in the kernels against {pp[0] + ps[0]:.4f} ms plain")
+        log(f"  estep_project Z{Z} S{S} T{T} Y{Y} float32 ({key}, {pk.path} path): kernel "
+            f"{fmt_ms(kp)}; the first design in turns {fmt_ms(kb)} (medians "
+            f"{', '.join(f'{t[0]:.4f}' for t in turns['kp'])} against "
+            f"{', '.join(f'{t[0]:.4f}' for t in turns['kb'])}); plain {fmt_ms(pp)}; bound "
+            f"{bp:.4f} ms ({bp_by}); graph replays")
+        log(f"  estep_step Z{Z} S{S} T{T} Y{Y} R{R} float32 ({key}, {sk.path} path): kernel "
+            f"{fmt_ms(ks)}; the first design in turns {fmt_ms(bb)} (medians "
+            f"{', '.join(f'{t[0]:.4f}' for t in turns['ks'])} against "
+            f"{', '.join(f'{t[0]:.4f}' for t in turns['sb'])}); plain {fmt_ms(ps)}; bound "
+            f"{bs:.4f} ms ({bs_by}); the sweep's chain {kp[0] + ks[0]:.4f} ms in the kernels "
+            f"({kb[0] + bb[0]:.4f} in the first design) against {pp[0] + ps[0]:.4f} ms plain")
         times[key] = ((kp, pp, bp, bp_by), (ks, ps, bs, bs_by))
+        # 20 launches of each kernel captured in one graph against the same
+        # 20 launched eagerly, CUDA events around each batch
+        batch = []
+        for name, fn in (("estep_project", fns["kp"]), ("estep_step", fns["ks"])):
+            eager, graphed = batch_launch_ms(fn, 20)
+            batch.append(f"{name} {eager:.4f} eager, {graphed:.4f} in one graph")
+        log(f"  estep ({key}) ms a launch over 20 launches: " + "; ".join(batch))
     times["err"] = worst
     return times
+
+
+def batch_launch_ms(fn, n):
+    """(eager, graphed) ms a launch of ``n`` calls of fn: the calls launched
+    back to back between one pair of CUDA events, and the same calls
+    captured in one graph whose replay is timed the same way (median of 5
+    batches each)."""
+    def timed(run):
+        out = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end) / n)
+        return statistics.median(out)
+
+    def eager():
+        for _ in range(n):
+            fn()
+
+    eager()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        eager()
+    return timed(eager), timed(graph.replay)
 
 
 def make_workload(seed=0, ntrial=NTRIAL, a=None, length=LENGTH, ydim=YDIM):

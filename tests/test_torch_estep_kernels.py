@@ -229,3 +229,63 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         oe.estep_project(*[p.to("meta") for p in project])
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         oe.estep_step(*[p.to("meta") if torch.is_tensor(p) else p for p in step])
+
+
+# the shapes the card runs the kernels at (chip_smoke.py 6e): the
+# flagship's segments, the final inference's whole trials and the edge
+# shapes (S, T, Y, Z, R)
+PLAN_SHAPES = {
+    "flagship": (2000, 50, 100, 5, 40), "final_T1000": (100, 1000, 100, 5, 50),
+    "t1": (37, 1, 37, 1, 1), "t1_z8": (37, 1, 37, 8, 1), "t13": (37, 13, 37, 1, 1),
+    "t13_r13": (37, 13, 37, 8, 13), "t13_z5": (37, 13, 37, 5, 1), "t64_r17": (37, 64, 37, 1, 17),
+    "t64_r64": (37, 64, 37, 8, 64), "t64_z5": (37, 64, 37, 5, 17),
+    "t200_r128": (11, 200, 37, 5, 128), "y99": (53, 50, 99, 5, 40), "z12": (29, 50, 100, 12, 40),
+    "z40": (5, 130, 30, 40, 128), "z128": (3, 20, 300, 128, 10),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_launch_plans_fit_cover_every_row_and_segment_once_and_refuse_nothing(shape, dtype):
+    """The launch plan of both kernels at every shape the card sees: a shape
+    the first design's wrapper took is taken (``_check_sizes`` unchanged, a
+    plan on one of the two paths); each plan's shared memory fits the
+    H100's 232,448 bytes a block; the blocks' walks cover every row (stage
+    a) and every segment (stages b-c) exactly once; the streaming path's
+    tiles and groups are the kernels' (rows a multiple of the consumer
+    warps, segments of a block alternating between its groups).  The
+    first design's plans fit and cover too, and the flagship streams."""
+    S, T, Y, Z, R = PLAN_SHAPES[shape]
+    oe._check_sizes("estep_step", S, T, Y, Z, R)
+    pp, sp = oe.project_plan(S, T, Y, Z, dtype), oe.step_plan(S, T, Y, Z, R, dtype)
+    for plan in (pp, sp) + tuple(oe.block_plans(S, T, Y, Z, R, dtype)):
+        assert plan.path in ("stream", "block")
+        assert 0 < plan.smem <= oe.SMEM_MAX == 232_448
+        assert 1 <= plan.grid and plan.threads % 32 == 0 and plan.threads <= 1024
+    bp, bs = oe.block_plans(S, T, Y, Z, R, dtype)
+    for plan in (pp, bp):
+        seen = np.zeros(S * T, dtype=np.int64)
+        for block in oe.project_walk(plan, S * T):
+            for first, n in block:
+                assert n >= 1
+                seen[first:first + n] += 1
+        assert (seen == 1).all()
+    for plan in (sp, bs):
+        seen = np.zeros(S, dtype=np.int64)
+        for block in oe.step_walk(plan, S):
+            groups = [g for _, g in block]
+            assert groups == [k % max(plan.units, 1) for k in range(len(block))]
+            for seg, _ in block:
+                seen[seg] += 1
+        assert (seen == 1).all()
+    if pp.path == "stream":
+        assert pp.units % 15 == 0 and pp.grid <= oe.SMS and 2 <= pp.stages <= 4
+        assert pp.smem == oe._project_smem(pp.units, pp.stages, Y, Z, dtype.itemsize)
+    if sp.path == "stream":
+        assert sp.units in (1, 2) and sp.grid == min(S, oe.SMS) and 2 <= sp.stages <= 4
+        assert sp.threads == 256 * sp.units + 32
+    if shape == "flagship" and dtype == torch.float32:
+        assert (pp.path, pp.units, pp.stages, sp.path, sp.units, sp.stages) == \
+            ("stream", 60, 4, "stream", 2, 3)
+    if shape == "final_T1000":
+        assert sp.path == "block"  # G alone is 1 MB

@@ -31,7 +31,28 @@ largest |value|; for the plain version's float32 output too).  Cases:
   * ``estep``: ``estep_project`` and ``estep_step`` (from the plain s) at
     the flagship's segments (Z5 S2000 T50 Y100 R40) and the final
     inference's trials (Z5 S100 T1000 Y100 R50), Poisson channels, inputs
-    as chip_smoke's 6e draws them (``estep_case``), contiguous.
+    as chip_smoke's 6e draws them (``estep_case``), contiguous; each timed
+    as replays of a captured call (``chip_smoke.graph_ms``: the device
+    time without the host's launch cost, which a call as short as these
+    can exceed).
+
+A variant is compiled with ``-I csrc/`` too, so a FILE.cu under
+``tools/variants/`` finds the package's headers; where nvcc prints
+``-Xptxas -v``'s report (FLAGS ``-Xptxas -v``) the report goes into the
+JSON line under ``nvcc``.  An ``estep`` variant built from a tree before
+the launch plan (the first design's ``estep.cu``, no ``estep_smem``) is
+called with that tree's prototypes, so both designs run on the same
+inputs.  A variant that exports ``estep_stamps``
+(``tools/variants/estep_block_stamped.cu``) is run once more per case
+with its clock stamps read back: each block's SM, start, phase ends and
+end (``%globaltimer``), summarised as blocks resident an SM, the SMs'
+busy share of the launch and the mean time of each phase (``stamps``);
+``estep_attrs`` adds registers, spills and resident blocks an SM.  A build
+of the package's ``estep.cu`` with ``-DESTEP_CYCLES`` counts clock cycles
+in its streaming kernels (``estep_cycles``, which other builds refuse):
+the consumers' waits for a stage, the producer's waits for a free one and
+``estep_step``'s phases, as shares of one consumer thread's loop a block
+(``cycles``).
 
 Prints one JSON line with the card's name and power limit.  Needs a CUDA
 device and nvcc.
@@ -43,6 +64,8 @@ import json
 import pathlib
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -88,21 +111,29 @@ def build_all(source, variants):
     procs = {}
     for name, src, flags in variants:
         out = outdir / f"lib{source}_{name}.so"
-        procs[name] = (out, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
-                                              str(out), str(src)], stderr=subprocess.PIPE,
-                                             text=True))
+        procs[name] = (out, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
+                                              str(_build.CSRC), "-o", str(out), str(src)],
+                                             stderr=subprocess.PIPE, text=True))
     libs = {}
     for name, (out, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
         lib = ctypes.CDLL(str(out))
+        lib.nvcc_log = err if "ptxas" in err else None
         sigs = tree_signatures(next(v[1] for v in variants if v[0] == name), source)
+        lib.counts_cycles = False
+        if source == "estep":
+            lib.with_plan = hasattr(lib, "estep_smem")
+            if not lib.with_plan:
+                sigs = PLANLESS_ESTEP
         for fn, (argtypes, restype) in sigs.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         lib.ns_error_string.argtypes = [ctypes.c_int]
         lib.ns_error_string.restype = ctypes.c_char_p
+        if source == "estep" and lib.with_plan:  # a -DESTEP_CYCLES build counts
+            lib.counts_cycles = lib.estep_cycles(0, None, 1) == 0
         if source == "mstep":
             # a tree before the exit test's norms declares mstep_update
             # without their three pointers (cn, norms, the ticket counter)
@@ -113,6 +144,110 @@ def build_all(source, variants):
             lib.with_norms = have == want
         libs[name] = lib
     return libs
+
+
+_p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# the prototypes of estep.cu before the launch plan (the first design alone)
+PLANLESS_ESTEP = {"estep_project": ([_p] * 9 + [_i] * 4 + [_p], _i),
+              "estep_step": ([_p] * 14 + [_i] * 5 + [_d, _i, _p], _i)}
+
+
+def estep_call(kind, args):
+    """``estep_project`` or ``estep_step`` (``kind``) through the current
+    variant: the package's wrapper where the variant takes a launch plan,
+    else the planless prototype on contiguous inputs."""
+    from vlgp_tpu_torch.ops import _build
+    from vlgp_tpu_torch.ops import estep as oe
+    from vlgp_tpu_torch.ops.spd import _ptr
+
+    lib = _build._libs["estep"]
+    if lib.with_plan:
+        return oe.estep_project(*args) if kind == "project" else oe.estep_step(*args)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if kind == "project":
+        y, xb, mask, a, mu, v, pois, noise = args
+        S, T, Y = y.shape
+        s = torch.empty((a.shape[0], S, T), dtype=y.dtype, device=y.device)
+        rc = lib.estep_project(*[_ptr(t) for t in (y, xb, mask, a, mu, v, pois, noise, s)],
+                               S * T, Y, a.shape[0], int(y.dtype == torch.float64), stream)
+        outs = s
+    else:
+        G, s, mu, w, X, mask, a, xb, v, pois, noise, bound = args
+        (Z, T, R), S, Y = G.shape, xb.shape[0], xb.shape[2]
+        outs = [torch.empty_like(mu) for _ in range(3)]
+        rc = lib.estep_step(*[_ptr(t) for t in (G, s, mu, w, X, mask, a, xb, v, pois, noise,
+                                                *outs)],
+                            S, T, Y, Z, R, float(bound), int(G.dtype == torch.float64), stream)
+    if rc != 0:
+        raise RuntimeError(f"estep_{kind} failed: {lib.ns_error_string(rc).decode()}")
+    return outs
+
+
+def stamp_summary(lib, which, run):
+    """One more call of ``run`` with the stamped variant's clock table read
+    back (``which``: 0 estep_project, 1 estep_step): blocks, the launch's
+    span, blocks resident an SM (the most at once, and the time-weighted
+    mean while the SM is busy), the SMs' busy share of the span, and each
+    phase's mean time a block, in us."""
+    nb, ns = 4096, 10
+    buf = (ctypes.c_ulonglong * (nb * ns))()
+    lib.estep_stamps.argtypes = [_i, _p, _i]
+    lib.estep_stamps(which, buf, 1)
+    run()
+    torch.cuda.synchronize()
+    lib.estep_stamps(which, buf, 0)
+    rows = np.frombuffer(buf, dtype=np.uint64).reshape(nb, ns)
+    live = rows[rows[:, 1] != 0]
+    last = 4 if which == 0 else 8
+    t = live[:, 1:last + 1].astype(np.float64)
+    t -= t[:, 0].min()
+    span = float(t[:, -1].max())
+    peak, mean_res, busy = [], [], []
+    for sm in np.unique(live[:, 0]):
+        iv = t[live[:, 0] == sm][:, [0, -1]]
+        ev = sorted([(a, 1) for a in iv[:, 0]] + [(b, -1) for b in iv[:, 1]])
+        n = top = 0
+        prev, area, on = 0.0, 0.0, 0.0
+        for x, d in ev:
+            if n > 0:
+                area += n * (x - prev)
+                on += x - prev
+            n += d
+            top = max(top, n)
+            prev = x
+        peak.append(top)
+        mean_res.append(area / on if on else 0.0)
+        busy.append(on / span if span else 0.0)
+    dur = t[:, -1] - t[:, 0]
+    return {"blocks": int(len(live)), "sms": int(len(peak)), "span_us": span / 1e3,
+            "block_us_median": float(np.median(dur)) / 1e3,
+            "resident_max": int(max(peak)), "resident_mean": float(np.mean(mean_res)),
+            "sm_busy_share": float(np.mean(busy)),
+            "phase_us_mean": [float(x) / 1e3 for x in np.diff(t, axis=1).mean(0)]}
+
+
+CYCLE_SLOTS = ("consumer", "consumer_wait", "producer", "producer_wait", "items", "A", "B", "C",
+               "D", "E", "refresh_and_stores", "G_copy")
+
+
+def cycle_summary(lib, which, run):
+    """One more call of ``run`` with the ``-DESTEP_CYCLES`` build's counters
+    read back (``which``: 0 estep_project, 1 estep_step): blocks, tiles or
+    segments a block, the consumer thread's cycles a block, and each
+    counter's mean as a share of them."""
+    nb, ns = 264, len(CYCLE_SLOTS)
+    buf = (ctypes.c_ulonglong * (nb * ns))()
+    lib.estep_cycles(which, buf, 1)
+    run()
+    torch.cuda.synchronize()
+    lib.estep_cycles(which, buf, 0)
+    a = np.frombuffer(buf, dtype=np.uint64).reshape(nb, ns).astype(np.float64)
+    live = a[a[:, 4] > 0]
+    tot = float(live[:, 0].mean())
+    return {"blocks": int(len(live)), "items_per_block": float(live[:, 4].mean()),
+            "consumer_cycles": tot,
+            "share": {n: float(live[:, i].mean()) / tot for i, n in enumerate(CYCLE_SLOTS)
+                      if i != 4 and live[:, i].any()}}
 
 
 def run_update(part, n, a, b, noise):
@@ -213,14 +348,15 @@ def cases(source, device, gen):
             step = [step[0], oe._estep_project_plain(*proj)] + step[2:]
             step = [t.contiguous() if torch.is_tensor(t) else t for t in step]
             p64, s64 = up(proj), up(step)
-            out.append((f"estep_project Z5 S{S} T{T} Y100", lambda a=proj: oe.estep_project(*a),
-                        lambda a=proj: [oe.estep_project(*a)],
+            out.append((f"estep_project Z5 S{S} T{T} Y100",
+                        lambda a=proj: estep_call("project", a),
+                        lambda a=proj: [estep_call("project", a)],
                         lambda a=p64: [oe._estep_project_plain(*a)],
-                        lambda a=proj: [oe._estep_project_plain(*a)], cs.time_ms, None))
-            out.append((f"estep_step Z5 S{S} T{T} Y100 R{R}", lambda a=step: oe.estep_step(*a),
-                        lambda a=step: list(oe.estep_step(*a)),
+                        lambda a=proj: [oe._estep_project_plain(*a)], cs.graph_ms, None))
+            out.append((f"estep_step Z5 S{S} T{T} Y100 R{R}", lambda a=step: estep_call("step", a),
+                        lambda a=step: list(estep_call("step", a)),
                         lambda a=s64: list(oe._estep_step_plain(*a)),
-                        lambda a=step: list(oe._estep_step_plain(*a)), cs.time_ms, None))
+                        lambda a=step: list(oe._estep_step_plain(*a)), cs.graph_ms, None))
     else:
         from vlgp_tpu_torch.ops import hstat as oh
 
@@ -256,6 +392,14 @@ def main():
     gen = torch.Generator(device=device)
     result = {"card": card, "source": opts.source,
               "variants": {n: [str(s), f] for n, s, f in variants}}
+    result["nvcc"] = {n: lib.nvcc_log for n, lib in libs.items() if lib.nvcc_log}
+    for n, lib in libs.items():
+        if hasattr(lib, "estep_attrs"):
+            at = (ctypes.c_int * 9)()
+            lib.estep_attrs(at)
+            result.setdefault("attrs", {})[n] = {
+                k: dict(zip(("registers", "local_bytes", "blocks_per_sm"), at[3 * i:3 * i + 3]))
+                for i, k in enumerate(("estep_project", "estep_step_256", "estep_step_512"))}
     real = _build._libs[opts.source]
     try:
         for tag, timed, run, plain64, plain, timer, dev_us in cases(opts.source, device, gen):
@@ -275,6 +419,12 @@ def main():
                 entry[name]["ms"].append(timer(timed))
                 if dev_us is not None:
                     entry[name].setdefault("device_us", []).append(dev_us())
+                if libs[name].counts_cycles:
+                    entry[name].setdefault("cycles", []).append(
+                        cycle_summary(libs[name], int(tag.startswith("estep_step")), timed))
+                if hasattr(libs[name], "estep_stamps"):
+                    entry[name].setdefault("stamps", []).append(
+                        stamp_summary(libs[name], int(tag.startswith("estep_step")), timed))
             entry["plain_ms"].append(timer(plain))
             result[tag] = entry
             print(tag, json.dumps(entry), flush=True)

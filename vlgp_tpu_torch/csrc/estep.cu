@@ -8,84 +8,130 @@
 // are split over a model group all-reduces s and w between and after the
 // launches, as before.
 //
-// estep_project_kernel (stage a).  For every row n = (segment, t):
+// Stage a, estep_project.  For every row n = (segment, t):
 //
 //   eta = xb + sum_z mu_z a_z,   r = exp(min(eta + sum_z v_z (0.5 a_z) a_z, 10)),
 //   resid = (Poisson ? y - r : (y - eta) / max(noise, 1e-30)) * mask,
 //   s_z = sum_y resid a_z.
 //
-// The rows are independent, so the grid runs over tiles of RT rows of the
-// flat (S T) row axis, whatever S and T are (3125 blocks of 256 threads
-// at the flagship Z5 S2000 T50 Y100 and at the final inference's S100
-// T1000: 100,000 rows each).  A block copies its tile's mu and v (Z x RT,
-// contiguous along the rows) to shared memory; each warp takes a row at a
-// time, its lanes the channels y = lane + 32 k, KY of them loaded at once
-// through the read-only path; each lane sums its channels in increasing y,
-// the lanes' sums are added in a fixed tree of shuffles, and the tile's s
-// go back to device memory by rows.
+// Stages b and c, estep_step.  For every segment, each latent z:
 //
-// estep_step_kernel (stages b and c).  A block per segment (256 threads;
-// 512 where there are fewer segments than two an SM, as at the final
-// inference's S100 T1000), every latent inside it, latent groups of zg at
-// a time (zg = Z but where the group's R-vectors would not fit the block's
-// shared memory):
-//
-//   A. Gs[z, r]  = sum_t G[z, t, r] s[z, t]              (a thread per (z, r, chunk of t))
-//   B. u[z, t]   = sum_r G[z, t, r] Gs[z, r] - mu[z, t]  (a quad of lanes per (z, t))
-//      wu[z, t]  = (w[z, t] mask[t]) u[z, t]
-//   C. Gwu[z, r] = sum_t G[z, t, r] wu[z, t]             (as A)
-//   D. M[z, r]   = sum_q X[z, r, q] Gwu[z, q]            (a quad per row of X)
+//   A. Gs[z, r]  = sum_t G[z, t, r] s[z, t]
+//   B. u[z, t]   = sum_r G[z, t, r] Gs[z, r] - mu[z, t],  wu = (w mask) u
+//   C. Gwu[z, r] = sum_t G[z, t, r] wu[z, t]
+//   D. M[z, r]   = sum_q X[z, r, q] Gwu[z, q]
 //   E. delta     = clip(u - sum_r G[z, t, r] M[z, r], dmu_bound) mask,
-//      mu_new    = mu + delta                             (a quad per (z, t))
+//      mu_new    = mu + delta
 //
-// then the weight refresh from the new mu and the old v, through the same
-// row routine as stage a: w_z = (sum_y U a_z a_z) mask with U = r on a
-// Poisson channel and 1 / max(noise, 1e-30) on a Gaussian one.  u lives in
-// dmu and wu in w_out between the phases (each block touches its own
-// segment's entries only), so the kernel needs no scratch of its own and
-// takes any T: G and the rows stream from device memory (L1 and L2), and
-// the block asks L2 for its segment's X, rows of xb and vectors first.  A
-// sum over t runs in increasing t within chunks of ceil(T / chunks) rows
-// (chunks = min(ceil(T / 64), 16), a function of T alone), the chunks
-// added in order; a quad's sum over r or q runs per lane in increasing
-// index (lane k takes k, k + 4, ...), then xor 1 and 2.
+// then the weight refresh from the new mu and the old v by stage a's row
+// routine: w_z = (sum_y U a_z a_z) mask with U = r on a Poisson channel and
+// 1 / max(noise, 1e-30) on a Gaussian one.
 //
-// Both kernels pick between the two sides of a channel with a select, as
+// The sums, in every path below: a row's sums over the channels run per
+// lane over y = lane + 32 k in increasing y, and the lanes' ZB sums meet in
+// warp_sums' fixed tree of shuffles; a sum over t (A, C) runs in increasing
+// t within chunks of ceil(T / chunks) rows (chunks = t_chunks(T), a
+// function of T alone), the chunks added in order; a sum over r or q (B,
+// D, E) runs per lane of a quad over k, k + 4, ..., then xor 1 and 2.  So
+// two calls give the same bits, and a segment's outputs depend neither on
+// S, the grid, the block's width, the latent groups nor the path.  Both
+// kernels pick between the two sides of a channel with a select, as
 // torch.where does, so a non-finite value on the side not taken (a padded
 // zero-noise channel, a rate clipped at e^10) never reaches a sum.  No
-// atomics: every sum runs over its index in one fixed order, so two calls
-// give the same bits, and a segment's outputs depend neither on S nor on
-// the block's width nor on the latent groups.  Every product is a full FMA
-// in the working type (float32 or float64; no TF32).  No allocation, host
-// sync or device query inside a call, so both kernels can be captured in a
-// CUDA graph.
+// atomics.  Every product is a full FMA in the working type (float32 or
+// float64; no TF32, no fast exponential).  No allocation, host sync or
+// device query inside a call, so both kernels can be captured in a CUDA
+// graph.
 //
-// For Z <= ZB (SMALL) a lane keeps a row's mu and v, a channel's loadings
-// and the ZB sums in registers; above, the row pass reads mu and v from
-// shared memory and sums ZB latents a sweep over the channels, recomputing
-// the predictor for each group of ZB.  A warp's ZB sums are added over its
-// lanes by a reduce-scatter (xor 16, 8, 4: each lane keeps half of its
-// values) and then xor 2 and 1: 9 shuffles for the ZB sums.
-//
-// What bounds it on this card.  At the flagship (Z5 S2000 T50 Y100 R40,
+// What bounds them on this card.  At the flagship (Z5 S2000 T50 Y100 R40,
 // float32) stage a must read y and xb (40 MB each), mu, v and the mask
 // (4.4 MB) and write s (2 MB): ~0.026 ms at 3.35 TB/s; stages b-c read X
 // (Z S R^2, 64 MB), xb (40 MB), s, mu, w, v and the mask (8.4 MB) and
-// write mu, delta and w (6 MB): ~0.035 ms.  Both do well under 0.5 GFLOP
-// (~15 FMAs per (row, channel) and ~5 Z R per (segment, t)), so both are
-// bound by bytes.  Neither reaches it: the row pass's time, measured in
-// draft builds, is mostly neither its loads nor its arithmetic (the tile's
-// set-up, barriers and reduction), and the Woodbury phases are chains of
-// dependent loads between barriers; rows staged in shared memory by
-// cp.async, several tiles or segments a block with the next one's inputs
-// prefetched, and a row pass without shared memory or barriers were all
-// slower (PERF.md).
+// write mu, delta and w (6 MB): ~0.035 ms.  Both do well under 0.5 GFLOP,
+// so both are bound by bytes, and each byte is read once: what a design
+// has to do is keep enough bytes in flight an SM (~25 KB a microsecond at
+// an SM's share of the bandwidth) while the arithmetic overlaps them.
+//
+// The streaming path (the launch plan from ops/estep.py: rows a tile or
+// consumer groups, ring stages, grid; the C side checks it and lays out
+// the same bytes, estep_smem).  One block an SM, persistent, walking its
+// share of the work (tiles or segments b, b + grid, ...).  One producer
+// warp copies each tile's or segment's inputs into a ring of stages in
+// shared memory: the 16-byte aligned interior of every contiguous span
+// by one cp.async.bulk (the tensor memory accelerator), its ragged head
+// and tail (under 16 bytes each, any address, any length) by plain loads,
+// and one arrive on the stage's full mbarrier that expects the bulk bytes.
+// A value staged from address p sits at byte p mod 16 of its 16-byte
+// aligned slot, so no copy reads past its span.  Consumers wait on full,
+// never meet at a block-wide barrier after the start, and hand a stage
+// back on its empty mbarrier; every wait traps rather than hangs.
+//
+//   estep_project_stream_kernel: 15 consumer warps (with the producer, 16:
+//   up to 128 registers a thread), a tile of 60 rows at the flagship (y
+//   and xb rows one span each, the mask, mu and v by latent), 4 stages of
+//   ~51 KB.  A warp takes 4 consecutive rows, copies their mu and v into
+//   its scratch by row, then a row at a time: lanes over the channels,
+//   read from the stage without bank conflicts; where Z <= 8 and Y <= 128
+//   (ZT = Z) the lane's loadings, 0.5 a^2, selects and noise sit in
+//   registers, and the rates of its four channels form first as
+//   straight-line chains, then the selects, then the sums in channel
+//   order.  Its Z x 4 sums go through its scratch to device memory as
+//   runs of consecutive rows.
+//
+//   estep_step_stream_kernel: G (Z T R) in shared memory for the block's
+//   lifetime, its rows at an odd stride (copied in by the consumers once)
+//   so that a thread per (z, t) walking r and a thread per (z, r) walking
+//   t both read without bank conflicts; two consumer groups of 256
+//   threads, each on its own named barrier, take alternate segments of
+//   the block, so one group's dependent phases overlap the other's weight
+//   refresh; the producer keeps the next segments' X (Z R^2), xb rows (T
+//   Y), mask, s, mu, w and v in a ring of 3 stages (~57 KB each at the
+//   flagship).  u, w u, the phase vectors and the new mu stay in the
+//   group's scratch; B and E run a thread per (z, t) over four chains
+//   (quad_dot: the quad's lanes' sums in one thread, added as its xor 1 and
+//   2 would), D a quad per row of X; delta, mu and w go to device memory
+//   once, coalesced, at the segment's end.
+//
+// The block path, for what the streaming path's stages do not hold (the
+// final inference's S100 T1000, where G alone is 1 MB; float64 at the
+// flagship; Z or R near 128; very long rows): the first design of both
+// kernels, unchanged.  estep_project_kernel takes a tile of RT rows a
+// block (3125 blocks at the flagship), mu and v staged in shared memory,
+// each warp a row at a time with KY loads a lane in flight through the
+// read-only path.  estep_step_kernel is a block per segment (256 threads;
+// 512 where there are fewer segments than two an SM), every latent
+// inside it, latent groups of zg at a time (zg = Z but where the group's
+// R-vectors would not fit the block's shared memory), G and the rows read
+// through L1 and L2 after the block asks L2 for its segment's inputs, u
+// in dmu and w u in w_out between the phases.
+//
+// In the block path, for Z <= ZB (SMALL) a lane keeps a row's mu and v and
+// the ZB sums in registers; above, the row routine reads mu and v from
+// shared memory and sums ZB latents a sweep over the channels, recomputing
+// the predictor for each group of ZB.  A warp's ZB sums are added over its lanes by a
+// reduce-scatter (xor 16, 8, 4: each lane keeps half of its values) and
+// then xor 2 and 1: 9 shuffles for the ZB sums.
+//
+// Measured on an H100 (PERF.md, tools/torch_variant_ab.py; -DESTEP_CYCLES
+// splits the streaming kernels' time): the block path's row pass is
+// bound by the bytes its blocks keep in flight (3 blocks an SM of 8 warps,
+// 4 + 4 loads a lane: ~25 KB an SM against a microsecond of latency), its
+// Woodbury phases by chains of dependent loads between barriers (3-5 us
+// each a block) and its weight refresh (15 of a block's 41 us) by the
+// same row latency.  The streaming path keeps up to 200 KB an SM in
+// flight; what bounds it is the consumers' issue (the row pass's ~200
+// instructions a row; the Woodbury phases' barriers and chains).
 
+#include <climits>
 #include <cmath>
+#include <cstdint>
 
 #include "ns_common.cuh"
 
 namespace {
+
+using vlgp::bar_wait;
+using vlgp::bulk_copy;
 
 constexpr int NT = 256;        // threads of a block, both kernels
 constexpr int RT = 32;         // rows of a tile of the row pass
@@ -486,32 +532,739 @@ cudaError_t launch_step(const StepArgs<T>& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The streaming path
+// ---------------------------------------------------------------------------
+
+constexpr int PW = 15;                 // consumer warps of a project block (16 warps
+                                       // with the producer: up to 128 registers a thread)
+constexpr int PNT = 32 * (PW + 1);     // and its producer warp
+constexpr int GT = 256;                // threads of a consumer group of a step block
+constexpr int NG_MAX = 2;              // consumer groups of a step block, at most
+constexpr int SNT_MAX = NG_MAX * GT + 32;
+constexpr int ST_MAX = 4;              // stages of a ring, at most
+constexpr int BAR_BYTES = 128;         // the mbarriers, at the head of shared memory
+constexpr size_t SMEM_MAX = 232448;    // shared memory a block can have on an H100
+
+// Built with -DESTEP_CYCLES (tools/torch_variant_ab.py), the streaming
+// kernels count clock cycles of one consumer thread and of the producer
+// per block into g_cycles (estep_cycles copies them out): CY(...) keeps
+// its statement only in that build.  Slots: 0 the consumer's loop, 1 its
+// waits for a stage, 2 the producer's loop, 3 its waits for a free
+// stage, 4 tiles or segments; estep_step also 5-9 phases A-E, 10 the
+// weight refresh and the stores, 11 G's copy.
+#ifdef ESTEP_CYCLES
+#define CY(...) __VA_ARGS__
+constexpr int CY_BLOCKS = 264, CY_SLOTS = 12;
+__device__ unsigned long long g_cycles[2][CY_BLOCKS][CY_SLOTS];
+__device__ __forceinline__ void cy_put(int which, const long long (&cy)[CY_SLOTS], int first,
+                                       int last) {
+  if (blockIdx.x < CY_BLOCKS)
+    for (int i = first; i < last; ++i) g_cycles[which][blockIdx.x][i] = (unsigned long long)cy[i];
+}
+#else
+#define CY(...)
+#endif
+
+// Bytes of a slot for `count` values of T staged from any address: the
+// values start at the slot's byte (address mod 16).
+template <typename T>
+__host__ __device__ inline size_t span_slot(long long count) {
+  return ((size_t)count * sizeof(T) + 15) / 16 * 16 + 16;
+}
+
+// where the value staged from src lives in a slot
+template <typename T>
+__device__ __forceinline__ T* in_slot(unsigned char* slot, const T* src) {
+  return reinterpret_cast<T*>(slot + (reinterpret_cast<uintptr_t>(src) & 15));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// arrive on bar, first raising the bytes its phase waits for by tx
+__device__ __forceinline__ void bar_arrive(unsigned long long* bar, unsigned tx = 0) {
+  if (tx)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+                 "r"(tx)
+                 : "memory");
+  else
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+// the threads of consumer group g (named barrier 1 + g)
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(GT) : "memory");
+}
+
+// The span src[0, n) as it is staged: the 16-byte aligned interior [lo, hi)
+// (empty where the span holds no whole 16-byte word) and the values before
+// and after it, [0, head) and [tail, n).
+struct SpanCut {
+  uintptr_t lo, hi;
+  long long head, tail;
+};
+template <typename T>
+__device__ __forceinline__ SpanCut span_cut(const T* src, long long n) {
+  constexpr long long V = 16 / sizeof(T);
+  const uintptr_t p = reinterpret_cast<uintptr_t>(src), e = p + (uintptr_t)n * sizeof(T);
+  SpanCut c{(p + 15) & ~(uintptr_t)15, e & ~(uintptr_t)15, 0, 0};
+  if (c.hi > c.lo) {
+    c.head = (long long)(c.lo - p) / (long long)sizeof(T);
+    c.tail = (long long)(c.hi - p) / (long long)sizeof(T);
+  } else {  // under 32 bytes: all by plain loads, at most 2 V - 1 values
+    c.head = n < V ? n : V;
+    c.tail = c.head;
+  }
+  return c;
+}
+
+// One lane's part of a stage: its spans' ragged values by plain loads (each
+// span's issued together), then one arrive on full expecting its bulk
+// bytes, then the interiors by bulk copies.  Every lane of the producer
+// warp arrives once (full counts 32).  span(i, slot, src, n) names span i.
+template <typename T, typename Span>
+__device__ void stage_spans(int nspans, Span span, unsigned long long* full, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  unsigned tx = 0;
+  for (int i = lane; i < nspans; i += 32) {
+    unsigned char* slot;
+    const T* src;
+    long long n;
+    span(i, slot, src, n);
+    const SpanCut c = span_cut(src, n);
+    T* dst = in_slot(slot, src);
+    T h[V], t[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      h[j] = j < c.head ? __ldg(src + j) : T(0);
+      t[j] = c.tail + j < n ? __ldg(src + c.tail + j) : T(0);
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (j < c.head) dst[j] = h[j];
+      if (c.tail + j < n) dst[c.tail + j] = t[j];
+    }
+    if (c.hi > c.lo) tx += (unsigned)(c.hi - c.lo);
+  }
+  bar_arrive(full, tx);
+  for (int i = lane; i < nspans; i += 32) {
+    unsigned char* slot;
+    const T* src;
+    long long n;
+    span(i, slot, src, n);
+    const SpanCut c = span_cut(src, n);
+    if (c.hi > c.lo)
+      bulk_copy(slot + (c.lo - (reinterpret_cast<uintptr_t>(src) & ~(uintptr_t)15)),
+                reinterpret_cast<const void*>(c.lo), (unsigned)(c.hi - c.lo), full);
+  }
+}
+
+// A lane's channels c = lane + 32 k, k < KY, where Y <= 32 KY and Z = ZT
+// <= ZB: the loadings, (0.5 a) a as row_tile forms it, max(noise, 1e-30)
+// and its reciprocal, and the Poisson and live flags (bit k), in registers
+// for the block's lifetime.
+template <typename T, int ZT>
+struct LaneZ {
+  T a[KY][ZT], ha[KY][ZT], sn[KY], isn[KY];
+  unsigned pois, live;
+  __device__ void load(const RowArgs<T>& p, int lane) {
+    pois = live = 0;
+#pragma unroll
+    for (int k = 0; k < KY; ++k) {
+      const int c = lane + 32 * k;
+      const bool on = c < p.Y;
+#pragma unroll
+      for (int q = 0; q < ZT; ++q) {
+        a[k][q] = on ? p.a[(size_t)q * p.Y + c] : T(0);
+        ha[k][q] = T(0.5) * a[k][q] * a[k][q];
+      }
+      sn[k] = on ? safe_noise(p.noise[c]) : T(1);
+      isn[k] = T(1) / sn[k];
+      if (on) live |= 1u << k;
+      if (on && p.pois[c] != 0) pois |= 1u << k;
+    }
+  }
+};
+
+// The predictor, the rates' argument and the rate of one channel of a row
+// (row_tile's operations in its order): e = xb + sum_q mu_q a_q, r =
+// exp(min(e + sum_q v_q (0.5 a_q) a_q, 10)).
+template <typename T, int ZT>
+__device__ __forceinline__ void rate(const T* a, const T* ha, const T (&mu)[ZT],
+                                     const T (&v)[ZT], T xv, T& e, T& r) {
+  T g = T(0);
+  e = T(0);
+#pragma unroll
+  for (int q = 0; q < ZT; ++q) {
+    e = fma_t(mu[q], a[q], e);
+    g = fma_t(v[q], ha[q], g);
+  }
+  e = e + xv;
+  r = exp_t(clip_hi(e + g));
+}
+
+// the select of one channel (the other side is never formed), times the
+// row's mask for stage a
+template <typename T, bool PROJECT>
+__device__ __forceinline__ T pick(bool pois, T yv, T e, T r, T sn, T isn, T mk) {
+  T val;
+  if (pois) {
+    val = PROJECT ? yv - r : r;
+  } else {
+    val = PROJECT ? (yv - e) / sn : isn;
+  }
+  return PROJECT ? val * mk : val;
+}
+
+// One row by a warp, for Z = ZT: row_tile's sums in its order from the
+// row's channels xr, yr (shared memory), its mu, v and mask; returns
+// warp_sums' value (lane 4 q holds latent q's).  Every lane forms all KY
+// channels, its index clamped to the row (only a live channel enters a
+// sum): first the rates, as straight-line chains the compiler
+// interleaves, then the selects, then the sums over the channels in
+// increasing order.
+template <typename T, bool PROJECT, int ZT>
+__device__ __forceinline__ T row_one(const LaneZ<T, ZT>& ln, int Y, const T* xr, const T* yr,
+                                     const T (&mu)[ZT], const T (&v)[ZT], T mk, int lane) {
+  T e[KY], r[KY], val[KY];
+#pragma unroll
+  for (int k = 0; k < KY; ++k) {
+    const int c = min(lane + 32 * k, Y - 1);
+    rate<T, ZT>(ln.a[k], ln.ha[k], mu, v, xr[c], e[k], r[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < KY; ++k) {
+    const int c = min(lane + 32 * k, Y - 1);
+    val[k] = pick<T, PROJECT>((ln.pois >> k) & 1u, PROJECT ? yr[c] : T(0), e[k], r[k],
+                              ln.sn[k], ln.isn[k], mk);
+  }
+  T acc[ZB];
+#pragma unroll
+  for (int q = 0; q < ZB; ++q) acc[q] = T(0);
+#pragma unroll
+  for (int k = 0; k < KY; ++k)
+#pragma unroll
+    for (int q = 0; q < ZT; ++q)
+      if ((ln.live >> k) & 1u)
+        acc[q] = fma_t(val[k], PROJECT ? ln.a[k][q] : ln.a[k][q] * ln.a[k][q], acc[q]);
+  return warp_sums(acc, lane);
+}
+
+// One row by a warp, for any Z and Y (the generic path), its channels and
+// its mu and v (muW, vW: Z values) in shared memory: the Z sums go to o[z
+// ostride] (times mk for the weights) from lanes 4 q, ZB latents a sweep
+// over the channels, the predictor formed again for each group of ZB.
+// The sums are row_tile's, in its order (for Z <= ZB too: its predictor
+// adds the same products in the same order).
+template <typename T, bool PROJECT>
+__device__ __forceinline__ void row_pass(const RowArgs<T>& p, const T* xr, const T* yr,
+                                         const T* muW, const T* vW, T mk, T* o, int ostride,
+                                         int lane) {
+  const int Z = p.Z, Y = p.Y;
+  for (int zb = 0; zb < Z; zb += ZB) {
+    T acc[ZB];
+#pragma unroll
+    for (int q = 0; q < ZB; ++q) acc[q] = T(0);
+    for (int c = lane; c < Y; c += 32) {
+      T e = T(0), g = T(0);
+      for (int z = 0; z < Z; ++z) {
+        const T az = __ldg(p.a + (size_t)z * Y + c);
+        e = fma_t(muW[z], az, e);
+        g = fma_t(vW[z], T(0.5) * az * az, g);
+      }
+      e = e + xr[c];
+      const T r = exp_t(clip_hi(e + g)), sn = safe_noise(__ldg(p.noise + c));
+      const T val = pick<T, PROJECT>(p.pois[c] != 0, PROJECT ? yr[c] : T(0), e, r, sn,
+                                     T(1) / sn, mk);
+#pragma unroll
+      for (int q = 0; q < ZB; ++q)
+        if (zb + q < Z) {
+          const T aq = __ldg(p.a + (size_t)(zb + q) * Y + c);
+          acc[q] = fma_t(val, PROJECT ? aq : aq * aq, acc[q]);
+        }
+    }
+    const T sum = warp_sums(acc, lane);
+    const int q = lane >> 2;
+    if ((lane & 3) == 0 && zb + q < Z) o[(zb + q) * ostride] = PROJECT ? sum : sum * mk;
+  }
+}
+
+// The project block's shared memory: the mbarriers, `stages` stages of a
+// tile of rt rows (y and xb rows, the mask, mu and v by latent), then each
+// consumer warp's scratch: its rows' mu and v by row (2 Z values a row),
+// then its Z x rt / PW sums.
+template <typename T>
+struct ProjectLayout {
+  size_t rows, lat, stage, total;
+  __host__ __device__ ProjectLayout(int rt, int stages, int Y, int Z) {
+    rows = span_slot<T>((long long)rt * Y);
+    lat = span_slot<T>(rt);
+    stage = 2 * rows + (size_t)(1 + 2 * Z) * lat;
+    total = BAR_BYTES + stages * stage + (size_t)PW * 3 * Z * (rt / PW) * sizeof(T);
+  }
+};
+
+// ZT = Z (1 ... ZB) where Y <= 32 KY: the register path (row_one); ZT = 0:
+// any shape (row_pass).
+template <typename T, int ZT>
+__global__ void __launch_bounds__(PNT, 1)
+    estep_project_stream_kernel(RowArgs<T> p, const T* mu, const T* v, T* s, int rt, int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem_raw);
+  unsigned long long* empty = full + ST_MAX;
+  const int Z = p.Z, Y = p.Y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long N = p.N, ntiles = (N + rt - 1) / rt;
+  const ProjectLayout<T> L(rt, stages, Y, Z);
+  unsigned char* ring = smem_raw + BAR_BYTES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      bar_init(full + i, 32);
+      bar_init(empty + i, PW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  CY(long long cy[CY_SLOTS] = {}; const long long cy0 = clock64();)
+  if (warp == PW) {  // the producer
+    int k = 0;
+    for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++k) {
+      const int st = k % stages;
+      CY(const long long w0 = clock64();)
+      if (k >= stages) bar_wait(empty + st, ((k / stages) - 1) & 1);
+      CY(cy[3] += clock64() - w0;)
+      const long long n0 = tile * rt, left = N - n0;
+      const int nr = left < rt ? (int)left : rt;
+      unsigned char* stage = ring + st * L.stage;
+      stage_spans<T>(3 + 2 * Z, [&](int i, unsigned char*& slot, const T*& src, long long& n) {
+        if (i < 2) {
+          slot = stage + i * L.rows;
+          src = (i == 0 ? p.y : p.xb) + n0 * Y;
+          n = (long long)nr * Y;
+        } else {
+          const int j = i - 2;  // the mask, then mu and v of each latent
+          slot = stage + 2 * L.rows + j * L.lat;
+          src = j == 0 ? p.mask + n0 : (j <= Z ? mu : v) + (long long)((j - 1) % Z) * N + n0;
+          n = nr;
+        }
+      }, full + st, lane);
+    }
+    CY(cy[2] = clock64() - cy0; if (lane == 0) cy_put(0, cy, 2, 4);)
+    return;
+  }
+  using Lanes = LaneZ<T, ZT ? ZT : 1>;
+  Lanes ln;
+  if (ZT) ln.load(p, lane);
+  const int rpw = rt / PW, Z2 = ZT ? 2 * ZT : 2 * Z;
+  T* mvW = reinterpret_cast<T*>(ring + stages * L.stage) + (size_t)warp * 3 * Z * rpw;
+  T* oW = mvW + 2 * Z * rpw;
+  int k = 0;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++k) {
+    const int st = k % stages;
+    CY(const long long w0 = clock64();)
+    bar_wait(full + st, (k / stages) & 1);
+    CY(cy[1] += clock64() - w0; cy[4] += 1;)
+    const long long n0 = tile * rt, left = N - n0;
+    const int j0 = warp * rpw, live = (int)max(0ll, min((long long)rpw, left - j0));
+    unsigned char* stage = ring + st * L.stage;
+    const T* yS = in_slot(stage, p.y + n0 * Y);
+    const T* xS = in_slot(stage + L.rows, p.xb + n0 * Y);
+    const T* mS = in_slot(stage + 2 * L.rows, p.mask + n0);
+    unsigned char* lat = stage + 2 * L.rows + L.lat;
+    // the warp's rows' mu and v, by row, so a row's 2 Z values sit together
+    for (int i = lane; i < Z2 * live; i += 32) {
+      const int jj = i / Z2, qq = i - jj * Z2;
+      const T* src = (qq < Z ? mu + (long long)qq * N : v + (long long)(qq - Z) * N) + n0;
+      mvW[i] = in_slot(lat + qq * L.lat, src)[j0 + jj];
+    }
+    __syncwarp();
+    if constexpr (ZT > 0) {
+      for (int jj = 0; jj < live; ++jj) {
+        const int j = j0 + jj;
+        T m[ZT], w[ZT];
+#pragma unroll
+        for (int q = 0; q < ZT; ++q) {
+          m[q] = mvW[jj * 2 * ZT + q];
+          w[q] = mvW[jj * 2 * ZT + ZT + q];
+        }
+        const T sum = row_one<T, true, ZT>(ln, Y, xS + (size_t)j * Y, yS + (size_t)j * Y, m, w,
+                                           mS[j], lane);
+        const int q = lane >> 2;
+        if ((lane & 3) == 0 && q < ZT) oW[q * rpw + jj] = sum;
+      }
+    } else {
+      for (int jj = 0; jj < live; ++jj) {
+        const int j = j0 + jj;
+        row_pass<T, true>(p, xS + (size_t)j * Y, yS + (size_t)j * Y, mvW + jj * Z2,
+                          mvW + jj * Z2 + Z, mS[j], oW + jj, rpw, lane);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(empty + st);  // the warp's reads of the stage are done
+    for (int i = lane; i < Z * rpw; i += 32) {
+      const int z = i / rpw, jj = i - z * rpw;
+      if (jj < live) s[(long long)z * N + n0 + j0 + jj] = oW[i];
+    }
+    __syncwarp();
+  }
+  CY(cy[0] = clock64() - cy0; if (threadIdx.x == 0) { cy_put(0, cy, 0, 2); cy_put(0, cy, 4, 5); })
+}
+
+// G's rows in shared memory, padded to an odd stride: a thread per (z, t)
+// walking r and a thread per (z, r) walking t both read without bank
+// conflicts
+__host__ __device__ inline int g_stride(int R) { return R | 1; }
+
+// The step block's shared memory: the mbarriers, G (Z T rows of
+// g_stride(R)), `stages` stages of a segment (X by latent, the xb rows,
+// the mask, then s, mu, w and v of each latent), then each consumer
+// group's scratch: Gs, Gwu and M (Z R each), the chunks' sums of A and C
+// where T has more than one chunk, u (then delta), w u (then the new w)
+// and the new mu (Z T each), and the new mu and the old v by row (T x 2
+// Z).
+template <typename T>
+struct StepLayout {
+  size_t G, X, rows, vec, stage, group, total;
+  __host__ __device__ StepLayout(int groups, int stages, int Tn, int Y, int Z, int R) {
+    G = ((size_t)Z * Tn * g_stride(R) * sizeof(T) + 15) / 16 * 16;
+    X = span_slot<T>((long long)R * R);
+    rows = span_slot<T>((long long)Tn * Y);
+    vec = span_slot<T>(Tn);
+    stage = Z * X + rows + (size_t)(1 + 4 * Z) * vec;
+    const int nch = t_chunks(Tn);
+    group = ((size_t)(3 + (nch > 1 ? nch : 0)) * Z * R + (size_t)5 * Z * Tn) * sizeof(T);
+    total = BAR_BYTES + G + stages * stage + groups * group;
+  }
+};
+
+// sum_k P[k] Q[k] over k < n as a quad of lanes sums it (lane j over k = j,
+// j + 4, ..., then xor 1 and 2): four chains, then (p0 + p1) + (p2 + p3),
+// by one thread
+template <typename T>
+__device__ __forceinline__ T quad_dot(const T* P, const T* Q, int n) {
+  T p0 = T(0), p1 = T(0), p2 = T(0), p3 = T(0);
+  int k = 0;
+  for (; k + 3 < n; k += 4) {
+    p0 = fma_t(P[k], Q[k], p0);
+    p1 = fma_t(P[k + 1], Q[k + 1], p1);
+    p2 = fma_t(P[k + 2], Q[k + 2], p2);
+    p3 = fma_t(P[k + 3], Q[k + 3], p3);
+  }
+  if (k < n) p0 = fma_t(P[k], Q[k], p0);
+  if (k + 1 < n) p1 = fma_t(P[k + 1], Q[k + 1], p1);
+  if (k + 2 < n) p2 = fma_t(P[k + 2], Q[k + 2], p2);
+  return (p0 + p1) + (p2 + p3);
+}
+
+// ZT as for the project kernel (the weight refresh).
+template <typename T, int ZT>
+__global__ void __launch_bounds__(SNT_MAX, 1)
+    estep_step_stream_kernel(StepArgs<T> p, int groups, int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem_raw);
+  unsigned long long* empty = full + ST_MAX;
+  const int Tn = p.Tn, R = p.R, Z = p.rows.Z, Y = p.rows.Y, S = p.S, RP = g_stride(R);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long NL = p.rows.N;  // S T: the stride of a latent in (Z, S, T)
+  const StepLayout<T> L(groups, stages, Tn, Y, Z, R);
+  T* Gp = reinterpret_cast<T*>(smem_raw + BAR_BYTES);
+  unsigned char* ring = smem_raw + BAR_BYTES + L.G;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      bar_init(full + i, 32);
+      bar_init(empty + i, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // latent z's vector j (0 s, 1 mu, 2 w, 3 v) from the segment at base
+  auto zsrc = [&](int z, int j, long long base) {
+    return (j == 0 ? p.s : j == 1 ? p.mu : j == 2 ? p.w : p.v) + z * NL + base;
+  };
+  CY(long long cy[CY_SLOTS] = {}; long long cy0 = clock64(), c1;)
+  if (warp == groups * (GT / 32)) {  // the producer
+    int k = 0;
+    for (long long seg = blockIdx.x; seg < S; seg += gridDim.x, ++k) {
+      const int st = k % stages;
+      CY(const long long w0 = clock64();)
+      if (k >= stages) bar_wait(empty + st, ((k / stages) - 1) & 1);
+      CY(cy[3] += clock64() - w0;)
+      unsigned char* stage = ring + st * L.stage;
+      stage_spans<T>(2 + 5 * Z, [&](int i, unsigned char*& slot, const T*& src, long long& n) {
+        if (i < Z) {
+          slot = stage + i * L.X;
+          src = p.X + ((long long)i * S + seg) * R * R;
+          n = (long long)R * R;
+        } else if (i == Z) {
+          slot = stage + Z * L.X;
+          src = p.rows.xb + seg * Tn * Y;
+          n = (long long)Tn * Y;
+        } else {
+          const int j = i - Z - 1;  // the mask, then s, mu, w and v of each latent
+          slot = stage + Z * L.X + L.rows + j * L.vec;
+          src = j == 0 ? p.rows.mask + seg * Tn : zsrc((j - 1) >> 2, (j - 1) & 3, seg * Tn);
+          n = Tn;
+        }
+      }, full + st, lane);
+    }
+    CY(cy[2] = clock64() - cy0; if (lane == 0) cy_put(1, cy, 2, 4);)
+    return;
+  }
+  // G into shared memory once, by every consumer thread, while the first
+  // segments' copies land
+  const int nthr = groups * GT, nG = Z * Tn * R;
+  for (int i0 = threadIdx.x; i0 < nG; i0 += 8 * nthr) {
+    T gv[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) gv[u] = i0 + u * nthr < nG ? __ldg(p.G + i0 + u * nthr) : T(0);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * nthr, row = i / R;
+      if (i < nG) Gp[row * RP + (i - row * R)] = gv[u];
+    }
+  }
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + NG_MAX), "r"(nthr) : "memory");
+  CY(cy[11] = clock64() - cy0; cy0 = clock64();)
+  const int g = warp / (GT / 32), gt = threadIdx.x - g * GT, gwarp = gt >> 5;
+  const int quad = gt >> 2, k4 = gt & 3;
+  using Lanes = LaneZ<T, ZT ? ZT : 1>;
+  Lanes ln;
+  if (ZT) ln.load(p.rows, lane);
+  const int nzr = Z * R, nzt = Z * Tn, nch = t_chunks(Tn), tch = (Tn + nch - 1) / nch;
+  T* gs = reinterpret_cast<T*>(ring + stages * L.stage + g * L.group);
+  T* gwu = gs + nzr;
+  T* mv = gwu + nzr;
+  T* part = mv + nzr;  // nch x Z x R where nch > 1
+  T* uS = part + (nch > 1 ? nch * nzr : 0);
+  T* wuS = uS + nzt;
+  T* munS = wuS + nzt;
+  T* mvR = munS + nzt;  // T x 2 Z
+  for (int k = g;; k += groups) {
+    const long long seg = blockIdx.x + (long long)k * gridDim.x;
+    if (seg >= S) break;
+    const int st = k % stages;
+    CY(c1 = clock64();)
+    bar_wait(full + st, (k / stages) & 1);
+    CY(cy[1] += clock64() - c1; cy[4] += 1; c1 = clock64();)
+    unsigned char* stage = ring + st * L.stage;
+    const long long base = seg * Tn;
+    unsigned char* vecs = stage + Z * L.X + L.rows;
+    const T* mk = in_slot(vecs, p.rows.mask + base);
+    auto zv = [&](int z, int j) {
+      return in_slot(vecs + (1 + 4 * z + j) * L.vec, zsrc(z, j, base));
+    };
+    // A. G's: a thread per (z, r) and chunk of t, t in increasing order, then
+    // the chunks added in order
+    for (int o = gt; o < nzr * nch; o += GT) {
+      const int c = o / nzr, zr = o - c * nzr, z = zr / R, r = zr - z * R;
+      const T* Gz = Gp + (size_t)z * Tn * RP + r;
+      const T* sz = zv(z, 0);
+      const int t1 = min(Tn, (c + 1) * tch);
+      T acc = T(0);
+#pragma unroll 4
+      for (int t = c * tch; t < t1; ++t) acc = fma_t(Gz[(size_t)t * RP], sz[t], acc);
+      (nch > 1 ? part : gs)[o] = acc;
+    }
+    group_sync(g);
+    if (nch > 1) {
+      for (int o = gt; o < nzr; o += GT) {
+        T acc = part[o];
+        for (int c = 1; c < nch; ++c) acc += part[c * nzr + o];
+        gs[o] = acc;
+      }
+      group_sync(g);
+    }
+    CY(cy[5] += clock64() - c1; c1 = clock64();)
+    // B. u = G G's - mu and w u, a thread per (z, t)
+    for (int o = gt; o < nzt; o += GT) {
+      const int z = o / Tn, t = o - z * Tn;
+      const T m = zv(z, 1)[t], wm = zv(z, 2)[t] * mk[t];
+      const T u = quad_dot(Gp + ((size_t)z * Tn + t) * RP, gs + z * R, R) - m;
+      uS[o] = u;
+      wuS[o] = wm * u;
+    }
+    group_sync(g);
+    CY(cy[6] += clock64() - c1; c1 = clock64();)
+    // C. G'(w u), as A
+    for (int o = gt; o < nzr * nch; o += GT) {
+      const int c = o / nzr, zr = o - c * nzr, z = zr / R, r = zr - z * R;
+      const T* Gz = Gp + (size_t)z * Tn * RP + r;
+      const T* wu = wuS + z * Tn;
+      const int t1 = min(Tn, (c + 1) * tch);
+      T acc = T(0);
+#pragma unroll 4
+      for (int t = c * tch; t < t1; ++t) acc = fma_t(Gz[(size_t)t * RP], wu[t], acc);
+      (nch > 1 ? part : gwu)[o] = acc;
+    }
+    group_sync(g);
+    if (nch > 1) {
+      for (int o = gt; o < nzr; o += GT) {
+        T acc = part[o];
+        for (int c = 1; c < nch; ++c) acc += part[c * nzr + o];
+        gwu[o] = acc;
+      }
+      group_sync(g);
+    }
+    CY(cy[7] += clock64() - c1; c1 = clock64();)
+    // D. X G'(w u), a quad per row of X (X's rows are read across a quad's
+    // lanes, 2-way bank conflicts at most where a thread's row would give 8)
+    for (int o0 = 0; o0 < nzr; o0 += GT / 4) {
+      const int o = o0 + quad;
+      const bool live = o < nzr;
+      T acc = T(0);
+      if (live) {
+        const int z = o / R, r = o - z * R;
+        const T* Xr = in_slot(stage + z * L.X, p.X + ((long long)z * S + seg) * R * R) +
+                      (size_t)r * R;
+        const T* gz = gwu + z * R;
+#pragma unroll 4
+        for (int q = k4; q < R; q += 4) acc = fma_t(Xr[q], gz[q], acc);
+      }
+      acc = qsum(acc);
+      if (live && k4 == 0) mv[o] = acc;
+    }
+    group_sync(g);
+    CY(cy[8] += clock64() - c1; c1 = clock64();)
+    // E. delta = u - G X G'(w u), clipped and masked; mu + delta, a thread per (z, t)
+    for (int o = gt; o < nzt; o += GT) {
+      const int z = o / Tn, t = o - z * Tn;
+      const T acc = quad_dot(Gp + ((size_t)z * Tn + t) * RP, mv + z * R, R);
+      const T d = clip(uS[o] - acc, p.bound) * mk[t];
+      uS[o] = d;
+      munS[o] = zv(z, 1)[t] + d;
+      mvR[t * 2 * Z + z] = munS[o];
+      mvR[t * 2 * Z + Z + z] = zv(z, 3)[t];
+    }
+    group_sync(g);
+    CY(cy[9] += clock64() - c1; c1 = clock64();)
+    // the weights from the new mu and the old v, a warp a row
+    const T* xbS = in_slot(stage + Z * L.X, p.rows.xb + base * Y);
+    if constexpr (ZT > 0) {
+      for (int t = gwarp; t < Tn; t += GT / 32) {
+        T m[ZT], w[ZT];
+#pragma unroll
+        for (int q = 0; q < ZT; ++q) {
+          m[q] = mvR[t * 2 * ZT + q];
+          w[q] = mvR[t * 2 * ZT + ZT + q];
+        }
+        const T sum = row_one<T, false, ZT>(ln, Y, xbS + (size_t)t * Y, nullptr, m, w, mk[t],
+                                            lane);
+        const int q = lane >> 2;
+        if ((lane & 3) == 0 && q < ZT) wuS[q * Tn + t] = sum * mk[t];
+      }
+    } else {
+      for (int t = gwarp; t < Tn; t += GT / 32)
+        row_pass<T, false>(p.rows, xbS + (size_t)t * Y, nullptr, mvR + t * 2 * Z,
+                           mvR + t * 2 * Z + Z, mk[t], wuS + t, Tn, lane);
+    }
+    group_sync(g);
+    if (gt == 0) bar_arrive(empty + st);  // the group's reads of the stage are done
+    for (int o = gt; o < nzt; o += GT) {
+      const int z = o / Tn, t = o - z * Tn;
+      const long long i = z * NL + base + t;
+      p.dmu[i] = uS[o];
+      p.mu_out[i] = munS[o];
+      p.w_out[i] = wuS[o];
+    }
+    CY(cy[10] += clock64() - c1;)
+  }
+  CY(cy[0] = clock64() - cy0; if (threadIdx.x == 0) { cy_put(1, cy, 0, 2); cy_put(1, cy, 4, 12); })
+}
+
+// The kernel of ZT = Z where the register path takes the shape (Z <= ZB,
+// Y <= 32 KY), else of ZT = 0.
+#define ESTEP_BY_Z(KERNEL, T)                                     \
+  if (Y <= 32 * KY) switch (Z) {                                  \
+      case 1: return &KERNEL<T, 1>;                               \
+      case 2: return &KERNEL<T, 2>;                               \
+      case 3: return &KERNEL<T, 3>;                               \
+      case 4: return &KERNEL<T, 4>;                               \
+      case 5: return &KERNEL<T, 5>;                               \
+      case 6: return &KERNEL<T, 6>;                               \
+      case 7: return &KERNEL<T, 7>;                               \
+      case 8: return &KERNEL<T, 8>;                               \
+    }                                                             \
+  return &KERNEL<T, 0>;
+
+template <typename T>
+auto project_stream_kernel(int Z, int Y) -> decltype(&estep_project_stream_kernel<T, 0>) {
+  ESTEP_BY_Z(estep_project_stream_kernel, T)
+}
+template <typename T>
+auto step_stream_kernel(int Z, int Y) -> decltype(&estep_step_stream_kernel<T, 0>) {
+  ESTEP_BY_Z(estep_step_stream_kernel, T)
+}
+#undef ESTEP_BY_Z
+
+template <typename T>
+cudaError_t launch_project_stream(const RowArgs<T>& p, const void* mu, const void* v, void* s,
+                                  int rt, int stages, int grid, cudaStream_t st) {
+  if (rt < PW || rt % PW != 0 || stages < 1 || stages > ST_MAX || grid < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = ProjectLayout<T>(rt, stages, p.Y, p.Z).total;
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  auto kernel = project_stream_kernel<T>(p.Z, p.Y);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, PNT, smem, st>>>(p, (const T*)mu, (const T*)v, (T*)s, rt, stages);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_step_stream(const StepArgs<T>& p, int groups, int stages, int grid,
+                               cudaStream_t st) {
+  if (groups < 1 || groups > NG_MAX || stages < 1 || stages > ST_MAX || grid < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = StepLayout<T>(groups, stages, p.Tn, p.rows.Y, p.rows.Z, p.R).total;
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  auto kernel = step_stream_kernel<T>(p.rows.Z, p.rows.Y);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, groups * GT + 32, smem, st>>>(p, groups, stages);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Stage a: y and xb (N, Y), mask (N,), a (Z, Y), mu and v (Z, N), pois (Y)
 // bytes, noise (Y,), s (Z, N) out; N = S T rows, all contiguous, float64
-// when is_double else float32.
+// when is_double else float32.  The launch plan (ops/estep.py): rows > 0
+// streams tiles of `rows` rows through `stages` stages on `grid`
+// persistent blocks; rows = 0 takes the block path (a block per tile).
 int estep_project(const void* y, const void* xb, const void* mask, const void* a, const void* mu,
                   const void* v, const void* pois, const void* noise, void* s, int N, int Y,
-                  int Z, int is_double, void* stream) {
+                  int Z, int is_double, int rows, int stages, int grid, void* stream) {
   if (N < 1 || Y < 1 || Z < 1 || Z > ZMAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_double)
-    return (int)launch_project(row_args<double>(y, xb, mask, a, pois, noise, N, Y, Z), mu, v, s,
-                               st);
-  return (int)launch_project(row_args<float>(y, xb, mask, a, pois, noise, N, Y, Z), mu, v, s, st);
+  if (is_double) {
+    const RowArgs<double> p = row_args<double>(y, xb, mask, a, pois, noise, N, Y, Z);
+    return (int)(rows ? launch_project_stream(p, mu, v, s, rows, stages, grid, st)
+                      : launch_project(p, mu, v, s, st));
+  }
+  const RowArgs<float> p = row_args<float>(y, xb, mask, a, pois, noise, N, Y, Z);
+  return (int)(rows ? launch_project_stream(p, mu, v, s, rows, stages, grid, st)
+                    : launch_project(p, mu, v, s, st));
 }
 
 // Stages b and c: G (Z, T, R), s, mu, w and v (Z, S, T), X (Z, S, R, R),
 // mask (S, T), a (Z, Y), xb (S, T, Y), pois (Y) bytes, noise (Y,);
 // mu_out, dmu and w_out (Z, S, T) out, all contiguous, float64 when
-// is_double else float32.
+// is_double else float32.  The launch plan: groups > 0 streams segments
+// through `stages` stages on `grid` persistent blocks of `groups` consumer
+// groups with G resident; groups = 0 takes the block path (a block per
+// segment).
 int estep_step(const void* G, const void* s, const void* mu, const void* w, const void* X,
                const void* mask, const void* a, const void* xb, const void* v, const void* pois,
                const void* noise, void* mu_out, void* dmu, void* w_out, int S, int T, int Y,
-               int Z, int R, double dmu_bound, int is_double, void* stream) {
+               int Z, int R, double dmu_bound, int is_double, int groups, int stages, int grid,
+               void* stream) {
   if (S < 1 || T < 1 || Y < 1 || Z < 1 || Z > ZMAX || R < 1 || R > RMAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -522,13 +1275,43 @@ int estep_step(const void* G, const void* s, const void* mu, const void* w, cons
                        (const double*)G, (const double*)s, (const double*)mu, (const double*)w,
                        (const double*)X, (const double*)v, (double*)mu_out, (double*)dmu,
                        (double*)w_out, S, T, R, zg, dmu_bound};
-    return (int)launch_step(p, st);
+    return (int)(groups ? launch_step_stream(p, groups, stages, grid, st) : launch_step(p, st));
   }
   StepArgs<float> p{row_args<float>(nullptr, xb, mask, a, pois, noise, N, Y, Z),
                     (const float*)G, (const float*)s, (const float*)mu, (const float*)w,
                     (const float*)X, (const float*)v, (float*)mu_out, (float*)dmu,
                     (float*)w_out, S, T, R, zg, (float)dmu_bound};
-  return (int)launch_step(p, st);
+  return (int)(groups ? launch_step_stream(p, groups, stages, grid, st) : launch_step(p, st));
+}
+
+// The streaming path's shared memory in bytes, as the kernels lay it out
+// (at most INT_MAX): kind 0 estep_project (a = rows, b = stages), kind 1
+// estep_step (a = groups, b = stages); ops/estep.py plans with its own copy
+// of the layout, and chip_smoke.py holds the two equal.
+int estep_smem(int kind, int T, int Y, int Z, int R, int is_double, int a, int b) {
+  const size_t bytes = kind == 0 ? (is_double ? ProjectLayout<double>(a, b, Y, Z).total
+                                              : ProjectLayout<float>(a, b, Y, Z).total)
+                                 : (is_double ? StepLayout<double>(a, b, T, Y, Z, R).total
+                                              : StepLayout<float>(a, b, T, Y, Z, R).total);
+  return bytes < (size_t)INT_MAX ? (int)bytes : INT_MAX;
+}
+
+// The cycle counts of `which` (0 estep_project, 1 estep_step) into the host
+// buffer out (CY_BLOCKS x CY_SLOTS 64-bit values); reset = 1 zeroes them.
+// A build without -DESTEP_CYCLES counts nothing and returns
+// cudaErrorNotSupported.
+int estep_cycles(int which, void* out, int reset) {
+#ifdef ESTEP_CYCLES
+  const size_t bytes = sizeof(unsigned long long) * CY_BLOCKS * CY_SLOTS;
+  if (reset) {
+    static unsigned long long zero[CY_BLOCKS * CY_SLOTS];
+    return (int)cudaMemcpyToSymbol(g_cycles, zero, bytes, which * bytes);
+  }
+  return (int)cudaMemcpyFromSymbol(out, g_cycles, bytes, which * bytes);
+#else
+  (void)which, (void)out, (void)reset;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 }  // extern "C"

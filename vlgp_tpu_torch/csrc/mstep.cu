@@ -933,35 +933,8 @@ constexpr int NTF = 512;                      // threads per block
 constexpr int UPDATE_BUF_BYTES = 96 * 1024;   // a batch of chunks' partials in shared memory
 constexpr int SLOTS = SG / NTF;               // (group, entry) sums a thread keeps
 
-// A bulk copy (the tensor memory accelerator) of bytes from global src to
-// shared dst, both 16-byte aligned, bytes a multiple of 16, completing on
-// the mbarrier bar.  One thread.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          unsigned long long* bar) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const unsigned m = (unsigned)__cvta_generic_to_shared(bar);
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(d), "l"(src), "r"(bytes), "r"(m)
-      : "memory");
-}
-
-// wait until the mbarrier bar has completed the phase of parity `parity`;
-// a copy that never completes traps rather than hangs
-__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
-  const unsigned m = (unsigned)__cvta_generic_to_shared(bar);
-  for (long long spin = 0;; ++spin) {
-    unsigned done;
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, "
-        "p; }"
-        : "=r"(done)
-        : "r"(m), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin > (1ll << 26)) __trap();
-  }
-}
+using vlgp::bar_wait;
+using vlgp::bulk_copy;
 
 // The entries of channel c reduced as reduce_channel reduces them (chunk k
 // in group k mod G, each group summed in chunk order, the groups added in

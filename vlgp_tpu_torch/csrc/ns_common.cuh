@@ -1,5 +1,7 @@
 // Device routines shared by the port's kernels (ns_inverse.cu, sweep.cu,
-// spd_inverse.cu): a NaN-propagating max, warp and block reductions, and
+// spd_inverse.cu; the bulk copy and its wait, mstep.cu and estep.cu): a
+// NaN-propagating max, warp and block reductions, a bulk copy to shared
+// memory completing on an mbarrier and the wait on one, and
 // the register-tiled Newton-Schulz pieces X <- X (2I - M X), the Gram build
 // M = I + G' diag(w) G streamed over T and v = diag(G X G'): a thread owns
 // a 4 x 4 tile of a padded product in 16 registers and reads two 16-byte
@@ -28,6 +30,36 @@ __device__ __forceinline__ float nanmax(float a, float b) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// A bulk copy (the tensor memory accelerator) of bytes from global src to
+// shared dst, both 16-byte aligned, bytes a multiple of 16, completing on
+// the mbarrier bar.  One thread.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const unsigned m = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(d), "l"(src), "r"(bytes), "r"(m)
+      : "memory");
+}
+
+// wait until the mbarrier bar has completed the phase of parity `parity`;
+// a copy that never completes traps rather than hangs
+__device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned m = (unsigned)__cvta_generic_to_shared(bar);
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; selp.u32 %0, 1, 0, "
+        "p; }"
+        : "=r"(done)
+        : "r"(m), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1ll << 26)) __trap();
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -74,8 +74,10 @@ _SIGNATURES = {
         "hstep_stat": ([_p] * 8 + [_i] * 5 + [_p], _i),
     },
     "estep": {
-        "estep_project": ([_p] * 9 + [_i] * 4 + [_p], _i),
-        "estep_step": ([_p] * 14 + [_i] * 5 + [_d, _i, _p], _i),
+        "estep_project": ([_p] * 9 + [_i] * 7 + [_p], _i),
+        "estep_step": ([_p] * 14 + [_i] * 5 + [_d] + [_i] * 4 + [_p], _i),
+        "estep_smem": ([_i] * 8, _i),
+        "estep_cycles": ([_i, _p, _i], _i),
     },
 }
 

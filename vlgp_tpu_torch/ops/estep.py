@@ -21,22 +21,159 @@ Each has a plain PyTorch version beside it (``_estep_project_plain``,
 ``_estep_step_plain``): the torch code ``models/vlgp.estep``'s sweep ran
 before, moved here unchanged.  The wrappers run the plain version only for
 tensors on the CPU; a CUDA tensor launches the kernel or raises.
+
+The launch plan lives here (``project_plan``, ``step_plan``): which of the
+kernels' two paths a shape takes, and for the streaming path (persistent
+blocks fed through a ring of shared-memory stages, ``csrc/estep.cu``) the
+rows a tile or the consumer groups, the stages, the grid and the shared
+memory, from a copy of the kernels' layout.  The kernels check the plan
+and lay out the same bytes (``estep_smem``, held equal on the card).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .math import trunc_exp
 from .spd import KERNEL_LAUNCHES, _ptr, _raise_on
 
-__all__ = ["estep_project", "estep_step", "Z_MAX", "R_MAX"]
+__all__ = ["estep_project", "estep_step", "project_plan", "step_plan", "block_plans",
+           "project_walk", "step_walk", "Plan", "Z_MAX", "R_MAX", "SMEM_MAX"]
 
 # largest Z and R the kernels take (the step's latent groups keep three
 # R-vectors a latent in shared memory; ns_gram takes R <= 128 too)
 Z_MAX = 128
 R_MAX = 128
+
+# the kernels' constants (csrc/estep.cu): shared memory a block can have on
+# an H100, its SMs, the streaming path's consumer warps a project block,
+# threads a step consumer group, the mbarriers' bytes; the block path's
+# rows a tile and threads; the sums over t's chunks
+SMEM_MAX = 232_448
+SMS = 132
+_PW = 15
+_GT = 256
+_BAR_BYTES = 128
+_RT = 32
+_NT, _NT_FEW = 256, 512
+_TCH, _NCH_MAX = 64, 16
+_ZMAX_GROUP = 128  # the block path's latent groups fit 3 ZMAX RT values
+
+
+class Plan(NamedTuple):
+    """One launch of ``estep_project`` or ``estep_step``: ``path`` "stream"
+    (persistent blocks, ``units`` rows a tile or consumer groups a block,
+    ``stages`` ring stages) or "block" (a block per tile of 32 rows or per
+    segment; ``units`` and ``stages`` 0), ``grid`` blocks of ``threads``,
+    ``smem`` bytes of dynamic shared memory each."""
+    path: str
+    units: int
+    stages: int
+    grid: int
+    threads: int
+    smem: int
+
+
+def _slot(count: int, size: int) -> int:
+    """Bytes of a shared-memory slot for ``count`` values staged from any
+    address (``span_slot``)."""
+    return (count * size + 15) // 16 * 16 + 16
+
+
+def _t_chunks(T: int) -> int:
+    return min(-(-T // _TCH), _NCH_MAX)
+
+
+def _project_smem(rows: int, stages: int, Y: int, Z: int, size: int) -> int:
+    """``ProjectLayout``: the mbarriers, the stages (y and xb rows, the mask,
+    mu and v by latent), each consumer warp's scratch (its rows' mu and v
+    by row, its sums)."""
+    stage = 2 * _slot(rows * Y, size) + (1 + 2 * Z) * _slot(rows, size)
+    return _BAR_BYTES + stages * stage + _PW * 3 * Z * (rows // _PW) * size
+
+
+def _step_smem(groups: int, stages: int, T: int, Y: int, Z: int, R: int, size: int) -> int:
+    """``StepLayout``: the mbarriers, G, the stages (X by latent, the xb
+    rows, the mask, s, mu, w and v by latent), each group's scratch."""
+    nch = _t_chunks(T)
+    g = (Z * T * (R | 1) * size + 15) // 16 * 16  # G's rows at an odd stride
+    stage = Z * _slot(R * R, size) + _slot(T * Y, size) + (1 + 4 * Z) * _slot(T, size)
+    group = ((3 + (nch if nch > 1 else 0)) * Z * R + 5 * Z * T) * size
+    return _BAR_BYTES + g + stages * stage + groups * group
+
+
+@functools.lru_cache(maxsize=256)
+def project_plan(S: int, T: int, Y: int, Z: int, dtype=torch.float32) -> Plan:
+    """The launch of ``estep_project`` at one shape: the streaming path with
+    the most rows a tile (4 a consumer warp down to 1) under the most
+    stages (4 down to 2) that fit, one block an SM; else (very long rows)
+    the block path."""
+    size = torch.empty((), dtype=dtype).element_size()
+    N = S * T
+    for stages in (4, 3, 2):
+        for rows in (_PW * k for k in (4, 3, 2, 1)):
+            smem = _project_smem(rows, stages, Y, Z, size)
+            if smem <= SMEM_MAX:
+                return Plan("stream", rows, stages, min(-(-N // rows), SMS), 32 * (_PW + 1), smem)
+    return _block_project(S, T, Y, Z, size)
+
+
+@functools.lru_cache(maxsize=256)
+def step_plan(S: int, T: int, Y: int, Z: int, R: int, dtype=torch.float32) -> Plan:
+    """The launch of ``estep_step`` at one shape: the streaming path (G
+    resident) with two consumer groups and three stages, else two and two,
+    else one and two, one block an SM; else (G or a segment's stage too
+    large: the final inference's T1000, float64 at the flagship) the block
+    path."""
+    size = torch.empty((), dtype=dtype).element_size()
+    for groups, stages in ((2, 3), (2, 2), (1, 2)):
+        smem = _step_smem(groups, stages, T, Y, Z, R, size)
+        if smem <= SMEM_MAX:
+            return Plan("stream", groups, stages, min(S, SMS), groups * _GT + 32, smem)
+    return _block_step(S, T, Y, Z, R, size)
+
+
+def _block_project(S, T, Y, Z, size) -> Plan:
+    return Plan("block", 0, 0, -(-(S * T) // _RT), _NT, 3 * Z * _RT * size)
+
+
+def _block_step(S, T, Y, Z, R, size) -> Plan:
+    zg = min(3 * _ZMAX_GROUP * _RT // ((3 + _t_chunks(T)) * R), Z)
+    smem = max((3 + _t_chunks(T)) * zg * R * size, 3 * Z * _RT * size)
+    return Plan("block", 0, 0, S, _NT_FEW if S < 2 * SMS else _NT, smem)
+
+
+def block_plans(S: int, T: int, Y: int, Z: int, R: int, dtype=torch.float32):
+    """The block path's plans of both kernels at one shape (the first
+    design, which the streaming path is timed against)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return _block_project(S, T, Y, Z, size), _block_step(S, T, Y, Z, R, size)
+
+
+def project_walk(plan: Plan, N: int):
+    """The rows each block of an ``estep_project`` launch takes, in its
+    order, as the kernel walks them: [[(first row, rows), ...], ...] a
+    block.  Streaming: tiles b, b + grid, ... of ``units`` rows; block
+    path: tile b of 32 rows."""
+    rows = plan.units if plan.path == "stream" else _RT
+    tiles = -(-N // rows)
+    step = plan.grid if plan.path == "stream" else tiles
+    return [[(t * rows, min(rows, N - t * rows)) for t in range(b, tiles, step)]
+            for b in range(plan.grid)]
+
+
+def step_walk(plan: Plan, S: int):
+    """The segments each block of an ``estep_step`` launch takes, in its
+    order, with the consumer group that takes each: [[(segment, group),
+    ...], ...] a block.  Streaming: segments b + k grid, group k mod
+    ``units``; block path: segment b."""
+    if plan.path == "block":
+        return [[(b, 0)] for b in range(plan.grid)]
+    return [[(seg, k % plan.units) for k, seg in enumerate(range(b, S, plan.grid))]
+            for b in range(plan.grid)]
 
 
 def _eta(muz, a, xb):
@@ -145,14 +282,17 @@ def _check_sizes(name, S, T, Y, Z, R=1) -> None:
         raise ValueError(f"the {name} kernel takes S T < 2^31 rows, got {S * T}")
 
 
-def _estep_project_cuda(y, xb, mask, a, muz, vz, poisson, noise):
-    """Launch ``estep_project``: a block per tile of 32 rows."""
+def _estep_project_cuda(y, xb, mask, a, muz, vz, poisson, noise, plan: Plan | None = None):
+    """Launch ``estep_project`` under ``plan`` (``project_plan``'s by
+    default)."""
     from ._build import load_library
 
     S, T, Y, Z = _project_shapes(y, xb, mask, a, muz, vz, poisson, noise)
     _check_sizes("estep_project", S, T, Y, Z)
     _check_cuda("estep_project", dict(y=y, xb=xb, mask=mask, a=a, mu=muz, v=vz, noise=noise), y,
                 poisson)
+    if plan is None:
+        plan = project_plan(S, T, Y, Z, y.dtype)
     y, xb, mask, a, muz, vz, poisson, noise = (
         t.contiguous() for t in (y, xb, mask, a, muz, vz, poisson, noise))
     s = torch.empty((Z, S, T), dtype=y.dtype, device=y.device)
@@ -161,20 +301,24 @@ def _estep_project_cuda(y, xb, mask, a, muz, vz, poisson, noise):
         stream = ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream)
         rc = lib.estep_project(_ptr(y), _ptr(xb), _ptr(mask), _ptr(a), _ptr(muz), _ptr(vz),
                                _ptr(poisson), _ptr(noise), _ptr(s), S * T, Y, Z,
-                               int(y.dtype == torch.float64), stream)
+                               int(y.dtype == torch.float64), plan.units, plan.stages, plan.grid,
+                               stream)
     _raise_on(rc, lib, "estep_project")
     KERNEL_LAUNCHES["estep_project"] += 1
     return s
 
 
-def _estep_step_cuda(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise, dmu_bound):
-    """Launch ``estep_step``: a block per segment."""
+def _estep_step_cuda(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise, dmu_bound,
+                     plan: Plan | None = None):
+    """Launch ``estep_step`` under ``plan`` (``step_plan``'s by default)."""
     from ._build import load_library
 
     S, T, Y, Z, R = _step_shapes(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise)
     _check_sizes("estep_step", S, T, Y, Z, R)
     _check_cuda("estep_step", dict(G=G, s=s, mu=muz, w=wz, X=X, mask=mask, a=a, xb=xb, v=vz,
                                    noise=noise), G, poisson)
+    if plan is None:
+        plan = step_plan(S, T, Y, Z, R, G.dtype)
     G, s, muz, wz, X, mask, a, xb, vz, poisson, noise = (
         t.contiguous() for t in (G, s, muz, wz, X, mask, a, xb, vz, poisson, noise))
     mu_out, dmu, w_out = (torch.empty((Z, S, T), dtype=G.dtype, device=G.device)
@@ -185,7 +329,8 @@ def _estep_step_cuda(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise, dmu_boun
         rc = lib.estep_step(_ptr(G), _ptr(s), _ptr(muz), _ptr(wz), _ptr(X), _ptr(mask), _ptr(a),
                             _ptr(xb), _ptr(vz), _ptr(poisson), _ptr(noise), _ptr(mu_out),
                             _ptr(dmu), _ptr(w_out), S, T, Y, Z, R, float(dmu_bound),
-                            int(G.dtype == torch.float64), stream)
+                            int(G.dtype == torch.float64), plan.units, plan.stages, plan.grid,
+                            stream)
     _raise_on(rc, lib, "estep_step")
     KERNEL_LAUNCHES["estep_step"] += 1
     return mu_out, dmu, w_out
