@@ -12,22 +12,32 @@ Phases, each of which raises on failure:
    inference), in the cold, warm, probe and want_v modes, plus a NaN warm
    start that must be rejected; each shape in the design that
    ops/spd.py:_ns_gram_design picks for its (T, R) (per matrix at T = 50,
-   the long-T "pairs" design at T = 1000);
+   the long-T "pairs" design at T = 1000); then the per-matrix design's
+   two paths at the segments (Z5 S2000 T50 R40) in every mode the fit runs
+   (GRAM_MODES: cold 16, cold 16 + v, cold 18, warm 4 + v, warm 8, probe +
+   v, probe, iters = 0 with x0): the launch plan's streaming path bit for
+   bit with the block path, both within AGREE_TOL of the plain version, the
+   plan's shared memory equal to the kernel's layout, each timed as graph
+   replays in turns (block, stream, stream, block) beside the plain
+   version and the bound;
 4. ns_packed the same way at the update_v shape and at elbo_terms' shape
    on the segments (B10000 R40, T = 50); both kernels at the shapes of a
    leave_one_neuron_out chunk of 25 neurons (ns_gram Z5 S2500 T1000 R50,
    ns_packed B12500 R50); then both kernels at
    edge shapes in every mode (R = 1, 3, 8, 17, 40, 50, 100, 127, 128 with
-   T off the 32-row chunk; iters = 0 with x0); then both designs of
+   T off the 32-row chunk; iters = 0 with x0; the streaming path, forced
+   wherever it can run (R <= 40), bit for bit with the block path in every
+   mode of GRAM_MODES); then both designs of
    ns_gram on both sides of the crossover (T = _PAIRS_MIN_T - 1 and
    _PAIRS_MIN_T, S = 131, a ragged last GEMM tile, R = 1, 17, 50, 127,
    128) in every mode; the first 100 segments of the S2500 chunk call and
    of an S2000 segment call equal, bit for bit, a call on those 100 rows
    alone (X, residual and v); and a NaN planted in one segment's w leaves
    that segment's residual NaN and every other segment finite, in both
-   designs; inv_one_plus_gram at Z5 S100 T1000 R50 (the long-T design)
-   captured in a CUDA graph and replayed from a good and a NaN carry,
-   equal to the eager call bit for bit;
+   designs and (at Z5 S2000 T50 R40) on both per-matrix paths, bit for bit;
+   inv_one_plus_gram at Z5 S100 T1000 R50 (the long-T design) and at Z5
+   S2000 T50 R40 (the streaming path) captured in a CUDA graph and replayed
+   from a good and a NaN carry, equal to the eager call bit for bit;
 5. sweep (the fused E-step) against its plain version at the flagship
    E-step shape (Z5 S2000 T50 Y100 R40, exit groups of 16) cold, from a
    real carry, from the zeros carry and with the adaptive exit (the mode
@@ -124,7 +134,7 @@ Phases, each of which raises on failure:
    fresh trials under the last fit's result; spd_solve at B10000 R40;
    every fit of phase 8 must launch mstep_stats, mstep_update,
    hstep_search and hstep_stat, the default fits and transform
-   estep_project and estep_step;
+   estep_project and estep_step, the default fits ns_gram's streaming path;
    inv_one_plus_psd from a drifted carry with the fused probe;
 9. the model-selection path, each sub-phase with the counters set to 0
    just before it: (9a) fit with track_elbo=True, its ELBO series (first,
@@ -187,7 +197,8 @@ Phases, each of which raises on failure:
    iterations, every fallback key: host counters against the device
    counters of the replays) must be equal and whose params are compared at
    every boundary, then the 30-iteration eager and fused flagship fits
-   (wall, EM loop, capture time, peak memory, R^2 within R2_GRAPH_GAP),
+   (wall, EM loop, capture time, peak memory, R^2 within R2_GRAPH_GAP,
+   ns_gram's streaming path launched),
    every replay under torch.cuda.set_sync_debug_mode("error"); (12b)
    fit(block=5) and fit(block=7) (a tail block of 2): one host read of the
    norms per block, the same converged_at; (12c) fit(fused=True) with the
@@ -222,7 +233,8 @@ than a launch's host cost, and mstep_update's device time a launch from a
 trace of 20 calls).  Ends with one JSON
 line of per-kernel results (launches on their path, the worst |kernel -
 plain|, the median kernel, plain and library times, and the bound computed
-from this run's shapes and counts; ns_gram and ns_packed also at 9c's
+from this run's shapes and counts; ns_gram's streaming path in the
+E-step's three modes; ns_gram and ns_packed also at 9c's
 chunk shapes, with 9c's launches at batch 25; hstep_search also on its
 wide path at T1000, with phase 13's launches; estep_project and estep_step
 at the flagship and at T1000) and, last, one JSON line
@@ -350,22 +362,24 @@ def bound(fma, nbytes):
 
 
 def ns_gram_bound(Z, S, T, R, mode):
-    """(ms, binds) of one ns_gram call in `mode` ("cold", "cold+v", "warm+v",
-    "probe+v"; cold runs 16 Newton-Schulz iterations, warm 4), FMAs counted
-    as the least work of the function per matrix, in either design: the
-    Gram's T P over the P = R (R + 1) / 2 pairs of its upper triangle,
+    """(ms, binds) of one ns_gram call in `mode` (a key of GRAM_MODES, or
+    "cold", "cold+v", "warm+v": cold 16, cold 16+v, warm 4+v), FMAs
+    counted as the least work of the function per matrix, in either design:
+    the Gram's T P over the P = R (R + 1) / 2 pairs of its upper triangle,
     2 R^3 per iteration, R^3 for the residual, T P for v (sum over the
     pairs of Xp[p] G[t, i] G[t, j]); bytes of G, w and the residuals, x0
     read in warm and probe modes, X written except in probe mode, v written
     with +v."""
-    iters = {"cold": 16, "cold+v": 16, "warm+v": 4, "probe+v": 0}[mode]
-    want_v = mode.endswith("+v")
+    iters, has_x0, resid_only, want_v = GRAM_MODES[_GRAM_ALIAS.get(mode, mode)]
     P = R * (R + 1) // 2
-    fma = T * P + (2 * iters + 1) * R ** 3 + (T * P if want_v else 0)
-    n_x = (mode in ("warm+v", "probe+v")) + (mode != "probe+v")
+    fma = T * P + (2 * (0 if resid_only else iters) + 1) * R ** 3 + (T * P if want_v else 0)
+    n_x = int(has_x0) + int(not resid_only)
     nbytes = 4 * (Z * T * R + Z * S * T + Z * S + n_x * Z * S * R * R
                   + (Z * S * T if want_v else 0))
     return bound(Z * S * fma, nbytes)
+
+
+_GRAM_ALIAS = {"cold": "cold 16", "cold+v": "cold 16+v", "warm+v": "warm 4+v"}
 
 
 def realistic_factor(Z, T, R, device):
@@ -390,15 +404,36 @@ def resid64(G, w, X):
     return float(((A + eye) @ X.double() - eye).abs().amax())
 
 
-def check_ns_gram(Z, S, T, R, device, gen):
+# ns_gram's modes in the flagship fit (models/vlgp.py, models/gp.py):
+# (iters, x0, resid_only, want_v).  The E-step's cold start, probe and warm
+# refine (4 rounds, v), the H-step's cold start (18 rounds), probe and warm
+# refine (8 rounds), the final inference's cold start with v, and iters = 0
+# with x0 (x0 written back).
+GRAM_MODES = {"cold 16": (16, False, False, False), "cold 16+v": (16, False, False, True),
+              "cold 18": (18, False, False, False), "warm 4+v": (4, True, False, True),
+              "warm 8": (8, True, False, False), "probe+v": (0, True, True, True),
+              "probe": (0, True, True, False), "iters=0": (0, True, False, True)}
+
+
+def gram_case(Z, S, T, R, device, gen):
+    """ns_gram's inputs at one shape: G the fit's prior factors, w (Z, S, T)
+    scaled so that lambda_max is 1e2, a warm w 2% off it, and the plain
+    version's cold X of w as the carry: (G, w, w_warm, X_cold)."""
     from vlgp_tpu_torch.ops import spd
 
     G = realistic_factor(Z, T, R, device)
-    # scale the weights so the well-conditioned set has lambda_max ~ 1e2
     w0 = torch.rand((Z, S, T), generator=gen, device=device, dtype=torch.float32)
     w = (w0 * (1e2 / lambda_max(G, w0))).contiguous()
-    lam = lambda_max(G, w)
     w_warm = (w * (1 + 0.02 * torch.rand(w.shape, generator=gen, device=device))).contiguous()
+    return G, w, w_warm, spd._ns_gram_plain(G, w, 16)[0].contiguous()
+
+
+def check_ns_gram(Z, S, T, R, device, gen):
+    from vlgp_tpu_torch.ops import spd
+
+    # the weights scaled so the well-conditioned set has lambda_max ~ 1e2
+    G, w, w_warm, _ = gram_case(Z, S, T, R, device, gen)
+    lam = lambda_max(G, w)
     rows, worst = [], 0.0
 
     def compare(mode, k, p):
@@ -485,6 +520,104 @@ def check_ns_gram(Z, S, T, R, device, gen):
     return worst, rows
 
 
+def gram_args(G, w, w_warm, X0, mode):
+    """_ns_gram_cuda's / _ns_gram_plain's arguments for a GRAM_MODES mode:
+    warm refines of w_warm from X0, probes of w at X0, cold starts of w."""
+    iters, has_x0, resid_only, want_v = GRAM_MODES[mode]
+    return (G, w_warm if has_x0 and not resid_only else w, iters, X0 if has_x0 else None,
+            resid_only, want_v)
+
+
+def same_gram(a, b):
+    """ns_gram outputs (X, residuals, v) equal bit for bit, None for None."""
+    return all((p is None and q is None) or (p is not None and q is not None and same_bits(p, q))
+               for p, q in zip(a, b))
+
+
+def check_gram_smem(lib, T, R):
+    """The launch plan's shared memory (ops/spd.py) against the kernel's
+    own layout (ns_gram_smem) at every warp count at (T, R)."""
+    from vlgp_tpu_torch.ops import spd
+
+    for warps in range(1, spd._GS_WARPS_MAX + 1):
+        want = spd._gram_stream_smem(T, R, warps)
+        got = lib.ns_gram_smem(T, R, warps)
+        if got != want:
+            raise AssertionError(f"ns_gram streaming layout at T={T} R={R} warps {warps}: "
+                                 f"plan {want} bytes, kernel {got}")
+
+
+def gram_paths_equal(G, w, w_warm, X0, tag):
+    """Every GRAM_MODES mode on the streaming path (``stream_plan``, where
+    the rule would stream this shape or not) and on the block path, bit for
+    bit (X, residuals, v).  Returns the streaming plan."""
+    from vlgp_tpu_torch.ops import spd
+
+    Z, T, R = G.shape
+    nsm = torch.cuda.get_device_properties(G.device).multi_processor_count
+    plan = spd.stream_plan(T, R, Z, nsm)
+    for mode in GRAM_MODES:
+        args = gram_args(G, w, w_warm, X0, mode)
+        if not same_gram(spd._ns_gram_cuda(*args, plan=plan),
+                         spd._ns_gram_cuda(*args, plan=spd.BLOCK_PLAN)):
+            raise AssertionError(f"{tag} {mode}: the streaming path ({plan}) differs from the "
+                                 f"block path")
+    return plan
+
+
+def check_ns_gram_paths(device, gen, shape=(ZDIM, 2000, 50, 40)):
+    """The per-matrix design's two paths at the flagship's segments in every
+    mode of GRAM_MODES: the launch plan's streaming path against the block
+    path bit for bit (X, the residuals, v), both against the plain version
+    (AGREE_TOL), the plan's shared memory against the kernel's, and each
+    timed as replays of a captured call, in turns (block, stream, stream,
+    block), beside the plain version (replays too) and the bound.  Returns
+    {mode: (block, stream, plain) graph_ms results, bound ms, binds} and
+    the worst |stream - plain|."""
+    from vlgp_tpu_torch.ops import _build, spd
+
+    Z, S, T, R = shape
+    G, w, w_warm, X0 = gram_case(Z, S, T, R, device, gen)
+    nsm = torch.cuda.get_device_properties(device).multi_processor_count
+    check_gram_smem(_build.load_library("ns_inverse"), T, R)
+    rows, worst = {}, 0.0
+    plan = spd.gram_plan(T, R, Z, nsm)
+    if plan.path != "stream":
+        raise AssertionError(f"ns_gram at {shape}: the plan {plan} does not stream")
+    for mode in GRAM_MODES:
+        args = gram_args(G, w, w_warm, X0, mode)
+        before = spd.KERNEL_LAUNCHES["ns_gram_stream"]
+        stream = spd._ns_gram_cuda(*args)
+        if spd.KERNEL_LAUNCHES["ns_gram_stream"] != before + 1:
+            raise AssertionError(f"ns_gram {mode}: the streaming path's count did not move")
+        block = spd._ns_gram_cuda(*args, plan=spd.BLOCK_PLAN)
+        plain = spd._ns_gram_plain(*args)
+        torch.cuda.synchronize()
+        if not same_gram(stream, block):
+            raise AssertionError(f"ns_gram {mode} at {shape}: the streaming path's X, residuals "
+                                 f"or v differ from the block path's")
+        scale = float(X0.abs().amax())
+        # X and v, and the residuals (iters = 0 leaves them above tolerance)
+        err = max((float((a - b).abs().amax()) for a, b in zip(stream, plain)
+                   if a is not None and a.ndim > 1), default=0.0)
+        r_err = float((stream[1] - plain[1]).abs().amax())
+        if not (err <= AGREE_TOL * scale and r_err <= AGREE_TOL):
+            raise AssertionError(f"ns_gram {mode} at {shape}: |stream - plain| {err} (X, v), "
+                                 f"{r_err} (residuals)")
+        worst = max(worst, err)
+        t_block = [graph_ms(lambda a=args: spd._ns_gram_cuda(*a, plan=spd.BLOCK_PLAN))]
+        t_stream = [graph_ms(lambda a=args: spd._ns_gram_cuda(*a)) for _ in range(2)]
+        t_block.append(graph_ms(lambda a=args: spd._ns_gram_cuda(*a, plan=spd.BLOCK_PLAN)))
+        t_plain = graph_ms(lambda a=args: spd._ns_gram_plain(*a))
+        b_ms, b_by = ns_gram_bound(Z, S, T, R, mode)
+        rows[mode] = (t_block, t_stream, t_plain, b_ms, b_by)
+        log(f"  {mode:9s} stream {plan.warps} warps {plan.per} blocks a "
+            f"latent: bits as block; stream {fmt_ms(t_stream[0])} / {fmt_ms(t_stream[1])}  "
+            f"block {fmt_ms(t_block[0])} / {fmt_ms(t_block[1])}  plain {fmt_ms(t_plain)}  "
+            f"bound {b_ms:.4f} ms ({b_by})")
+    return rows, worst
+
+
 def check_ns_packed(B, R, device, gen, T=LENGTH):
     """ns_packed against its plain version at B R: the Gram matrices of Z*N =
     B (latent, trial) systems of length T, as update_v (full-length trials)
@@ -550,20 +683,23 @@ def check_ns_packed(B, R, device, gen, T=LENGTH):
     return worst, rows, lms
 
 
-# (R, T) of the edge checks: R % 4 != 0 (1, 3, 17, 127), R = 8 and 100, the
-# main-path widths, the 128 limit (the largest shared-memory footprint), and
-# T off the 32-row chunk of the streamed G
-EDGE_SHAPES = ((1, 1), (3, 45), (8, 33), (17, 70), (40, 50), (50, 33), (100, 150),
-               (127, 150), (128, 300))
+# (R, T) of the edge checks: R % 4 != 0 (1, 3, 17, 37, 39, 127), R = 8 and
+# 100, the main-path widths, the 128 limit (the largest shared-memory
+# footprint), T off the 32-row chunk of the streamed G, and the ends of the
+# streaming path's R and T (37 with T13, 39 with T99)
+EDGE_SHAPES = ((1, 1), (3, 45), (8, 33), (17, 70), (37, 13), (39, 99), (40, 50), (50, 33),
+               (100, 150), (127, 150), (128, 300))
 
 
 def check_edge_shapes(device, gen):
     """Both kernels at every R of EDGE_SHAPES, kernel against plain, in every
     mode: ns_gram cold+v, warm+v, probe+v and iters = 0 with x0 (X = x0
-    written back bit for bit); ns_packed cold, warm and probe."""
+    written back bit for bit); ns_packed cold, warm and probe.  Where the
+    launch plan streams ns_gram, its streaming path against the block path
+    bit for bit in every mode of GRAM_MODES."""
     from vlgp_tpu_torch.ops import spd
 
-    worst = 0.0
+    worst, streamed = 0.0, []
     Z, S = 2, 5
     for R, T in EDGE_SHAPES:
         G = (torch.randn((Z, T, R), generator=gen, device=device) * 0.3).contiguous()
@@ -604,8 +740,13 @@ def check_edge_shapes(device, gen):
             worst = max(worst, err)
         if not torch.equal(runs[3][1][0], x0):
             raise AssertionError(f"iters=0 did not write x0 back at R={R}")
+        if spd._ns_gram_design(T, R) == "per_matrix" and spd.stream_plan(T, R, Z) is not None:
+            gram_paths_equal(G, w, w_warm, x0, f"ns_gram Z={Z} S={S} T={T} R={R}")
+            streamed.append((R, T))
     log(f"edge shapes (R, T) {EDGE_SHAPES}, ns_gram cold+v/warm+v/probe+v/iters=0 and "
-        f"ns_packed cold/warm/probe: max |kernel - plain| {worst:.3e}")
+        f"ns_packed cold/warm/probe: max |kernel - plain| {worst:.3e}; ns_gram's streaming "
+        f"path bit for bit with the block path in {len(GRAM_MODES)} modes at (R, T) "
+        f"{streamed}")
     return worst
 
 
@@ -622,7 +763,7 @@ def check_ns_gram_crossover(device, gen):
     x0 (x0 written back bit for bit)."""
     from vlgp_tpu_torch.ops import spd
 
-    worst, Z = 0.0, 2
+    worst, Z, streamed = 0.0, 2, []
     T_star = spd._PAIRS_MIN_T
     for R in CROSS_R:
         for T in (T_star - 1, T_star):
@@ -661,9 +802,14 @@ def check_ns_gram_crossover(device, gen):
                 if not torch.equal(kern["iters=0"][0], x0):
                     raise AssertionError(f"ns_gram {design} iters=0 did not write x0 back at "
                                          f"T={T} R={R}")
+            if T < T_star and spd.stream_plan(T, R, Z) is not None:
+                gram_paths_equal(G, w, w_warm, x0, f"ns_gram Z={Z} S={CROSS_S} T={T} R={R}")
+                streamed.append(R)
     log(f"ns_gram crossover, T {T_star - 1} ({spd._ns_gram_design(T_star - 1, 50)} by the rule) "
         f"and {T_star} ({spd._ns_gram_design(T_star, 50)}), S={CROSS_S}, R {CROSS_R}, both "
-        f"designs cold+v/warm+v/probe+v/iters=0: max |kernel - plain| {worst:.3e}")
+        f"designs cold+v/warm+v/probe+v/iters=0: max |kernel - plain| {worst:.3e}; at T "
+        f"{T_star - 1} the streaming path bit for bit with the block path in "
+        f"{len(GRAM_MODES)} modes at R {streamed}")
     return worst
 
 
@@ -672,9 +818,11 @@ def check_ns_gram_invariance(device, gen):
     chunk's shapes (Z5 S2500 T1000 R50) and at the segments' (Z5 S2000 T50
     R40), each in the design the rule picks, against a call on those 100
     rows alone, for X, the residual and v in cold+v, warm+v and probe+v.
-    Then a NaN in one segment's w at Z5 S100 T1000 R50 in both designs: its
-    residual NaN (and X and v, but a probe's v, which comes from x0), every
-    other segment's finite."""
+    Then a NaN in one segment's w at Z5 S100 T1000 R50 in both designs and
+    at Z5 S2000 T50 R40 on both paths of the per-matrix design (the
+    streaming path and the block path, bit for bit): its residual NaN (and X
+    and v, but a probe's v, which comes from x0), every other segment's
+    finite."""
     from vlgp_tpu_torch.ops import spd
 
     n = NTRIAL
@@ -704,67 +852,85 @@ def check_ns_gram_invariance(device, gen):
             f"{n} segments equal an S={n} call bit for bit (X, residual, v) in cold+v, warm+v "
             f"and probe+v")
 
-    Z, S, T, R = ZDIM, NTRIAL, LENGTH, 50
-    G = realistic_factor(Z, T, R, device)
-    w0 = torch.rand((Z, S, T), generator=gen, device=device)
-    w = (w0 * (1e2 / lambda_max(G, w0))).contiguous()
-    x0 = spd._ns_gram_plain(G, w, 16)[0].contiguous()
-    w[1, 7, 3] = float("nan")
-    bad = torch.zeros((Z, S), dtype=torch.bool, device=device)
-    bad[1, 7] = True
-    for design in ("per_matrix", "pairs"):
-        for mode, (X, r, v) in (
-                ("cold+v", spd._ns_gram_cuda(G, w, 16, want_v=True, design=design)),
-                ("warm+v", spd._ns_gram_cuda(G, w, 4, x0=x0, want_v=True, design=design)),
-                ("probe+v", spd._ns_gram_cuda(G, w, 0, x0=x0, resid_only=True, want_v=True,
-                                              design=design))):
-            torch.cuda.synchronize()
-            r = r.view(Z, S)
-            # a probe's v comes from x0, which holds no NaN
-            ok = (bool(torch.isnan(r[bad]).all()) and bool(torch.isfinite(r[~bad]).all())
-                  and bool(torch.isfinite(v[~bad]).all())
-                  and (mode == "probe+v" or bool(torch.isnan(v[bad]).all()))
-                  and (X is None or (bool(torch.isnan(X[bad]).all())
-                                     and bool(torch.isfinite(X[~bad]).all()))))
-            if not ok:
-                raise AssertionError(f"ns_gram {design} {mode}: a NaN in w[1, 7] did not stay "
-                                     f"in segment (1, 7)")
-    log(f"ns_gram Z={Z} S={S} T={T} R={R}, NaN in w[1, 7, 3]: residual NaN in segment (1, 7) "
-        f"only, both designs, cold+v/warm+v/probe+v")
+    # both designs at the final inference's shape, both paths of the
+    # per-matrix design at the segments'
+    for S, T, R, kinds in ((NTRIAL, LENGTH, 50, (dict(design="per_matrix"), dict(design="pairs"))),
+                           (2000, 50, 40, (dict(), dict(plan=spd.BLOCK_PLAN)))):
+        Z = ZDIM
+        G = realistic_factor(Z, T, R, device)
+        w0 = torch.rand((Z, S, T), generator=gen, device=device)
+        w = (w0 * (1e2 / lambda_max(G, w0))).contiguous()
+        x0 = spd._ns_gram_plain(G, w, 16)[0].contiguous()
+        w[1, 7, 3] = float("nan")
+        bad = torch.zeros((Z, S), dtype=torch.bool, device=device)
+        bad[1, 7] = True
+        outs = []
+        for kw in kinds:
+            for mode, (X, r, v) in (
+                    ("cold+v", spd._ns_gram_cuda(G, w, 16, want_v=True, **kw)),
+                    ("warm+v", spd._ns_gram_cuda(G, w, 4, x0=x0, want_v=True, **kw)),
+                    ("probe+v", spd._ns_gram_cuda(G, w, 0, x0=x0, resid_only=True, want_v=True,
+                                                  **kw))):
+                torch.cuda.synchronize()
+                outs.append((X, r, v))
+                r = r.view(Z, S)
+                # a probe's v comes from x0, which holds no NaN
+                ok = (bool(torch.isnan(r[bad]).all()) and bool(torch.isfinite(r[~bad]).all())
+                      and bool(torch.isfinite(v[~bad]).all())
+                      and (mode == "probe+v" or bool(torch.isnan(v[bad]).all()))
+                      and (X is None or (bool(torch.isnan(X[bad]).all())
+                                         and bool(torch.isfinite(X[~bad]).all()))))
+                if not ok:
+                    raise AssertionError(f"ns_gram {kw} {mode} at T={T}: a NaN in w[1, 7] did "
+                                         f"not stay in segment (1, 7)")
+        if "plan" in kinds[1] and not all(same_gram(a, b) for a, b in zip(outs[:3], outs[3:])):
+            raise AssertionError("ns_gram with a NaN in w[1, 7]: the streaming path differs from "
+                                 "the block path")
+        log(f"ns_gram Z={Z} S={S} T={T} R={R}, NaN in w[1, 7, 3]: residual NaN in segment "
+            f"(1, 7) only, {' and '.join(str(kw or 'the plan') for kw in kinds)}, "
+            f"cold+v/warm+v/probe+v")
 
 
 def check_ns_gram_pairs_capture(device, gen):
-    """The long-T design inside a CUDA graph: inv_one_plus_gram at Z5 S100
-    T1000 R50 with a warm carry and v (the final inference's route, its
-    probe and checks as IF nodes), captured once and replayed from a good
+    """ns_gram inside a CUDA graph: inv_one_plus_gram with a warm carry and v
+    (its probe and checks as IF nodes) at Z5 S100 T1000 R50 (the final
+    inference's route, the long-T design) and at Z5 S2000 T50 R40 (the
+    E-step's, the streaming path), captured once and replayed from a good
     and a NaN carry, each replay equal bit for bit to the eager call."""
     from vlgp_tpu_torch.ops import control, spd
 
-    G = realistic_factor(ZDIM, LENGTH, 50, device)
-    w0 = torch.rand((ZDIM, NTRIAL, LENGTH), generator=gen, device=device)
-    w = (w0 * (1e2 / lambda_max(G, w0))).contiguous()
-    X0 = spd.inv_one_plus_gram(G, w, iters=16)
-    warm = X0.clone()
-    cap = control.Capturer(device)
+    for S, T, R in ((NTRIAL, LENGTH, 50), (2000, 50, 40)):
+        G = realistic_factor(ZDIM, T, R, device)
+        w0 = torch.rand((ZDIM, S, T), generator=gen, device=device)
+        w = (w0 * (1e2 / lambda_max(G, w0))).contiguous()
+        X0 = spd.inv_one_plus_gram(G, w, iters=16)
+        warm = X0.clone()
+        cap = control.Capturer(device)
 
-    def f():
-        return spd.inv_one_plus_gram(G, w, iters=16, warm=warm, warm_iters=4, want_v=True)
+        def f():
+            return spd.inv_one_plus_gram(G, w, iters=16, warm=warm, warm_iters=4, want_v=True)
 
-    cap.warmup(f)
-    before = spd.KERNEL_LAUNCHES["ns_gram"]
-    graph, out = cap.capture(f)
-    captured = spd.KERNEL_LAUNCHES["ns_gram"] - before
-    for case, carry in (("good carry", X0), ("NaN carry", torch.full_like(X0, float("nan")))):
-        warm.copy_(carry)
-        graph.replay()
-        X, v = f()
-        if not (torch.equal(out[0], X) and torch.equal(out[1], v)):
-            raise AssertionError(f"ns_gram pairs design captured, {case}: the replay differs "
-                                 f"from the eager call")
-    cap.close()
-    log(f"ns_gram Z={ZDIM} S={NTRIAL} T={LENGTH} R=50 ({spd._ns_gram_design(LENGTH, 50)} "
-        f"design) in inv_one_plus_gram, captured ({captured} ns_gram launches) and replayed "
-        f"from a good and a NaN carry: equal to the eager call bit for bit")
+        cap.warmup(f)
+        before = dict(spd.KERNEL_LAUNCHES)
+        graph, out = cap.capture(f)
+        captured = {k: spd.KERNEL_LAUNCHES[k] - before[k] for k in ("ns_gram", "ns_gram_stream")}
+        for case, carry in (("good carry", X0), ("NaN carry", torch.full_like(X0, float("nan")))):
+            warm.copy_(carry)
+            graph.replay()
+            X, v = f()
+            if not (torch.equal(out[0], X) and torch.equal(out[1], v)):
+                raise AssertionError(f"ns_gram at T={T} captured, {case}: the replay differs "
+                                     f"from the eager call")
+        cap.close()
+        path = spd._ns_gram_design(T, R)
+        if path == "per_matrix":
+            nsm = torch.cuda.get_device_properties(device).multi_processor_count
+            path = f"per_matrix design, {spd.gram_plan(T, R, ZDIM, nsm).path} path"
+            if captured["ns_gram_stream"] == 0:
+                raise AssertionError("the captured E-step route never took the streaming path")
+        log(f"ns_gram Z={ZDIM} S={S} T={T} R={R} ({path}) in inv_one_plus_gram, captured "
+            f"({captured} launches) and replayed from a good and a NaN carry: equal to the "
+            f"eager call bit for bit")
 
 
 def sweep_inputs(Z, S, T, Y, R, device, gen, ragged=False):
@@ -2473,7 +2639,7 @@ def run_fit(fused, **fit_kw):
             raise AssertionError(f"sweep_core took {fallbacks['sweep_core']} of "
                                  f"{calls['sweep']} sweep route calls")
     else:
-        for name in ("ns_gram", "ns_packed", "estep_project", "estep_step"):
+        for name in ("ns_gram", "ns_gram_stream", "ns_packed", "estep_project", "estep_step"):
             if launches[name] == 0:
                 raise AssertionError(f"the default fit never launched {name}")
     return launches, calls, fallbacks, wall, e_s, r2, result
@@ -3620,7 +3786,10 @@ def run_graph_fits(card, r2_eager, walls_eager):
     log(f"12a eager default fit [{card}]: {wall:.2f} s wall, EM loop "
         f"{sum(res.runtime['em_elapsed']):.3f} s (E {sum(res.runtime['e_elapsed']):.3f}, M "
         f"{sum(res.runtime['m_elapsed']):.3f}, H {sum(res.runtime['h_elapsed']):.3f}), peak "
-        f"memory {mem / 2**20:.0f} MiB, R^2 {r2:.4f}")
+        f"memory {mem / 2**20:.0f} MiB, R^2 {r2:.4f}; ns_gram launches {launches['ns_gram']} "
+        f"({launches['ns_gram_stream']} on the streaming path)")
+    if launches["ns_gram_stream"] == 0:
+        raise AssertionError("12a: the eager fit never took ns_gram's streaming path")
     driver._GraphSteps.norms = counted
     driver.CHECK_REPLAY_SYNCS = True
     out = {}
@@ -3637,8 +3806,10 @@ def run_graph_fits(card, r2_eager, walls_eager):
                 f"s, {rt['it']} iterations (converged_at {rt.get('converged_at')}), "
                 f"{reads[0]} host reads of the norms, peak memory {mem / 2**20:.0f} MiB, "
                 f"R^2 {r2:.4f} vs {r2_eager:.4f}; counts {rt['counts']}")
-            if launches["estep_project"] == 0 or launches["estep_step"] == 0:
-                raise AssertionError(f"{tag}: the E-step's kernels were not launched: {launches}")
+            if (launches["estep_project"] == 0 or launches["estep_step"] == 0
+                    or launches["ns_gram_stream"] == 0):
+                raise AssertionError(f"{tag}: the E-step's kernels (estep_project, estep_step, "
+                                     f"ns_gram's streaming path) were not launched: {launches}")
             k = kw.get("block", 1)
             if reads[0] != -(-rt["it"] // k):
                 raise AssertionError(f"{tag}: {reads[0]} norms reads for {rt['it']} iterations")
@@ -3970,6 +4141,9 @@ def main():
 
     Z, S, T, R = ZDIM, 2000, 50, 40
     g_err_a, g_rows = check_ns_gram(Z, S, T, R, device, seeded())
+    log(f"ns_gram's per_matrix design at Z={Z} S={S} T={T} R={R}, the streaming path against "
+        f"the block path, graph replays in turns [{card}]:")
+    g_paths, g_err_p = check_ns_gram_paths(device, seeded(), (Z, S, T, R))
     g_err_b, _ = check_ns_gram(ZDIM, 100, 1000, 50, device, seeded())
     B, RP = ZDIM * NTRIAL, 50
     p_err, p_rows, p_lms = check_ns_packed(B, RP, device, seeded())
@@ -4053,19 +4227,31 @@ def main():
     # 13, window=None: whole trials, the H-step's search on the wide path
     wn_launches, _ = run_window_none(card)
 
-    g_cold = next(r for r in g_rows if r[0] == "cold")
     p_cold = next(r for r in p_rows if r[0] == "cold")
-    g_bms, g_by = ns_gram_bound(Z, S, T, R, "cold")
     p_bms, p_by = bound(B * 33 * RP ** 3, 4 * (2 * B * RP * RP + B))
     from vlgp_tpu_torch.ops.spd import _ns_gram_design
 
+    # ns_gram at the segments: every call of its kernels (launches), the
+    # per_matrix design's block path timed; then the streaming path, which
+    # the fit takes there, in the E-step's three modes (graph replays)
+    t_block, _, t_plain, g_bms, g_by = g_paths["cold 16"]
     kernels = [
-        {"name": f"ns_gram ({_ns_gram_design(T, R)} design, cold, Z{Z} S{S} T{T} R{R})",
+        {"name": f"ns_gram (every call; the {_ns_gram_design(T, R)} design's block path timed, "
+                 f"cold 16, Z{Z} S{S} T{T} R{R})",
          "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
          "replaces": "vlgp_tpu/ops/spd.py:796", "launches": default[0]["ns_gram"],
-         "max_abs_err": max(g_err_a, g_err_b, e_err, c_err), "ms": g_cold[3][0],
-         "plain_ms": g_cold[4][0],
-         "bound_ms": g_bms, "bound_by": g_by, "library_ms": None},
+         "max_abs_err": max(g_err_a, g_err_b, e_err, c_err), "ms": t_block[0][0],
+         "plain_ms": t_plain[0], "bound_ms": g_bms, "bound_by": g_by, "library_ms": None}]
+    for mode in ("probe+v", "warm 4+v", "cold 16"):
+        _, t_stream, t_plain, g_bms, g_by = g_paths[mode]
+        kernels.append(
+            {"name": f"ns_gram ({_ns_gram_design(T, R)} design, streaming path, {mode}, "
+                     f"Z{Z} S{S} T{T} R{R})",
+             "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
+             "replaces": "vlgp_tpu/ops/spd.py:796", "launches": default[0]["ns_gram_stream"],
+             "max_abs_err": g_err_p, "ms": t_stream[0][0], "plain_ms": t_plain[0],
+             "bound_ms": g_bms, "bound_by": g_by, "library_ms": None})
+    kernels += [
         {"name": "ns_packed", "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
          "replaces": "vlgp_tpu/ops/spd.py:558", "launches": default[0]["ns_packed"],
          "max_abs_err": max(p_err, p_err_elbo, e_err), "ms": p_cold[3][0],

@@ -1,7 +1,7 @@
 """Time the CUDA kernels of one checkout of vlgp_tpu_torch on the card, so
 that two trees can be compared in turns within one machine:
 
-    python3 tools/torch_kernel_ab.py [ROOT] [--spd-only | --designs | --hstep]    # ROOT: a checkout (default: this one)
+    python3 tools/torch_kernel_ab.py [ROOT] [--spd-only | --designs | --paths | --hstep]    # ROOT: a checkout (default: this one)
 
 Builds ROOT's ``csrc/`` and prints one JSON line with the card's name and
 power limit and, per case, [median, min, max] ms over 10 calls, each
@@ -25,7 +25,14 @@ live sweep.  ``--designs`` times instead both designs of ``ns_gram`` of
 this checkout (``_ns_gram_cuda(..., design=...)``) in those three modes at
 T = 50, 100, 200, 500 and 1000 with S = 100000 / T (100 trials of 1000
 bins cut into segments of T), R = 40 and 50, and at the chunk: the
-measurements behind ``ops/spd.py:_PAIRS_MIN_T``.  ``--hstep`` runs the
+measurements behind ``ops/spd.py:_PAIRS_MIN_T``.  ``--paths`` times both
+paths of the per-matrix design (the streaming path forced by
+``stream_plan``, and the block path) at Z5 S2000 T50 and R = 17, 20, 24,
+32, 33, 36, 38 and 40, and at T99 R36 and R40, in cold 16, warm 4 + v,
+probe + v, warm 8 and probe, as replays of a captured call in turns
+(block, stream, stream, block; the faster of each pair kept), with
+whether the two paths agree bit for bit: the measurements behind
+``ops/spd.py:gram_plan``.  ``--hstep`` runs the
 flagship's default fit and prints the SHA-256 of its params and posterior
 means (equal across two trees when their fits are equal bit for bit), then
 times the H-step's kernels on that fit's state as ``chip_smoke.py`` 6c and
@@ -53,6 +60,7 @@ ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 SPD_ONLY = "--spd-only" in sys.argv[1:]
 DESIGNS = "--designs" in sys.argv[1:]
 HSTEP = "--hstep" in sys.argv[1:]
+PATHS = "--paths" in sys.argv[1:]
 ROOT = pathlib.Path(ARGS[0]).resolve() if ARGS else HERE
 sys.path.insert(0, str(ROOT))
 
@@ -78,8 +86,8 @@ def main():
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     out = {"root": str(ROOT), "card": smi.splitlines()[0]}
-    if DESIGNS or HSTEP:
-        (time_designs if DESIGNS else time_hstep)(device, gen, out)
+    if DESIGNS or HSTEP or PATHS:
+        (time_designs if DESIGNS else time_paths if PATHS else time_hstep)(device, gen, out)
         print(json.dumps(out))
         return
     if not SPD_ONLY:
@@ -169,6 +177,30 @@ def time_designs(device, gen, out):
         time_gram_modes(device, gen, out, 25 * cs.NTRIAL, cs.LENGTH, 50,
                         f"{design} S2500 T1000 R50", design=design)
     time_gram_yardstick(device, gen, out)
+
+
+def time_paths(device, gen, out):
+    """Both paths of the per-matrix design, for its launch plan's rule."""
+    from vlgp_tpu_torch.ops import spd
+
+    for T, R in ((50, 17), (50, 20), (50, 24), (50, 32), (50, 33), (50, 36), (50, 38), (50, 40),
+                 (99, 36), (99, 40)):
+        G, w, w_warm, X0 = cs.gram_case(cs.ZDIM, 2000, T, R, device, gen.manual_seed(0))
+        plan = spd.stream_plan(T, R, cs.ZDIM)
+        for mode in ("cold 16", "warm 4+v", "probe+v", "warm 8", "probe"):
+            args = cs.gram_args(G, w, w_warm, X0, mode)
+            same = cs.same_gram(spd._ns_gram_cuda(*args, plan=plan),
+                                spd._ns_gram_cuda(*args, plan=spd.BLOCK_PLAN))
+            ms = {}
+            for path in ("block", "stream", "stream", "block"):
+                kw = {"plan": plan if path == "stream" else spd.BLOCK_PLAN}
+                t = cs.graph_ms(lambda: spd._ns_gram_cuda(*args, **kw))[0]
+                ms[path] = min(ms.get(path, t), t)
+            out[f"T{T} R{R} {mode}"] = {
+                "plan": spd.gram_plan(T, R, cs.ZDIM).path, "stream_warps": plan.warps,
+                "stream_ms": ms["stream"], "block_ms": ms["block"],
+                "ratio": ms["stream"] / ms["block"], "bits_equal": same}
+            print(f"T{T} R{R} {mode}", json.dumps(out[f"T{T} R{R} {mode}"]), flush=True)
 
 
 def time_hstep(device, gen, out):

@@ -1,9 +1,10 @@
 """Time builds of one CUDA source of vlgp_tpu_torch on the card, in turns:
 
-    python3 tools/torch_variant_ab.py OUT.json --source {mstep,hstep_stat,estep} \\
+    python3 tools/torch_variant_ab.py OUT.json --source {mstep,hstep_stat,estep,ns_gram} \\
         --variant NAME[@FILE.cu][=FLAGS] [--variant ...]
 
-Each variant is ``csrc/<source>.cu`` (or FILE.cu, e.g. the same source of
+Each variant is ``csrc/<source>.cu`` (``csrc/ns_inverse.cu`` for
+``ns_gram``; or FILE.cu, e.g. the same source of
 another tree unpacked with ``git archive``, next to its own headers)
 compiled with the package's nvcc flags plus FLAGS (one string, split on
 spaces, e.g. ``-DVLGP_MSTEP_GENERIC``) into ``vlgp_tpu_torch/_build/ab/``;
@@ -35,6 +36,12 @@ largest |value|; for the plain version's float32 output too).  Cases:
     as replays of a captured call (``chip_smoke.graph_ms``: the device
     time without the host's launch cost, which a call as short as these
     can exceed).
+  * ``ns_gram``: the per-matrix design at the flagship's segments (Z5
+    S2000 T50 R40, inputs as chip_smoke's phase 3 draws them,
+    ``gram_case``) in every mode the fit runs (``chip_smoke.GRAM_MODES``),
+    each as replays of a captured call; a variant whose library has the
+    streaming path (``ns_gram_stream``) runs the launch plan's path, any
+    other the block path.
 
 A variant is compiled with ``-I csrc/`` too, so a FILE.cu under
 ``tools/variants/`` finds the package's headers; where nvcc prints
@@ -43,11 +50,13 @@ JSON line under ``nvcc``.  An ``estep`` variant built from a tree before
 the launch plan (the first design's ``estep.cu``, no ``estep_smem``) is
 called with that tree's prototypes, so both designs run on the same
 inputs.  A variant that exports ``estep_stamps``
-(``tools/variants/estep_block_stamped.cu``) is run once more per case
+(``tools/variants/estep_block_stamped.cu``), or ``ns_gram_stamps``
+(``tools/variants/ns_gram_stamped.cu``), is run once more per case
 with its clock stamps read back: each block's SM, start, phase ends and
 end (``%globaltimer``), summarised as blocks resident an SM, the SMs'
 busy share of the launch and the mean time of each phase (``stamps``);
-``estep_attrs`` adds registers, spills and resident blocks an SM.  A build
+``estep_attrs`` / ``ns_gram_attrs`` add registers, spills and resident
+blocks an SM.  A build
 of the package's ``estep.cu`` with ``-DESTEP_CYCLES`` counts clock cycles
 in its streaming kernels (``estep_cycles``, which other builds refuse):
 the consumers' waits for a stage, the producer's waits for a free one and
@@ -69,6 +78,9 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+# the package library of each source
+LIBRARY = {"mstep": "mstep", "hstep_stat": "hstep_stat", "estep": "estep",
+           "ns_gram": "ns_inverse"}
 
 import torch  # noqa: E402
 
@@ -83,7 +95,7 @@ def parse_variant(spec, source):
 
     head, _, flags = spec.partition("=")
     name, _, path = head.partition("@")
-    src = pathlib.Path(path).resolve() if path else _build.CSRC / f"{source}.cu"
+    src = pathlib.Path(path).resolve() if path else _build.CSRC / f"{LIBRARY[source]}.cu"
     return name, src, flags.split()
 
 
@@ -95,11 +107,11 @@ def tree_signatures(src, source):
 
     table = pathlib.Path(src).resolve().parents[1] / "ops" / "_build.py"
     if not table.is_file():
-        return _build._SIGNATURES[source]
+        return _build._SIGNATURES[LIBRARY[source]]
     spec = importlib.util.spec_from_file_location(f"_variant_build_{abs(hash(table))}", table)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod._SIGNATURES[source]
+    return mod._SIGNATURES[LIBRARY[source]]
 
 
 def build_all(source, variants):
@@ -110,7 +122,7 @@ def build_all(source, variants):
     outdir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src, flags in variants:
-        out = outdir / f"lib{source}_{name}.so"
+        out = outdir / f"lib{LIBRARY[source]}_{name}.so"
         procs[name] = (out, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
                                               str(_build.CSRC), "-o", str(out), str(src)],
                                              stderr=subprocess.PIPE, text=True))
@@ -128,6 +140,8 @@ def build_all(source, variants):
             if not lib.with_plan:
                 sigs = PLANLESS_ESTEP
         for fn, (argtypes, restype) in sigs.items():
+            if source == "ns_gram" and not hasattr(lib, fn):
+                continue  # a stamped build exports ns_gram alone
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         lib.ns_error_string.argtypes = [ctypes.c_int]
@@ -183,22 +197,21 @@ def estep_call(kind, args):
     return outs
 
 
-def stamp_summary(lib, which, run):
-    """One more call of ``run`` with the stamped variant's clock table read
-    back (``which``: 0 estep_project, 1 estep_step): blocks, the launch's
-    span, blocks resident an SM (the most at once, and the time-weighted
-    mean while the SM is busy), the SMs' busy share of the span, and each
-    phase's mean time a block, in us."""
-    nb, ns = 4096, 10
+def stamp_summary(fetch, nb, last, run):
+    """One more call of ``run`` with a stamped variant's clock table read
+    back (``fetch(buf, reset)``: the table of ``nb`` blocks of 10 slots, the
+    SM in slot 0, the start in 1, phase ends up to ``last``): blocks, the
+    launch's span, blocks resident an SM (the most at once, and the
+    time-weighted mean while the SM is busy), the SMs' busy share of the
+    span, and each phase's mean time a block, in us."""
+    ns = 10
     buf = (ctypes.c_ulonglong * (nb * ns))()
-    lib.estep_stamps.argtypes = [_i, _p, _i]
-    lib.estep_stamps(which, buf, 1)
+    fetch(buf, 1)
     run()
     torch.cuda.synchronize()
-    lib.estep_stamps(which, buf, 0)
+    fetch(buf, 0)
     rows = np.frombuffer(buf, dtype=np.uint64).reshape(nb, ns)
     live = rows[rows[:, 1] != 0]
-    last = 4 if which == 0 else 8
     t = live[:, 1:last + 1].astype(np.float64)
     t -= t[:, 0].min()
     span = float(t[:, -1].max())
@@ -276,6 +289,23 @@ def run_update(part, n, a, b, noise):
     if rc != 0:
         raise RuntimeError(f"mstep_update failed: {lib.ns_error_string(rc).decode()}")
     return outs
+
+
+def gram_call(G, w, iters, x0, resid_only, want_v):
+    """``ns_gram`` through the current variant: the launch plan's path where
+    its library has the streaming path, else the block path; [X, the
+    residuals, v] without the outputs the mode does not write."""
+    from vlgp_tpu_torch.ops import _build, spd
+
+    plan = None if hasattr(_build._libs["ns_inverse"], "ns_gram_stream") else spd.BLOCK_PLAN
+    return [t for t in spd._ns_gram_cuda(G, w, iters, x0, resid_only, want_v, plan=plan)
+            if t is not None]
+
+
+def gram_plain(G, w, iters, x0, resid_only, want_v):
+    from vlgp_tpu_torch.ops import spd
+
+    return [t for t in spd._ns_gram_plain(G, w, iters, x0, resid_only, want_v) if t is not None]
 
 
 def device_us(fn, kernel):
@@ -357,6 +387,15 @@ def cases(source, device, gen):
                         lambda a=step: list(estep_call("step", a)),
                         lambda a=s64: list(oe._estep_step_plain(*a)),
                         lambda a=step: list(oe._estep_step_plain(*a)), cs.graph_ms, None))
+    elif source == "ns_gram":
+        G, w, w_warm, X0 = cs.gram_case(5, 2000, 50, 40, device, gen.manual_seed(0))
+        for mode, (iters, use_x0, resid_only, want_v) in cs.GRAM_MODES.items():
+            args = (G, w_warm if use_x0 and not resid_only else w, iters,
+                    X0 if use_x0 else None, resid_only, want_v)
+            a64 = tuple(t.double() if torch.is_tensor(t) else t for t in args)
+            out.append((f"ns_gram {mode} Z5 S2000 T50 R40", lambda a=args: gram_call(*a),
+                        lambda a=args: gram_call(*a), lambda a=a64: gram_plain(*a),
+                        lambda a=args: gram_plain(*a), cs.graph_ms, None))
     else:
         from vlgp_tpu_torch.ops import hstat as oh
 
@@ -373,7 +412,7 @@ def cases(source, device, gen):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("out")
-    ap.add_argument("--source", choices=("mstep", "hstep_stat", "estep"), required=True)
+    ap.add_argument("--source", choices=tuple(LIBRARY), required=True)
     ap.add_argument("--variant", action="append", required=True)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -400,7 +439,13 @@ def main():
             result.setdefault("attrs", {})[n] = {
                 k: dict(zip(("registers", "local_bytes", "blocks_per_sm"), at[3 * i:3 * i + 3]))
                 for i, k in enumerate(("estep_project", "estep_step_256", "estep_step_512"))}
-    real = _build._libs[opts.source]
+        if hasattr(lib, "ns_gram_attrs"):
+            at = (ctypes.c_int * 3)()
+            lib.ns_gram_attrs(at)
+            result.setdefault("attrs", {})[n] = {
+                "ns_gram_kernel R40": dict(zip(("registers", "local_bytes", "blocks_per_sm"), at))}
+    key = LIBRARY[opts.source]
+    real = _build._libs[key]
     try:
         for tag, timed, run, plain64, plain, timer, dev_us in cases(opts.source, device, gen):
             ref64 = plain64()
@@ -408,7 +453,7 @@ def main():
                      "plain_ms": [timer(plain)]}
             first = None
             for name in names + names[::-1]:
-                _build._libs[opts.source] = libs[name]
+                _build._libs[key] = libs[name]
                 got = run()
                 if first is None:
                     first = got
@@ -422,14 +467,22 @@ def main():
                 if libs[name].counts_cycles:
                     entry[name].setdefault("cycles", []).append(
                         cycle_summary(libs[name], int(tag.startswith("estep_step")), timed))
-                if hasattr(libs[name], "estep_stamps"):
+                lib = libs[name]
+                if hasattr(lib, "estep_stamps"):
+                    which = int(tag.startswith("estep_step"))
+                    lib.estep_stamps.argtypes = [_i, _p, _i]
+                    entry[name].setdefault("stamps", []).append(stamp_summary(
+                        lambda buf, reset, w=which: lib.estep_stamps(w, buf, reset), 4096,
+                        8 if which else 4, timed))
+                if hasattr(lib, "ns_gram_stamps"):
+                    lib.ns_gram_stamps.argtypes = [_p, _i]
                     entry[name].setdefault("stamps", []).append(
-                        stamp_summary(libs[name], int(tag.startswith("estep_step")), timed))
+                        stamp_summary(lib.ns_gram_stamps, 10240, 8, timed))
             entry["plain_ms"].append(timer(plain))
             result[tag] = entry
             print(tag, json.dumps(entry), flush=True)
     finally:
-        _build._libs[opts.source] = real
+        _build._libs[key] = real
     line = json.dumps(result)
     print(line)
     pathlib.Path(opts.out).write_text(line + "\n")

@@ -130,8 +130,13 @@
 
 namespace {
 
+using vlgp::bar_arrive;
+using vlgp::bar_init;
 using vlgp::bar_wait;
 using vlgp::bulk_copy;
+using vlgp::in_slot;
+using vlgp::span_slot;
+using vlgp::stage_spans;
 
 constexpr int NT = 256;        // threads of a block, both kernels
 constexpr int RT = 32;         // rows of a tile of the row pass
@@ -566,101 +571,9 @@ __device__ __forceinline__ void cy_put(int which, const long long (&cy)[CY_SLOTS
 #define CY(...)
 #endif
 
-// Bytes of a slot for `count` values of T staged from any address: the
-// values start at the slot's byte (address mod 16).
-template <typename T>
-__host__ __device__ inline size_t span_slot(long long count) {
-  return ((size_t)count * sizeof(T) + 15) / 16 * 16 + 16;
-}
-
-// where the value staged from src lives in a slot
-template <typename T>
-__device__ __forceinline__ T* in_slot(unsigned char* slot, const T* src) {
-  return reinterpret_cast<T*>(slot + (reinterpret_cast<uintptr_t>(src) & 15));
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void bar_init(unsigned long long* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-// arrive on bar, first raising the bytes its phase waits for by tx
-__device__ __forceinline__ void bar_arrive(unsigned long long* bar, unsigned tx = 0) {
-  if (tx)
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-                 "r"(tx)
-                 : "memory");
-  else
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
 // the threads of consumer group g (named barrier 1 + g)
 __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + g), "r"(GT) : "memory");
-}
-
-// The span src[0, n) as it is staged: the 16-byte aligned interior [lo, hi)
-// (empty where the span holds no whole 16-byte word) and the values before
-// and after it, [0, head) and [tail, n).
-struct SpanCut {
-  uintptr_t lo, hi;
-  long long head, tail;
-};
-template <typename T>
-__device__ __forceinline__ SpanCut span_cut(const T* src, long long n) {
-  constexpr long long V = 16 / sizeof(T);
-  const uintptr_t p = reinterpret_cast<uintptr_t>(src), e = p + (uintptr_t)n * sizeof(T);
-  SpanCut c{(p + 15) & ~(uintptr_t)15, e & ~(uintptr_t)15, 0, 0};
-  if (c.hi > c.lo) {
-    c.head = (long long)(c.lo - p) / (long long)sizeof(T);
-    c.tail = (long long)(c.hi - p) / (long long)sizeof(T);
-  } else {  // under 32 bytes: all by plain loads, at most 2 V - 1 values
-    c.head = n < V ? n : V;
-    c.tail = c.head;
-  }
-  return c;
-}
-
-// One lane's part of a stage: its spans' ragged values by plain loads (each
-// span's issued together), then one arrive on full expecting its bulk
-// bytes, then the interiors by bulk copies.  Every lane of the producer
-// warp arrives once (full counts 32).  span(i, slot, src, n) names span i.
-template <typename T, typename Span>
-__device__ void stage_spans(int nspans, Span span, unsigned long long* full, int lane) {
-  constexpr int V = 16 / sizeof(T);
-  unsigned tx = 0;
-  for (int i = lane; i < nspans; i += 32) {
-    unsigned char* slot;
-    const T* src;
-    long long n;
-    span(i, slot, src, n);
-    const SpanCut c = span_cut(src, n);
-    T* dst = in_slot(slot, src);
-    T h[V], t[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      h[j] = j < c.head ? __ldg(src + j) : T(0);
-      t[j] = c.tail + j < n ? __ldg(src + c.tail + j) : T(0);
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      if (j < c.head) dst[j] = h[j];
-      if (c.tail + j < n) dst[c.tail + j] = t[j];
-    }
-    if (c.hi > c.lo) tx += (unsigned)(c.hi - c.lo);
-  }
-  bar_arrive(full, tx);
-  for (int i = lane; i < nspans; i += 32) {
-    unsigned char* slot;
-    const T* src;
-    long long n;
-    span(i, slot, src, n);
-    const SpanCut c = span_cut(src, n);
-    if (c.hi > c.lo)
-      bulk_copy(slot + (c.lo - (reinterpret_cast<uintptr_t>(src) & ~(uintptr_t)15)),
-                reinterpret_cast<const void*>(c.lo), (unsigned)(c.hi - c.lo), full);
-  }
 }
 
 // A lane's channels c = lane + 32 k, k < KY, where Y <= 32 KY and Z = ZT

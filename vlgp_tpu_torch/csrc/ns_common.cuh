@@ -1,7 +1,9 @@
 // Device routines shared by the port's kernels (ns_inverse.cu, sweep.cu,
-// spd_inverse.cu; the bulk copy and its wait, mstep.cu and estep.cu): a
-// NaN-propagating max, warp and block reductions, a bulk copy to shared
-// memory completing on an mbarrier and the wait on one, and
+// spd_inverse.cu; the bulk copy and its wait, mstep.cu and estep.cu; the
+// staging of spans through a ring, estep.cu and ns_inverse.cu's streaming
+// path): a NaN-propagating max, warp and block reductions, a bulk copy to
+// shared memory completing on an mbarrier, the wait on one, spans of any
+// address staged by bulk copies with their ragged ends by plain loads, and
 // the register-tiled Newton-Schulz pieces X <- X (2I - M X), the Gram build
 // M = I + G' diag(w) G streamed over T and v = diag(G X G'): a thread owns
 // a 4 x 4 tile of a padded product in 16 registers and reads two 16-byte
@@ -15,6 +17,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace vlgp {
 
@@ -59,6 +63,98 @@ __device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parit
         : "memory");
     if (done) return;
     if (spin > (1ll << 26)) __trap();
+  }
+}
+
+// Bytes of a slot for `count` values of T staged from any address: the
+// values start at the slot's byte (address mod 16).
+template <typename T>
+__host__ __device__ inline size_t span_slot(long long count) {
+  return ((size_t)count * sizeof(T) + 15) / 16 * 16 + 16;
+}
+
+// where the value staged from src lives in a slot
+template <typename T>
+__device__ __forceinline__ T* in_slot(unsigned char* slot, const T* src) {
+  return reinterpret_cast<T*>(slot + (reinterpret_cast<uintptr_t>(src) & 15));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// arrive on bar, first raising the bytes its phase waits for by tx
+__device__ __forceinline__ void bar_arrive(unsigned long long* bar, unsigned tx = 0) {
+  if (tx)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+                 "r"(tx)
+                 : "memory");
+  else
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+// The span src[0, n) as it is staged: the 16-byte aligned interior [lo, hi)
+// (empty where the span holds no whole 16-byte word) and the values before
+// and after it, [0, head) and [tail, n).
+struct SpanCut {
+  uintptr_t lo, hi;
+  long long head, tail;
+};
+template <typename T>
+__device__ __forceinline__ SpanCut span_cut(const T* src, long long n) {
+  constexpr long long V = 16 / sizeof(T);
+  const uintptr_t p = reinterpret_cast<uintptr_t>(src), e = p + (uintptr_t)n * sizeof(T);
+  SpanCut c{(p + 15) & ~(uintptr_t)15, e & ~(uintptr_t)15, 0, 0};
+  if (c.hi > c.lo) {
+    c.head = (long long)(c.lo - p) / (long long)sizeof(T);
+    c.tail = (long long)(c.hi - p) / (long long)sizeof(T);
+  } else {  // under 32 bytes: all by plain loads, at most 2 V - 1 values
+    c.head = n < V ? n : V;
+    c.tail = c.head;
+  }
+  return c;
+}
+
+// One lane's part of a stage: its spans' ragged values by plain loads (each
+// span's issued together), then one arrive on full expecting its bulk
+// bytes, then the interiors by bulk copies.  Every lane of the producer
+// warp arrives once (full counts 32).  span(i, slot, src, n) names span i.
+template <typename T, typename Span>
+__device__ void stage_spans(int nspans, Span span, unsigned long long* full, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  unsigned tx = 0;
+  for (int i = lane; i < nspans; i += 32) {
+    unsigned char* slot;
+    const T* src;
+    long long n;
+    span(i, slot, src, n);
+    const SpanCut c = span_cut(src, n);
+    T* dst = in_slot(slot, src);
+    T h[V], t[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      h[j] = j < c.head ? __ldg(src + j) : T(0);
+      t[j] = c.tail + j < n ? __ldg(src + c.tail + j) : T(0);
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (j < c.head) dst[j] = h[j];
+      if (c.tail + j < n) dst[c.tail + j] = t[j];
+    }
+    if (c.hi > c.lo) tx += (unsigned)(c.hi - c.lo);
+  }
+  bar_arrive(full, tx);
+  for (int i = lane; i < nspans; i += 32) {
+    unsigned char* slot;
+    const T* src;
+    long long n;
+    span(i, slot, src, n);
+    const SpanCut c = span_cut(src, n);
+    if (c.hi > c.lo)
+      bulk_copy(slot + (c.lo - (reinterpret_cast<uintptr_t>(src) & ~(uintptr_t)15)),
+                reinterpret_cast<const void*>(c.lo), (unsigned)(c.hi - c.lo), full);
   }
 }
 
@@ -327,6 +423,290 @@ __device__ inline void marginal_v_tiled(const float* Gz, const float* X, int T, 
       for (int j = 0; j < nb; ++j) s += part[j * TC + t];
       v[t0 + t] = s;
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Warp routines (ns_gram's streaming path, ns_inverse.cu)
+//
+// One warp solves one matrix, with no barrier but __syncwarp: lane t <
+// nw^2, nw = ceil(R / 8), owns the 8 x 8 tile (ti, tj) = (t / nw, t % nw)
+// of every product in 64 registers and reads four 16-byte words per 64
+// FMAs (a 4 x 4 tile reads two per 16).  A matrix is padded to np = 8 nw
+// rows and columns, its pad zero (stores write 0 outside R x R); column c
+// of a row lives at scol(c) = c + 4 (c / 32), so that the 8-column groups
+// of a row (lanes' tiles) fall in distinct banks, and a row's stride is
+// ld = scol(np - 1) + 1 (R = 40: 40 rows of 44).  Every entry of the Gram, of a product, of the
+// residual and of v sums over k in the block routines' order, so a matrix
+// comes out with the same bits whichever routine set ran it.  G stays in
+// shared memory for the block's life, by rows (Gr: T rows of np, zero past
+// R) for the Gram and transposed (Gt: np rows of tp >= T, zero past R and
+// past T) for v, which keeps the 4 x 4 tiles of marginal_v_tiled.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline int warp_tiles(int R) { return (R + 7) / 8; }
+__host__ __device__ inline int scol(int c) { return c + 4 * (c >> 5); }
+__host__ __device__ inline int warp_ld(int R) { return scol(8 * warp_tiles(R) - 1) + 1; }
+
+// NaN-propagating max over the warp; every lane receives it
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = nanmax(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// the 8 floats at p (16-byte aligned)
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z,
+  v[7] = b.w;
+}
+
+// acc += av bv' (8 x 8), one FMA each
+__device__ __forceinline__ void outer8(const float (&av)[8], const float (&bv)[8],
+                                       float (&acc)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+}
+
+// acc = tile (ti, tj) of P Q (8 x 8), k < K (K >= 1), strides ldp of Pt and
+// ldq of Q.  Two rows a step in two sets of registers, each row's words
+// loaded a row ahead of its 64 FMAs.
+__device__ __forceinline__ void mm8(const float* Pt, int ldp, const float* Q, int ldq, int K,
+                                    int ti, int tj, float (&acc)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const float* pp = Pt + scol(8 * ti);
+  const float* qq = Q + scol(8 * tj);
+  float a0[8], b0[8], a1[8], b1[8];
+  load8(pp, a0);
+  load8(qq, b0);
+  int k = 0;
+  for (; k + 1 < K; k += 2) {
+    load8(pp + (k + 1) * ldp, a1);
+    load8(qq + (k + 1) * ldq, b1);
+    outer8(a0, b0, acc);
+    const int k2 = k + 2 < K ? k + 2 : k + 1;
+    load8(pp + k2 * ldp, a0);
+    load8(qq + k2 * ldq, b0);
+    outer8(a1, b1, acc);
+  }
+  if (k < K) outer8(a0, b0, acc);
+}
+
+// tile (ti, tj) to C by rows, or (cols) to Ct transposed; 0 outside R x R
+__device__ __forceinline__ void store8(float* C, int R, int ld, int ti, int tj,
+                                       const float (&v)[8][8], bool cols) {
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    float o[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int r = 8 * ti + (cols ? b : a), q = 8 * tj + (cols ? a : b);
+      o[b] = (r < R && q < R) ? (cols ? v[b][a] : v[a][b]) : 0.f;
+    }
+    float* row = C + (8 * (cols ? tj : ti) + a) * ld + scol(8 * (cols ? ti : tj));
+    *reinterpret_cast<float4*>(row) = make_float4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<float4*>(row + 4) = make_float4(o[4], o[5], o[6], o[7]);
+  }
+}
+
+// Mt = (I + G' diag(w) G) transposed from the resident Gr (rows of stride
+// ld, columns at scol) and w (T values), gram_build_tiled's sums over t in
+// its order.  The caller synchronises after.
+__device__ inline void gram_warp(const float* Gr, const float* w, int T, int R, int ld,
+                                 float* Mt, int lane) {
+  const int nw = warp_tiles(R), ti = lane / nw, tj = lane - ti * nw;
+  if (lane >= nw * nw) return;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const float* ga = Gr + scol(8 * ti);
+  const float* gb = Gr + scol(8 * tj);
+  // rows t and t + 1 in two sets of registers, as mm8; a row's products
+  // G[t, i] w[t] rounded before their FMAs, as gram_build_tiled forms them
+  float a0[8], b0[8], a1[8], b1[8], aw[8];
+  load8(ga, a0);
+  load8(gb, b0);
+  float w0 = w[0], w1;
+  int t = 0;
+  for (; t + 1 < T; t += 2) {
+    load8(ga + (t + 1) * ld, a1);
+    load8(gb + (t + 1) * ld, b1);
+    w1 = w[t + 1];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) aw[i] = a0[i] * w0;
+    outer8(aw, b0, acc);
+    const int t2 = t + 2 < T ? t + 2 : t + 1;
+    load8(ga + t2 * ld, a0);
+    load8(gb + t2 * ld, b0);
+    w0 = w[t2];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) aw[i] = a1[i] * w1;
+    outer8(aw, b1, acc);
+  }
+  if (t < T) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) aw[i] = a0[i] * w0;
+    outer8(aw, b0, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] += (8 * ti + i == 8 * tj + j ? 1.f : 0.f);
+  store8(Mt, R, ld, ti, tj, acc, true);
+}
+
+// X from the R x R matrix src by rows (any address; by 16-byte words where
+// R % 4 == 0 and src is aligned), zero in its pad columns below 4 ceil(R /
+// 4).  The caller synchronises after.
+__device__ inline void load_x_warp(const float* src, float* X, int R, int ld, int lane) {
+  const int nb = tiles_per_side(R);
+  const bool vec = (R & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  for (int e = lane; e < R * nb; e += 32) {
+    const int r = e / nb, c = e - r * nb;
+    float x[4];
+    if (vec) {
+      const float4 q = *reinterpret_cast<const float4*>(src + r * R + 4 * c);
+      x[0] = q.x, x[1] = q.y, x[2] = q.z, x[3] = q.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = 4 * c + j < R ? src[r * R + 4 * c + j] : 0.f;
+    }
+    *reinterpret_cast<float4*>(X + r * ld + scol(4 * c)) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+// The R x R corner of X to dst by rows (16-byte stores where R % 4 == 0 and
+// dst is aligned), consecutive lanes on consecutive words of a row.
+__device__ inline void store_x_warp(const float* X, float* dst, int R, int ld, int lane) {
+  const int nb = tiles_per_side(R);
+  const bool vec = (R & 3) == 0 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+  for (int e = lane; e < R * nb; e += 32) {
+    const int r = e / nb, c = e - r * nb;
+    const float4 q = *reinterpret_cast<const float4*>(X + r * ld + scol(4 * c));
+    if (vec) {
+      *reinterpret_cast<float4*>(dst + r * R + 4 * c) = q;
+    } else {
+      const float x[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * c + j < R) dst[r * R + 4 * c + j] = x[j];
+    }
+  }
+}
+
+// Xt from X (R x R, columns at scol): lanes on columns, a row at a time.
+// The caller synchronises after.
+__device__ inline void transpose_warp(const float* X, float* Xt, int R, int ld, int lane) {
+  for (int r = 0; r < R; ++r)
+    for (int q = lane; q < R; q += 32) Xt[q * ld + scol(r)] = X[r * ld + scol(q)];
+}
+
+// ns_cold_start_tiled for the warp: X = Xt = c I written whole (each lane
+// its own tile, zero off the diagonal), so neither need be zero on entry.
+// The caller synchronises after.
+__device__ inline void cold_start_warp(const float* Mt, float* X, float* Xt, int R, int ld,
+                                       int lane) {
+  float m = 0.f;
+  for (int r = lane; r < R; r += 32) {
+    float s = 0.f;
+    for (int k = 0; k < R; ++k) s += fabsf(Mt[k * ld + scol(r)]);
+    m = nanmax(m, s);
+  }
+  const float c = 2.f / (1.f + warp_max(m));
+  const int nw = warp_tiles(R), ti = lane / nw, tj = lane - ti * nw;
+  if (lane < nw * nw) {
+    float d[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) d[i][j] = 8 * ti + i == 8 * tj + j ? c : 0.f;
+    store8(X, R, ld, ti, tj, d, false);
+    store8(Xt, R, ld, ti, tj, d, true);
+  }
+}
+
+// ns_iterate_tiled's rounds by the warp: T = 2I - M X over X, then X (2I -
+// M X) to X and Xt.  X, Xt complete on entry and on exit.
+__device__ inline void iterate_warp(const float* Mt, float* X, float* Xt, int R, int ld,
+                                    int iters, int lane) {
+  const int nw = warp_tiles(R), ti = lane / nw, tj = lane - ti * nw;
+  const bool own = lane < nw * nw;
+  float acc[8][8];
+  for (int it = 0; it < iters; ++it) {
+    if (own) {
+      mm8(Mt, ld, X, ld, R, ti, tj, acc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = (8 * ti + i == 8 * tj + j ? 2.f : 0.f) - acc[i][j];
+    }
+    __syncwarp();  // every read of X is done
+    if (own) store8(X, R, ld, ti, tj, acc, false);
+    __syncwarp();
+    if (own) mm8(Xt, ld, X, ld, R, ti, tj, acc);
+    __syncwarp();  // every read of Xt and T is done
+    if (own) {
+      store8(X, R, ld, ti, tj, acc, false);
+      store8(Xt, R, ld, ti, tj, acc, true);
+    }
+    __syncwarp();
+  }
+}
+
+// ns_residual_tiled for the warp; every lane receives it.
+__device__ inline float residual_warp(const float* Mt, const float* X, int R, int ld, int lane) {
+  const int nw = warp_tiles(R), ti = lane / nw, tj = lane - ti * nw;
+  float m = 0.f;
+  if (lane < nw * nw) {
+    float acc[8][8];
+    mm8(Mt, ld, X, ld, R, ti, tj, acc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = 8 * ti + i, q = 8 * tj + j;
+        if (r < R && q < R) m = nanmax(m, fabsf(acc[i][j] - (r == q ? 1.f : 0.f)));
+      }
+  }
+  return warp_max(m);
+}
+
+// marginal_v_tiled from the resident Gt (row stride tp) and X (columns at
+// scol), every row of t at once: the 4 x 4 tiles (ti, tj) of Y = G X over
+// ceil(T / 4) x ceil(R / 4), their partial sums to part[tj][t] (stride
+// tp), then each row t adds its partial sums in order of tj.
+__device__ inline void v_warp(const float* Gt, int tp, const float* X, int T, int R, int ld,
+                              float* part, float* v, int lane) {
+  const int nb = tiles_per_side(R);
+  const int ntile = (T + 3) / 4 * nb;
+  for (int tile = lane; tile < ntile; tile += 32) {
+    const int ti = tile / nb, tj = tile - ti * nb;
+    float acc[4][4];
+    mm_tile(Gt, tp, X + scol(4 * tj) - 4 * tj, ld, R, ti, tj, acc);
+    float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 g = *reinterpret_cast<const float4*>(Gt + (4 * tj + j) * tp + 4 * ti);
+      const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = fmaf(acc[i][j], gv[i], p[i]);
+    }
+    *reinterpret_cast<float4*>(part + tj * tp + 4 * ti) = make_float4(p[0], p[1], p[2], p[3]);
+  }
+  __syncwarp();
+  for (int t = lane; t < T; t += 32) {
+    float s = 0.f;
+    for (int j = 0; j < nb; ++j) s += part[j * tp + t];
+    v[t] = s;
   }
 }
 

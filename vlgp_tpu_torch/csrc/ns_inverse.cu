@@ -1,6 +1,6 @@
 // Newton-Schulz inverses X = (I + A)^{-1} of small SPD systems, for Hopper.
 //
-// Four entry points share the register-tiled routines of ns_common.cuh:
+// Five entry points share the register-tiled routines of ns_common.cuh:
 //
 //   ns_gram    replaces vlgp_tpu/ops/spd.py:_ns_gram_pallas (kernel body
 //              _make_ns_gram_kernel), the per-matrix design.  Per (latent
@@ -9,6 +9,10 @@
 //              TC rows, runs Newton-Schulz X <- X (2I - (I+A) X), writes X,
 //              one residual max|(I+A)X - I| per matrix and, when asked,
 //              v = diag(G X G') computed from the X the block still holds.
+//              A block per matrix: the block path.
+//   ns_gram_stream  the same function and bits on persistent blocks (the
+//              streaming path, see below), where ops/spd.py:gram_plan
+//              picks it.
 //   ns_gram_pairs  the same function for long T (the long-T design; the
 //              rule that picks it is ops/spd.py:_ns_gram_design, by (T, R)
 //              alone).  Three launches, see "The long-T design" below.
@@ -60,6 +64,33 @@
 // 59-64 registers per thread, the 64 that __launch_bounds__(1024) allows
 // (8 bytes of ns_gram spilled).
 //
+// The streaming path.  The block path pays, per matrix: a block's start,
+// zeroing its three matrices, G_z streamed from L2 twice (for the Gram and
+// for v, behind two barriers a 32-row chunk, by scalar loads), x0 and X by
+// scalar loads and stores, and four block barriers a round over four warps,
+// under the 64 registers that __launch_bounds__(1024) leaves, with two
+// 16-byte shared-memory loads per 16 FMAs.  The streaming path keeps one
+// block per (latent, j < per) resident for the whole call, per = SMs / Z,
+// so that a block meets one latent: G_z is copied into shared memory once,
+// by rows and transposed, and neither the Gram nor v reads device memory
+// but the matrix's w row.  A producer warp copies each matrix's w row
+// and x0 (by cp.async.bulk on mbarriers, ragged ends by plain loads, each
+// at its address mod 16) into one of two stages of the consumer warp that
+// will solve it and into that warp's Xt, as soon as the warp has read
+// them; the warp moves x0 into X (and X into Xt) itself.
+// Each consumer warp solves
+// one matrix at a time with no barrier but __syncwarp: a lane owns an 8 x 8
+// tile of every product in 64 registers (25 lanes at R = 40) and reads four
+// 16-byte words per 64 FMAs, so the warps of the block (one an SM's
+// quarter or more) issue FMAs with little waiting on shared memory.  The
+// stage is released once the Gram and x0 are read.  X leaves by 16-byte
+// stores of rows, v by rows.  Each product, the Gram, the residual and v
+// sum over k in the block path's order, so a matrix has the same bits on
+// either path, whatever S is and whichever block or warp takes it.  R <= 40
+// (a warp's 25 tiles) and 232,448 bytes; gram_plan keeps the block path
+// elsewhere.  A first draft with four-warp groups of 4 x 4 tiles on named
+// barriers (two a round) ran the rounds slower than the block path (PERF.md).
+//
 // The long-T design.  At T = 1000 the per-matrix design streams all of G_z
 // (T x R, 200 KB at R = 50) through every block's shared memory twice, for
 // the Gram and for v, with two barriers per 32-row chunk, and reuses no row
@@ -104,6 +135,8 @@
 // can never pass the caller's `isfinite(resid) && resid < tol` check.  No
 // atomics: repeated runs give the same bits.  Each entry point returns
 // cudaGetLastError() of its launches.
+
+#include <climits>
 
 #include "ns_common.cuh"
 
@@ -245,6 +278,171 @@ ns_probe_skip_refine_kernel(const float* __restrict__ A, const float* __restrict
   __syncthreads();
   ns_solve(Mt, X, Xt, red, x0 + (size_t)m * RR, Xo + (size_t)m * RR, resid + m,
            R, L.ld, iters > 1 ? iters : 1, 0);
+}
+
+// ---------------------------------------------------------------------------
+// ns_gram's streaming path (see "The streaming path" at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int GS_WARPS_MAX = 8;    // consumer warps of a streaming block, at most
+constexpr int GS_THREADS = 32 * (GS_WARPS_MAX + 1);  // and the producer warp
+constexpr int GS_R_MAX = 40;       // the largest R whose 8 x 8 tiles a warp holds (25)
+constexpr int GS_BAR_BYTES = 6 * 8 * GS_WARPS_MAX;  // six mbarriers a consumer warp
+constexpr size_t GS_SMEM_MAX = 232448;  // shared memory a block can have on an H100
+
+// A streaming block's shared memory: the mbarriers, G by rows (T rows of
+// ld, columns at scol) and transposed (np rows of tp), then each consumer
+// warp's two stages (a matrix's w row each, at its address mod 16), Mt
+// (or, after the residual, v's partial sums: ceil(R / 4) rows of tp), X
+// and Xt, np rows of ld each, Xt at least x0's slot (x0 lands there).
+// ops/spd.py:_gram_stream_smem is its copy.
+struct StreamLayout {
+  int np, ld, tp;
+  size_t n, mt, G, w, xt, warp, total;  // n and mt in floats, the rest in bytes
+  __host__ __device__ StreamLayout(int T, int R, int warps) {
+    np = 8 * warp_tiles(R);
+    ld = warp_ld(R);
+    tp = 4 * (((T + 3) / 4) | 1);
+    n = (size_t)np * ld;
+    mt = n > (size_t)tiles_per_side(R) * tp ? n : (size_t)tiles_per_side(R) * tp;
+    G = sizeof(float) * ((size_t)T * ld + (size_t)np * tp);
+    w = span_slot<float>(T);
+    const size_t x0 = span_slot<float>((long long)R * R);
+    xt = sizeof(float) * n > x0 ? sizeof(float) * n : x0;
+    warp = 2 * w + sizeof(float) * (mt + n) + xt;
+    total = GS_BAR_BYTES + G + warps * warp;
+  }
+};
+
+// One persistent block per (latent z, j < per): G_z resident, the matrices
+// b = z S + s of s = j, j + per, ... in turn; matrix m of consumer warp g
+// is matrix k = g + m warps of the block's walk.  The producer warp copies
+// its w row into the warp's stage m % 2 (mbarrier full) once the warp has
+// read matrix m - 2's (wfree), and its x0 into the warp's Xt (xfull) once
+// the warp has read the last Xt there (xfree: after the rounds, or in
+// probe mode after x0 went to X).  The warp solves it with the block
+// path's steps: the Gram from the stage's w, X and Xt from x0, the cold
+// start or the rounds, the residual, X stored, v.  Each mbarrier has one
+// waiter, which waits on its phases in order (a wait on a parity is only
+// sound for the current phase or the one before it).
+__global__ void __launch_bounds__(GS_THREADS, 1)
+ns_gram_stream_kernel(const float* __restrict__ G, const float* __restrict__ w,
+                      const float* __restrict__ x0, float* __restrict__ Xo,
+                      float* __restrict__ resid, float* __restrict__ v, int S, int T, int R,
+                      int iters, int resid_only, int want_v, int per) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // full and wfree: two a warp, [2 g + stage]; xfull and xfree: one a warp
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem_raw);
+  unsigned long long* wfree = full + 2 * GS_WARPS_MAX;
+  unsigned long long* xfull = wfree + 2 * GS_WARPS_MAX;
+  unsigned long long* xfree = xfull + GS_WARPS_MAX;
+  const bool has_x0 = x0 != nullptr;
+  const int warps = blockDim.x / 32 - 1;
+  const StreamLayout L(T, R, warps);
+  float* Gr = reinterpret_cast<float*>(smem_raw + GS_BAR_BYTES);
+  float* Gt = Gr + (size_t)T * L.ld;
+  unsigned char* base = smem_raw + GS_BAR_BYTES + L.G;
+  // warp g's stage i (0, 1), its Mt (i = 2), X (3) and Xt (4)
+  auto part_of = [&](int g, int i) {
+    unsigned char* p = base + g * L.warp + (i < 2 ? i : 2) * L.w;
+    return i < 3 ? p : p + sizeof(float) * (L.mt + (i == 4 ? L.n : 0));
+  };
+  const int z = blockIdx.x / per, j = blockIdx.x - z * per;
+  const int RR = R * R, g = threadIdx.x >> 5, lane = threadIdx.x & 31, nthr = 32 * warps;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < warps; ++i) {
+      bar_init(full + 2 * i, 32);
+      bar_init(full + 2 * i + 1, 32);
+      bar_init(wfree + 2 * i, 1);
+      bar_init(wfree + 2 * i + 1, 1);
+      bar_init(xfull + i, 32);
+      bar_init(xfree + i, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every warp's pads zero once (every store keeps them so)
+  for (int i = threadIdx.x; i < (int)(warps * L.warp / sizeof(float)); i += blockDim.x)
+    reinterpret_cast<float*>(base)[i] = 0.f;
+  __syncthreads();
+  if (g == warps) {  // the producer
+    for (int k = 0;; ++k) {
+      const long long s = j + (long long)k * per;
+      if (s >= S) break;
+      const int q = k % warps, m = k / warps, wb = m & 1;
+      const long long b = (long long)z * S + s;
+      if (m >= 2) bar_wait(wfree + 2 * q + wb, ((m >> 1) - 1) & 1);
+      unsigned char* stage = part_of(q, wb);
+      stage_spans<float>(1,
+                         [&](int, unsigned char*& slot, const float*& src, long long& n) {
+                           slot = stage;
+                           src = w + b * T;
+                           n = T;
+                         },
+                         full + 2 * q + wb, lane);
+      if (has_x0) {
+        if (m >= 1) bar_wait(xfree + q, (m - 1) & 1);
+        unsigned char* xt = part_of(q, 4);
+        stage_spans<float>(1,
+                           [&](int, unsigned char*& slot, const float*& src, long long& n) {
+                             slot = xt;
+                             src = x0 + b * RR;
+                             n = RR;
+                           },
+                           xfull + q, lane);
+      }
+    }
+    return;
+  }
+  float* Mt = reinterpret_cast<float*>(part_of(g, 2));
+  float* X = reinterpret_cast<float*>(part_of(g, 3));
+  float* Xt = reinterpret_cast<float*>(part_of(g, 4));
+  // G_z into both layouts by all consumers, while the first stages land
+  const float* Gz = G + (size_t)z * T * R;
+  for (int i = threadIdx.x; i < T * L.np; i += nthr) {
+    const int t = i / L.np, c = i - t * L.np;
+    Gr[t * L.ld + scol(c)] = c < R ? Gz[(size_t)t * R + c] : 0.f;
+  }
+  for (int i = threadIdx.x; i < L.np * L.tp; i += nthr) {
+    const int c = i / L.tp, t = i - c * L.tp;
+    Gt[i] = c < R && t < T ? Gz[(size_t)t * R + c] : 0.f;
+  }
+  asm volatile("bar.sync 1, %0;" ::"r"(nthr) : "memory");
+  for (int m = 0;; ++m) {
+    const long long s = j + (long long)(g + m * warps) * per;
+    if (s >= S) break;
+    const long long b = (long long)z * S + s;
+    const int wb = m & 1;
+    bar_wait(full + 2 * g + wb, (m >> 1) & 1);
+    gram_warp(Gr, in_slot(part_of(g, wb), w + b * T), T, R, L.ld, Mt, lane);
+    __syncwarp();  // Mt is complete; the stage is read
+    if (lane == 0) bar_arrive(wfree + 2 * g + wb);
+    if (has_x0) {
+      bar_wait(xfull + g, m & 1);
+      load_x_warp(in_slot(reinterpret_cast<unsigned char*>(Xt), x0 + b * RR), X, R, L.ld, lane);
+      __syncwarp();  // x0 is read
+      if (resid_only) {
+        if (lane == 0) bar_arrive(xfree + g);
+      } else {
+        transpose_warp(X, Xt, R, L.ld, lane);
+        __syncwarp();
+      }
+    } else {
+      cold_start_warp(Mt, X, Xt, R, L.ld, lane);
+      __syncwarp();
+    }
+    if (!resid_only) {
+      iterate_warp(Mt, X, Xt, R, L.ld, iters, lane);
+      if (has_x0 && lane == 0) bar_arrive(xfree + g);  // iterate_warp's last read of Xt is done
+    }
+    const float res = residual_warp(Mt, X, R, L.ld, lane);
+    if (lane == 0) resid[b] = res;
+    if (!resid_only) store_x_warp(X, Xo + b * RR, R, L.ld, lane);
+    if (want_v) {
+      __syncwarp();  // every read of Mt is done: v's partial sums go there
+      v_warp(Gt, L.tp, X, T, R, L.ld, Mt, v + b * T, lane);
+    }
+    __syncwarp();  // every read of this matrix's X, Mt and partial sums is done
+  }
 }
 
 // Bytes of shared memory of a packed block (Mt, X, Xt, one float per warp).
@@ -515,6 +713,37 @@ int ns_gram_pairs(const float* G, const float* w, const float* x0, float* X, flo
   err = wide_tiles(Z, S, T, nsm) ? launch_v_pairs<128, 128>(G, pairs, v, Z, S, T, R, st)
                             : launch_v_pairs<128, 64>(G, pairs, v, Z, S, T, R, st);
   return (int)err;
+}
+
+// ns_gram's streaming path, with ns_gram's arguments and the launch plan
+// (ops/spd.py:gram_plan): `warps` consumer warps a block, `per` blocks a
+// latent (grid Z per); R <= 40.
+int ns_gram_stream(const float* G, const float* w, const float* x0, float* X, float* resid,
+                   float* v, int Z, int S, int T, int R, int iters, int use_x0, int resid_only,
+                   int want_v, int warps, int per, void* stream) {
+  if (R < 1 || R > GS_R_MAX || T < 1 || Z < 1 || S < 1 || iters < 0 ||
+      (resid_only && !use_x0) || (!resid_only && X == nullptr) ||
+      (want_v && v == nullptr) || warps < 1 || warps > GS_WARPS_MAX || per < 1 ||
+      (long long)Z * per > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (!use_x0) x0 = nullptr;
+  if (resid_only) X = nullptr;
+  const StreamLayout L(T, R, warps);
+  if (L.total > GS_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ns_gram_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  ns_gram_stream_kernel<<<Z * per, 32 * (warps + 1), L.total, (cudaStream_t)stream>>>(
+      G, w, x0, X, resid, v, S, T, R, iters, resid_only, want_v, per);
+  return (int)cudaGetLastError();
+}
+
+// The streaming path's shared memory in bytes as the kernel lays it out
+// (at most INT_MAX); ops/spd.py plans with its own copy of the layout, and
+// chip_smoke.py holds the two equal.
+int ns_gram_smem(int T, int R, int warps) {
+  const size_t bytes = StreamLayout(T, R, warps).total;
+  return bytes < (size_t)INT_MAX ? (int)bytes : INT_MAX;
 }
 
 // A (B,R,R), x0 (B,R,R) or null; X (B,R,R) or null in probe mode; resid (B,).

@@ -6,11 +6,13 @@ the float32 path:
   * ``ns_gram``   replaces ``_ns_gram_pallas``: builds A = G_z' diag(w_zs) G_z
     per (latent, segment), runs Newton-Schulz X <- X (2I - (I+A) X), and
     optionally emits v = diag(G X G').  Two hand-written designs, chosen
-    by (T, R) alone (``_ns_gram_design``): per matrix, one block builds
-    its Gram in shared memory (the segments, T = 50), or for long T the
-    Gram and v as two GEMMs over the pairs of the upper triangle with a
-    Newton-Schulz launch between them (``_ns_gram_pairs_plain`` mirrors
-    its arithmetic).
+    by (T, R) alone (``_ns_gram_design``): per matrix, its Gram built in
+    shared memory (the segments, T = 50), or for long T the Gram and v as
+    two GEMMs over the pairs of the upper triangle with a Newton-Schulz
+    launch between them (``_ns_gram_pairs_plain`` mirrors its arithmetic).
+    The per-matrix design has two paths with the same bits, chosen by
+    ``gram_plan`` from (T, R, Z): a block per matrix, or persistent blocks
+    with G resident and a warp per matrix (the streaming path).
   * ``ns_packed`` replaces ``_ns_packed_pallas``: the same Newton-Schulz on
     a given A (B, R, R); with ``probe_skip`` its fused probe + refine mode
     (``VLGP_FUSED_PROBE=1``), decided per group of matrices.
@@ -41,15 +43,17 @@ device counters of the capture count the fallbacks that the replays took.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import control
 
 __all__ = ["inv_one_plus_psd", "inv_one_plus_gram", "ns_gram", "ns_packed",
-           "spd_inverse", "spd_solve",
+           "spd_inverse", "spd_solve", "gram_plan", "stream_plan", "gram_walk", "GramPlan",
+           "BLOCK_PLAN",
            "KERNEL_LAUNCHES", "FALLBACKS", "ROUTE_CALLS", "reset_counters"]
 
 # Convergence threshold on max|(I+A)X - I| for Newton-Schulz results; also
@@ -84,6 +88,103 @@ def _ns_gram_design(T: int, R: int) -> str:
     return "pairs" if T >= _PAIRS_MIN_T else "per_matrix"
 
 
+# The per-matrix design's two paths (csrc/ns_inverse.cu): "block", a
+# thread block per matrix, and "stream", persistent blocks with G_z resident
+# in shared memory, a producer warp's bulk copies of each matrix's w row and
+# x0 into the stage of the consumer warp that solves it, each warp one
+# matrix at a time in 8 x 8 tiles (R <= 40).  The kernel's constants: shared
+# memory a block can have on an H100, its SMs, consumer warps at most, the
+# largest R, the mbarriers' bytes, the block path's rows of G a chunk.
+SMEM_MAX = 232_448
+SMS = 132
+_GS_WARPS_MAX = 8
+_GS_R_MAX = 40
+_GS_BAR_BYTES = 6 * 8 * _GS_WARPS_MAX
+_TC = 32
+
+
+class GramPlan(NamedTuple):
+    """A launch of the per-matrix design: ``path`` "stream" (``warps``
+    consumer warps a block, each with its own stage, and ``per`` blocks a
+    latent, at most) or "block" (a block per matrix; ``warps`` and ``per``
+    0), ``threads`` a block, ``smem`` bytes of dynamic shared memory
+    each."""
+    path: str
+    warps: int
+    per: int
+    threads: int
+    smem: int
+
+
+def _tiles(R: int) -> int:
+    return -(-R // 4)
+
+
+def _tiled_threads(R: int) -> int:
+    return -(-_tiles(R) ** 2 // 32) * 32
+
+
+def _gram_stream_smem(T: int, R: int, warps: int) -> int:
+    """``StreamLayout`` (csrc/ns_inverse.cu): the mbarriers, G by rows and
+    transposed, and each warp's two stages (a w row each, in a slot of its
+    bytes rounded up to 16 and 16 more), Mt (or v's partial sums), X and
+    Xt (at least x0's slot)."""
+    npad = 8 * -(-R // 8)
+    ld, tp = npad + 4 * ((npad - 1) // 32), 4 * (-(-T // 4) | 1)
+    n = npad * ld
+    slot = lambda count: (4 * count + 15) // 16 * 16 + 16  # noqa: E731
+    warp = 2 * slot(T) + 4 * (max(n, _tiles(R) * tp) + n) + max(4 * n, slot(R * R))
+    return _GS_BAR_BYTES + 4 * (T * ld + npad * tp) + warps * warp
+
+
+def _gram_block_smem(R: int) -> int:
+    nb = _tiles(R)
+    return 4 * (3 * 4 * nb * 4 * (nb | 1) + _TC * 5 * nb + _TC + _tiled_threads(R) // 32)
+
+
+# the block path, whatever the shape (the first design, which the
+# streaming path is held to bit for bit)
+BLOCK_PLAN = GramPlan("block", 0, 0, 0, 0)
+
+
+def stream_plan(T: int, R: int, Z: int, nsm: int = SMS) -> Optional[GramPlan]:
+    """The streaming path's launch at one shape, or None where it cannot
+    run: a warp holds the matrix's 8 x 8 tiles (R <= 40), with the most
+    consumer warps that fit 232,448 bytes (at most 8, two or more), and nsm
+    // Z blocks a latent (a latent a block)."""
+    if R <= _GS_R_MAX:
+        for warps in range(_GS_WARPS_MAX, 1, -1):
+            smem = _gram_stream_smem(T, R, warps)
+            if smem <= SMEM_MAX:
+                return GramPlan("stream", warps, max(1, nsm // Z), 32 * (warps + 1), smem)
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def gram_plan(T: int, R: int, Z: int, nsm: int = SMS) -> GramPlan:
+    """The per-matrix design's launch at one shape, never by S: the
+    streaming path (``stream_plan``) where it runs and the block path would
+    issue as many FMA instructions a product step (a block of 128 threads or
+    more, so 37 <= R <= 40: the streaming path's single warp issues 64 a
+    step, a block 16 a warp); else the block path.  At Z5 S2000 T50 the
+    streaming path took 0.73-0.96x the block path's time at R38 and R40 in
+    every mode, up to 1.03x at R33 and R36 (the warm modes), and up to 2.6x
+    at R17-R32 (``tools/torch_kernel_ab.py --paths``; PERF.md, Findings)."""
+    plan = stream_plan(T, R, Z, nsm) if _tiled_threads(R) >= 128 else None
+    return plan or GramPlan("block", 0, 0, _tiled_threads(R), _gram_block_smem(R))
+
+
+def gram_walk(plan: GramPlan, Z: int, S: int):
+    """The matrices b = z S + s each block of a streaming launch takes, in
+    its order, with the consumer warp that takes each: [[(b, warp), ...],
+    ...] a block; block z per + j takes s = j, j + per, ... of latent z,
+    its k-th matrix warp k mod ``warps`` (``per`` clipped to S, as the
+    wrapper launches it)."""
+    per = min(plan.per, S)
+    return [[(z * S + s, k % plan.warps) for k, s in enumerate(range(j, S, per))]
+            for z in range(Z) for j in range(per)]
+
+
 # Warm-start probe architecture of the Newton-Schulz route: "0" (default) =
 # probe launch + host-synced check + refine launch; "1" = the fused
 # probe_skip kernel, one launch that refines only the groups whose carry
@@ -97,7 +198,9 @@ _FUSED_PROBE = os.environ.get("VLGP_FUSED_PROBE", "0") == "1"
 # per-sweep chain (ops/estep.py) included.  Host
 # integers: under a CUDA graph capture they count the capture, not the
 # replays (ops/control.py).
-KERNEL_LAUNCHES = {"ns_gram": 0, "ns_packed": 0, "probe_skip": 0,
+# ``ns_gram`` counts every call of its kernels (either design or path),
+# ``ns_gram_stream`` the calls that took the streaming path.
+KERNEL_LAUNCHES = {"ns_gram": 0, "ns_gram_stream": 0, "ns_packed": 0, "probe_skip": 0,
                    "spd_inverse": 0, "sweep": 0, "svd_loading": 0, "lorenz": 0,
                    "mstep_stats": 0, "mstep_update": 0, "hstep_search": 0,
                    "hstep_stat": 0, "estep_project": 0, "estep_step": 0}
@@ -354,12 +457,29 @@ def _spd_inverse_cuda(A):
     return out
 
 
+def _check_gram_plan(plan: GramPlan, T: int, R: int) -> None:
+    """Refuse a streaming plan the kernel would refuse: R past 40, warps or
+    blocks out of range, or a layout other than the kernel's or past
+    232,448 bytes."""
+    if plan.path == "block":
+        return
+    if plan.path != "stream":
+        raise ValueError(f"unknown ns_gram path {plan.path!r}")
+    smem = _gram_stream_smem(T, R, plan.warps)
+    if not (R <= _GS_R_MAX and 1 <= plan.warps <= _GS_WARPS_MAX and plan.per >= 1
+            and plan.threads == 32 * (plan.warps + 1) and plan.smem == smem <= SMEM_MAX):
+        raise ValueError(f"ns_gram streaming plan {plan} does not fit T={T} R={R} "
+                         f"({smem} bytes; R <= {_GS_R_MAX})")
+
+
 def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
-                  want_v: bool = False, design: Optional[str] = None):
+                  want_v: bool = False, design: Optional[str] = None,
+                  plan: Optional[GramPlan] = None):
     """Launch ``ns_gram`` in ``design`` (default ``_ns_gram_design(T, R)``):
-    ``"per_matrix"``, one thread block per (latent, segment), or
-    ``"pairs"``, the Gram GEMM, the Newton-Schulz launch and the v GEMM on
-    a (Z, S, R (R + 1) / 2) scratch (counted as one launch)."""
+    ``"per_matrix"``, under ``plan`` (default ``gram_plan``'s: the
+    streaming path or a thread block per matrix), or ``"pairs"``, the Gram
+    GEMM, the Newton-Schulz launch and the v GEMM on a (Z, S, R (R + 1) /
+    2) scratch (counted as one launch)."""
     from ._build import load_library
 
     Z, T, R = G.shape
@@ -373,6 +493,10 @@ def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
         raise ValueError("iters must be >= 0")
     if resid_only and x0 is None:
         raise ValueError("resid_only needs x0")
+    if plan is not None:
+        if design == "pairs":
+            raise ValueError("a launch plan is the per-matrix design's")
+        _check_gram_plan(plan, T, R)
     _check_cuda("G", G, (Z, T, R))
     _check_cuda("w", w, (Z, S, T))
     if x0 is not None:
@@ -388,17 +512,26 @@ def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
     with torch.cuda.device(G.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(G.device).cuda_stream)
         flags = (Z, S, T, R, iters, int(x0 is not None), int(resid_only), int(want_v))
+        nsm = torch.cuda.get_device_properties(G.device).multi_processor_count
         if design == "pairs":
             pairs = torch.empty((Z, S, R * (R + 1) // 2), dtype=torch.float32,
                                 device=G.device)
-            nsm = torch.cuda.get_device_properties(G.device).multi_processor_count
             rc = lib.ns_gram_pairs(_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid), _ptr(v),
                                    _ptr(pairs), *flags, nsm, stream)
         else:
-            rc = lib.ns_gram(_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid), _ptr(v),
-                             *flags, stream)
+            if plan is None:
+                plan = gram_plan(T, R, Z, nsm)
+            if plan.path == "stream":
+                rc = lib.ns_gram_stream(_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid),
+                                        _ptr(v), *flags, plan.warps, min(plan.per, S),
+                                        stream)
+            else:
+                rc = lib.ns_gram(_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid), _ptr(v),
+                                 *flags, stream)
     _raise_on(rc, lib, "ns_gram")
     KERNEL_LAUNCHES["ns_gram"] += 1
+    if plan is not None and plan.path == "stream":
+        KERNEL_LAUNCHES["ns_gram_stream"] += 1
     return X, resid, v
 
 
