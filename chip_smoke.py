@@ -122,7 +122,16 @@ Phases, each of which raises on failure:
    bit for bit with the full calls (a segment's bits depend neither on S
    nor on the grid); both timed as graph replays at the flagship and at
    T1000, the plan against the first design in turns, beside the plain
-   versions and the bounds;
+   versions and the bounds; estep_step's cluster path (T1000's plan) with a
+   NaN planted in the final inference and as a captured call's replay,
+   equal to the eager call; ESTEP_LONG (T 100, 101, 1000, 1024 by R 1, 17,
+   50, 128 by Z 1, 5, 12) and S2500 T1000 against the plain version and
+   the block path bit for bit, S2500's first 37 segments alone bit for bit,
+   S2500 timed against the block path in turns; the member axis at
+   ESTEP_MEMBER_CASES (9c's chunk, B25 on S100 T1000, first): both kernels
+   against their member plain versions, every member bit for bit with its
+   own B = 1 call, B = 1 with all-ones cm bit for bit with the call
+   without members, the chunk timed;
 7. a small fit (4 trials x 120 bins x 10 neurons x 2 latents) on the card
    in float32 against the same fit on the CPU in float64 (exact route);
 8. the main paths, each with the launch counters set to 0 just before it
@@ -147,9 +156,10 @@ Phases, each of which raises on failure:
    and the peak memory statistic set to 0 just before: wall, launches, peak
    memory, each chunk's member sweeps and rounds; 100 finite scores that
    beat the latent-free baseline for most neurons, the batched scores
-   within LONO_TOL of batch 1's, ns_gram and ns_packed launched, fewer
-   ns_gram launches at batch 25 than at 1, peak memory rising with batch;
-   then one batch-25 call under torch.profiler (kernel time by kind);
+   within LONO_TOL of batch 1's, ns_gram and ns_packed launched,
+   estep_project and estep_step once each a round, fewer ns_gram launches
+   at batch 25 than at 1, peak memory rising with batch; then one batch-25
+   call under torch.profiler (kernel time by kind, the elementwise share);
    (9d) sample_posterior, 1000 samples of trial 0; (9e) fastfit (GPFA warm
    start) and gmap_speckled_cv over 3, 5 and 7 factors; (9f)
    examples/tutorial_lorenz.py's recipe at the flagship widths with the
@@ -237,10 +247,12 @@ from this run's shapes and counts; ns_gram's streaming path in the
 E-step's three modes; ns_gram and ns_packed also at 9c's
 chunk shapes, with 9c's launches at batch 25; hstep_search also on its
 wide path at T1000, with phase 13's launches; estep_project and estep_step
-at the flagship and at T1000) and, last, one JSON line
+at the flagship, at T1000 (estep_step's cluster path) and at 9c's chunk
+with members, with 9c's launches at batch 25) and, last, one JSON line
 naming the device.  Imports nothing of JAX.
 """
 import collections
+import itertools
 import json
 import os
 import pathlib
@@ -308,7 +320,8 @@ LONO_BATCHES = (1, 25, 7)
 LONO_TOL = 1e-5
 # 9c's trace: kernel names by kind (a name goes to the first kind it matches)
 LONO_KERNEL_KINDS = (("ns_gram", ("ns_gram",)), ("ns_packed", ("ns_packed_kernel",)),
-                     ("mstep", ("mstep_",)), ("hstep_search", ("hstep_search",)),
+                     ("estep", ("estep_",)), ("mstep", ("mstep_",)),
+                     ("hstep_search", ("hstep_search",)),
                      ("gemm", ("gemm", "Kernel2")), ("elementwise", ("elementwise", "reduce")))
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -2258,51 +2271,54 @@ def estep_gaps(s, out, ref_s, ref_out):
             _rel(out[1], ref_out[1], mu_scale), _rel(out[2], ref_out[2])]
 
 
-def estep_plans(project, step):
+def estep_plans(project, step, cm=None):
     """(plan, first design's plan) of estep_project and of estep_step at
-    the inputs' shape; the streaming plans' shared memory held against the
-    kernels' own layout (``estep_smem``)."""
+    the inputs' shape (B members with ``cm``); the streaming and cluster
+    plans' shared memory held against the kernels' own layout
+    (``estep_smem``)."""
     from vlgp_tpu_torch.ops import _build
     from vlgp_tpu_torch.ops import estep as oe
 
     (S, T, Y), dtype = project[0].shape, project[0].dtype
     Z, R = project[3].shape[0], step[0].shape[2]
-    plans = oe.project_plan(S, T, Y, Z, dtype), oe.step_plan(S, T, Y, Z, R, dtype)
+    B = 1 if cm is None else cm.shape[0]
+    plans = oe.project_plan(S, T, Y, Z, dtype, B), oe.step_plan(S, T, Y, Z, R, dtype, B)
     lib = _build.load_library("estep")
     for kind, plan in enumerate(plans):
-        if plan.path == "stream":
-            got = lib.estep_smem(kind, T, Y, Z, R, int(dtype == torch.float64), plan.units,
-                                 plan.stages)
+        if plan.path != "block":
+            got = lib.estep_smem(2 if plan.path == "cluster" else kind, T, Y, Z, R, B,
+                                 int(dtype == torch.float64), plan.units, plan.stages)
             if got != plan.smem:
                 raise AssertionError(f"6e estep: the kernels lay out {got} bytes of shared "
                                      f"memory where ops/estep.py plans {plan}")
-    return tuple(zip(plans, oe.block_plans(S, T, Y, Z, R, dtype)))
+    return tuple(zip(plans, oe.block_plans(S, T, Y, Z, R, dtype, B)))
 
 
-def estep_compare(tag, project, step, quiet=False):
+def estep_compare(tag, project, step, quiet=False, cm=None):
     """One case: estep_project's s against the plain version's, then
     estep_step from the plain s against its plain version (ESTEP_TOL, NaNs
     in the same places; a float32 gap above it against the float64
     evaluation, ESTEP_REF_FACTOR), each kernel's second call bit for bit
-    and the first design's (the block path) bit for bit with the plan's.
-    Returns the worst gap; logs the gaps unless ``quiet``."""
+    and the first design's (the block path) bit for bit with the plan's;
+    with ``cm`` (B, Y) B members on the same base rows.  Returns the worst
+    gap; logs the gaps unless ``quiet``."""
     from vlgp_tpu_torch.ops import estep as oe
 
     dtype = project[0].dtype
     tol = ESTEP_TOL[dtype]
-    (pp, pb), (sp, sb) = estep_plans(project, step)
-    s_p = oe._estep_project_plain(*project)
-    s_k = oe.estep_project(*project)
-    if not same_bits(s_k, oe.estep_project(*project)):
+    (pp, pb), (sp, sb) = estep_plans(project, step, cm)
+    s_p = oe._estep_project_plain(*project, cm)
+    s_k = oe.estep_project(*project, cm)
+    if not same_bits(s_k, oe.estep_project(*project, cm)):
         raise AssertionError(f"6e estep_project {tag}: two calls differ")
-    if not same_bits(s_k, oe._estep_project_cuda(*project, plan=pb)):
+    if not same_bits(s_k, oe._estep_project_cuda(*project, cm, plan=pb)):
         raise AssertionError(f"6e estep_project {tag}: the {pp.path} path's s differs from the "
                              f"block path's")
-    step = [step[0], s_p] + list(step[2:])
-    plain = oe._estep_step_plain(*step)
-    got = oe.estep_step(*step)
-    for name, g, h, b in zip(ESTEP_NAMES[1:], got, oe.estep_step(*step),
-                             oe._estep_step_cuda(*step, plan=sb)):
+    step = [step[0], s_p] + list(step[2:12])
+    plain = oe._estep_step_plain(*step, cm)
+    got = oe.estep_step(*step, cm)
+    for name, g, h, b in zip(ESTEP_NAMES[1:], got, oe.estep_step(*step, cm),
+                             oe._estep_step_cuda(*step, cm, plan=sb)):
         if not same_bits(g, h):
             raise AssertionError(f"6e estep_step {tag}: {name} differs between two calls")
         if not same_bits(g, b):
@@ -2314,7 +2330,8 @@ def estep_compare(tag, project, step, quiet=False):
         def up(args):
             return [t.double() if torch.is_tensor(t) and t.is_floating_point() else t
                     for t in args]
-        ref_s, ref = oe._estep_project_plain(*up(project)), oe._estep_step_plain(*up(step))
+        ref_s = oe._estep_project_plain(*up(project), None if cm is None else cm.double())
+        ref = oe._estep_step_plain(*up(step), None if cm is None else cm.double())
         by_k, by_p = estep_gaps(s_k, got, ref_s, ref), estep_gaps(s_p, plain, ref_s, ref)
         notes = "; from float64: kernel " + ", ".join(
             f"{n} {k:.2e}" for n, (k, _) in zip(ESTEP_NAMES, by_k)) + ", plain " + ", ".join(
@@ -2327,7 +2344,7 @@ def estep_compare(tag, project, step, quiet=False):
                                  f"{notes}")
     worst = max(d for d, _ in gaps)
     if not quiet or notes:
-        log(f"  estep {tag} {str(dtype)[6:]}: "
+        log(f"  estep {tag} {str(dtype)[6:]} ({pp.path} / {sp.path}): "
             + ", ".join(f"{n} {d:.2e}" for n, (d, _) in zip(ESTEP_NAMES, gaps))
             + f" (s, w of their largest |entry|, mu and delta of the largest |mu|; tolerance "
               f"{tol:.0e}){notes}; repeat bit for bit")
@@ -2409,21 +2426,39 @@ def check_estep(device, gen, result):
                                       *step[2:])[1].abs().max()) != float(torch.tensor(0.05,
                                                                                       dtype=dtype)):
             raise AssertionError("6e estep: the clip case does not reach dmu_bound")
-    # a NaN in one segment's y stays in that segment
-    project, step = [list(t) for t in recorded["flagship"]]
-    project[0] = project[0].clone()
-    project[0][7, 3, 5] = float("nan")
-    worst = max(worst, estep_compare("flagship, NaN in segment 7's y", project, step))
-    s = oe.estep_project(*project)
-    step[1] = s
-    out = (s,) + tuple(oe.estep_step(*step))
-    other = torch.arange(s.shape[1], device=device) != 7
-    for name, t in zip(ESTEP_NAMES, out):
-        if bool(torch.isfinite(t[:, 7]).all()) or not bool(torch.isfinite(t[:, other]).all()):
-            raise AssertionError(f"6e estep: the NaN in segment 7's y did not stay in segment "
-                                 f"7's {name}")
-    log("  estep: a NaN in segment 7's y: s, mu, delta and w NaN in segment 7, every other "
-        "segment finite")
+    # a NaN in one segment's y stays in that segment (the streaming paths at
+    # the flagship, the cluster path in the final inference)
+    for key in ("flagship", "final"):
+        project, step = [list(t) for t in recorded[key]]
+        project[0] = project[0].clone()
+        project[0][7, 3, 5] = float("nan")
+        worst = max(worst, estep_compare(f"{key}, NaN in segment 7's y", project, step))
+        s = oe.estep_project(*project)
+        step[1] = s
+        out = (s,) + tuple(oe.estep_step(*step))
+        other = torch.arange(s.shape[1], device=device) != 7
+        for name, t in zip(ESTEP_NAMES, out):
+            if bool(torch.isfinite(t[:, 7]).all()) or not bool(torch.isfinite(t[:, other]).all()):
+                raise AssertionError(f"6e estep ({key}): the NaN in segment 7's y did not stay "
+                                     f"in segment 7's {name}")
+        log(f"  estep ({key}): a NaN in segment 7's y: s, mu, delta and w NaN in segment 7, "
+            f"every other segment finite")
+    # a captured call replays the eager call's bits (the final inference's
+    # plan: the cluster path, its grid read from the card before the capture)
+    project, step = recorded["final"]
+    args = [step[0], oe.estep_project(*project)] + list(step[2:])
+    eager = oe.estep_step(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = oe.estep_step(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for name, g, e in zip(ESTEP_NAMES[1:], captured, eager):
+        if not same_bits(g, e):
+            raise AssertionError(f"6e estep_step (final): the captured call's {name} differs "
+                                 f"from the eager call's")
+    log(f"  estep_step (final, {estep_plans(project, args)[1][0].path} path): a captured call's "
+        f"replay gives the eager call's mu, delta and w bit for bit")
     # a segment's bits depend neither on S nor on the grid: the first
     # ESTEP_PREFIX[key] segments alone against the full call's
     for key, n in ESTEP_PREFIX.items():
@@ -2484,6 +2519,7 @@ def check_estep(device, gen, result):
             f"{bs:.4f} ms ({bs_by}); the sweep's chain {kp[0] + ks[0]:.4f} ms in the kernels "
             f"({kb[0] + bb[0]:.4f} in the first design) against {pp[0] + ps[0]:.4f} ms plain")
         times[key] = ((kp, pp, bp, bp_by), (ks, ps, bs, bs_by))
+        times[key + " paths"] = (pk.path, sk.path)
         # 20 launches of each kernel captured in one graph against the same
         # 20 launched eagerly, CUDA events around each batch
         batch = []
@@ -2493,6 +2529,175 @@ def check_estep(device, gen, result):
         log(f"  estep ({key}) ms a launch over 20 launches: " + "; ".join(batch))
     times["err"] = worst
     return times
+
+
+# 6e's shapes of estep_step's cluster path (T > 64 where G does not fit one
+# block): T at a chunk's edges (100 and 101 in two chunks of t, 1000 and
+# 1024 in 16), R 1 to the 128 limit (R <= T: G's rank), Z 1, 5 and 12, each
+# case five segments with mixed channels and a ragged mask.  A shape whose
+# stages fit one block streams, one whose cluster stages do not fit takes
+# the block path; every case holds the plan's path against the block path
+# bit for bit all the same
+ESTEP_LONG = tuple((T, R, Z) for T, R, Z in itertools.product(
+    (100, 101, 1000, 1024), (1, 17, 50, 128), (1, 5, 12)) if R <= T)
+# 6e's member axis: (tag, S, T, Y, Z, R, B, mixed channels and a ragged
+# mask); leave-one-neuron-out's chunk at its default batch (9c) first
+ESTEP_MEMBER_CASES = (("9c chunk", 100, 1000, 100, 5, 50, 25, False),
+                      ("segments", 200, 50, 100, 5, 40, 3, True),
+                      ("T101", 7, 101, 37, 5, 17, 4, True),
+                      ("Z12", 9, 64, 37, 12, 17, 2, True))
+
+
+def check_estep_long(device, gen):
+    """6e's cluster path: every shape of ESTEP_LONG and S2500 T1000 (the 9c
+    chunk's segment count, no members) against the plain version, and the
+    plan's path against the block path bit for bit (estep_compare); the
+    first 37 segments of the S2500 call alone bit for bit with the full
+    call; the S2500 call timed on the plan's path and the block path in
+    turns.  Returns (worst gap, {path: cases}, (ms, block ms) at S2500)."""
+    from vlgp_tpu_torch.ops import estep as oe
+
+    worst, paths = 0.0, collections.Counter()
+    for T, R, Z in ESTEP_LONG:
+        project, step = estep_case(5, T, 100, Z, R, 1, torch.float32, device, gen, mixed=True,
+                                   ragged=True)
+        worst = max(worst, estep_compare(f"S5 T{T} Y100 Z{Z} R{R}", project, step, quiet=True))
+        paths[estep_plans(project, step)[1][0].path] += 1
+    log(f"  estep at {len(ESTEP_LONG)} shapes of T 100, 101, 1000, 1024 by R 1, 17, 50, 128 (R <= "
+        f"T) by Z 1, 5, 12 (S5 Y100, mixed channels, ragged mask), estep_step's paths "
+        f"{dict(paths)}: "
+        f"worst {worst:.2e} (tolerance {ESTEP_TOL[torch.float32]:.0e}); each plan's path bit for "
+        f"bit with the block path")
+    project, step = estep_case(2500, 1000, 100, 5, 50, 1, torch.float32, device, gen)
+    worst = max(worst, estep_compare("S2500 T1000 Y100 Z5 R50", project, step))
+    n = 37
+    s = oe.estep_project(*project)
+    full = (s,) + tuple(oe.estep_step(step[0], s, *step[2:]))
+    cut = [t[:n] for t in project[:3]] + [project[3], project[4][:, :n], project[5][:, :n],
+                                          project[6], project[7]]
+    zst = [t[:, :n] for t in (s, step[2], step[3], step[4], step[8])]
+    out_n = (oe.estep_project(*cut),) + tuple(oe.estep_step(
+        step[0], zst[0], zst[1], zst[2], zst[3], step[5][:n], step[6], step[7][:n], zst[4],
+        *step[9:]))
+    for name, a, b in zip(ESTEP_NAMES, out_n, full):
+        if not same_bits(a, b[:, :n]):
+            raise AssertionError(f"6e estep (S2500 T1000): {name} of the first {n} segments "
+                                 f"alone differs from the full call's")
+    step = [step[0], s] + list(step[2:])
+    (_, _), (sk, sb) = estep_plans(project, step)
+    turns = {"k": [], "b": []}
+    for order in (("k", "b"), ("b", "k")):
+        for key in order:
+            turns[key].append(graph_ms(lambda: oe._estep_step_cuda(*step, plan=sb)) if key == "b"
+                              else graph_ms(lambda: oe.estep_step(*step)))
+    kms, bms = (min(turns[k], key=lambda t: t[0]) for k in ("k", "b"))
+    grid = sk.grid
+    if sk.path == "cluster":
+        grid = sk.units * min(2500, oe._resident_clusters(sk, 1000, 100, 5, 50, torch.float32,
+                                                          device))
+    log(f"  estep_step Z5 S2500 T1000 Y100 R50 float32 ({sk.path} path, grid {grid} of "
+        f"{sk.threads} threads): the first {n} segments alone bit for "
+        f"bit with the full call; kernel {fmt_ms(kms)}, block path in turns {fmt_ms(bms)} "
+        f"(medians {', '.join(f'{t[0]:.4f}' for t in turns['k'])} against "
+        f"{', '.join(f'{t[0]:.4f}' for t in turns['b'])}); graph replays")
+    return worst, dict(paths), (kms, bms)
+
+
+def members_case(S, T, Y, Z, R, B, dtype, device, gen, mixed=False):
+    """Inputs of one sweep of B members on S base segments (estep_case's
+    y, xb, mask, loading, channels and G, ragged where ``mixed``), each
+    member its own mu, v, w and X (Z, B S, ...), and the channel weights
+    cm (B, Y): member b holds out channel b mod Y.  (project args, step
+    args with s None, cm)."""
+    project, step = estep_case(S, T, Y, Z, R, 1, dtype, device, gen, mixed=mixed, ragged=mixed)
+    y, xb, mask, a, _, _, poisson, noise = project
+    G, bound_ = step[0], step[11]
+    kw = dict(device=device, dtype=dtype)
+    mu = 0.5 * torch.randn((Z, B * S, T), generator=gen, **kw)
+    v = 0.01 + 0.09 * torch.rand((Z, B * S, T), generator=gen, **kw)
+    wm = (0.1 + 2.9 * torch.rand((Z, B * S, T), generator=gen, **kw)) * mask.repeat(B, 1)[None]
+    Xinv = torch.linalg.inv(torch.eye(R, **kw) + torch.einsum("ztr,zst,ztq->zsrq", G, wm, G))
+    cm = torch.ones((B, Y), **kw)
+    cm[torch.arange(B), torch.arange(B) % Y] = 0.0
+    return ([y, xb, mask, a, mu, v, poisson, noise],
+            [G, None, mu, wm, Xinv, mask, a, xb, v, poisson, noise, bound_], cm)
+
+
+def member_of(project, step, b, S):
+    """Member b's arguments alone (its segments of mu, v, w, s and X)."""
+    sl = slice(b * S, (b + 1) * S)
+    pr = list(project)
+    pr[4], pr[5] = project[4][:, sl], project[5][:, sl]
+    st = list(step)
+    for i in (1, 2, 3, 4, 8):
+        st[i] = None if step[i] is None else step[i][:, sl]
+    return pr, st
+
+
+def estep_member_bounds(Z, S, T, Y, R, B, nbytes=4):
+    """estep_bounds with B members on S base segments: y, xb and the mask
+    read once, the members' vectors, X and outputs each once, cm once."""
+    N, M = S * T, B * S * T
+    proj = bound(3 * Z * M * Y, nbytes * (2 * N * Y + N + 2 * Z * M + Z * Y + Y + B * Y + Z * M)
+                 + Y)
+    step = bound(3 * Z * M * Y + Z * B * S * (4 * T * R + R * R),
+                 nbytes * (Z * T * R + 4 * Z * M + Z * B * S * R * R + N + Z * Y + N * Y + Y
+                           + B * Y + 3 * Z * M) + Y)
+    return proj, step
+
+
+def check_estep_members(device, gen):
+    """6e's member axis (leave-one-neuron-out's chunks): at each of
+    ESTEP_MEMBER_CASES both kernels against their member plain versions and
+    the plans' paths against the block path bit for bit (estep_compare with
+    cm); every member of the call bit for bit with its own B = 1 call; B =
+    1 with all-ones cm bit for bit with the call without members; the 9c
+    chunk timed (graph replays) beside the plain versions and the bounds.
+    Returns {"chunk": (project (ms, plain ms, bound ms, binds), step (...),
+    paths), "err": worst gap}."""
+    from vlgp_tpu_torch.ops import estep as oe
+
+    worst, out = 0.0, {}
+    for tag, S, T, Y, Z, R, B, mixed in ESTEP_MEMBER_CASES:
+        project, step, cm = members_case(S, T, Y, Z, R, B, torch.float32, device, gen, mixed)
+        worst = max(worst, estep_compare(f"{tag} B{B} S{S} T{T} Y{Y} Z{Z} R{R}", project, step,
+                                         cm=cm))
+        s = oe.estep_project(*project, cm)
+        step = [step[0], s] + list(step[2:])
+        full = (s,) + tuple(oe.estep_step(*step, cm))
+        for b in range(B):
+            pb, sb_ = member_of(project, step, b, S)
+            one = (oe.estep_project(*pb, cm[b:b + 1]),) + tuple(oe.estep_step(*sb_, cm[b:b + 1]))
+            for name, g, f in zip(ESTEP_NAMES, one, full):
+                if not same_bits(g, f[:, b * S:(b + 1) * S]):
+                    raise AssertionError(f"6e estep members ({tag}): member {b}'s {name} alone "
+                                         f"differs from the B{B} call's")
+        p0, s0 = member_of(project, step, 0, S)
+        ones = torch.ones_like(cm[:1])
+        with_cm = (oe.estep_project(*p0, ones),) + tuple(oe.estep_step(*s0, ones))
+        without = (oe.estep_project(*p0),) + tuple(oe.estep_step(*s0))
+        for name, g, f in zip(ESTEP_NAMES, with_cm, without):
+            if not same_bits(g, f):
+                raise AssertionError(f"6e estep members ({tag}): B = 1 with all-ones cm gives "
+                                     f"another {name} than the call without members")
+        (pp, _), (sp, _) = estep_plans(project, step, cm)
+        log(f"  estep members ({tag}, {pp.path} / {sp.path} paths): each of the {B} members "
+            f"bit for bit with its own B = 1 call; B = 1 with all-ones cm bit for bit with the "
+            f"call without members")
+        if tag == "9c chunk":
+            kp = graph_ms(lambda: oe.estep_project(*project, cm))
+            ks = graph_ms(lambda: oe.estep_step(*step, cm))
+            pl_p = graph_ms(lambda: oe._estep_project_plain(*project, cm))
+            pl_s = graph_ms(lambda: oe._estep_step_plain(*step, cm))
+            (bp, bp_by), (bs, bs_by) = estep_member_bounds(Z, S, T, Y, R, B)
+            log(f"  estep members at the 9c chunk (B{B} S{S} T{T} Y{Y} Z{Z} R{R} float32): "
+                f"estep_project {fmt_ms(kp)} ({pp.path} path), plain {fmt_ms(pl_p)}, bound "
+                f"{bp:.4f} ms ({bp_by}); estep_step {fmt_ms(ks)} ({sp.path} path), plain "
+                f"{fmt_ms(pl_s)}, bound {bs:.4f} ms ({bs_by}); a round's chain {kp[0] + ks[0]:.3f} "
+                f"ms against {pl_p[0] + pl_s[0]:.3f} ms plain; graph replays")
+            out["chunk"] = ((kp, pl_p, bp, bp_by), (ks, pl_s, bs, bs_by), (pp.path, sp.path))
+    out["err"] = worst
+    return out
 
 
 def batch_launch_ms(fn, n):
@@ -2931,6 +3136,12 @@ def run_leave_one_neuron_out(result, card):
         for name in ("ns_gram", "ns_packed"):
             if launches[name] == 0:
                 raise AssertionError(f"9c batch={batch}: never launched {name}")
+        # every round of every chunk is one launch of each E-step kernel
+        rounds = control.TRIPS["lono_rounds"]
+        if not launches["estep_project"] == launches["estep_step"] == rounds > 0:
+            raise AssertionError(f"9c batch={batch}: estep_project / estep_step launched "
+                                 f"{launches['estep_project']} / {launches['estep_step']} times "
+                                 f"in {rounds} rounds")
         runs[batch] = (launches, wall, peak)
         scores_of[batch] = scores
         sweeps_of[batch] = {n: s for c in chunks for n, s in zip(c["neurons"], c["sweeps"])}
@@ -2956,7 +3167,8 @@ def run_leave_one_neuron_out(result, card):
         groups[kind] += t
     log(f"9c traced batch={max(LONO_BATCHES)} [{card}]: {wall:.3f} s wall, kernels busy "
         f"{busy:.3f} s ({1 - busy / wall:.1%} of the wall without a kernel); kernel s by kind "
-        + ", ".join(f"{k} {groups[k]:.3f}" for k, _ in LONO_KERNEL_KINDS + (("other", ()),)))
+        + ", ".join(f"{k} {groups[k]:.3f}" for k, _ in LONO_KERNEL_KINDS + (("other", ()),))
+        + f"; elementwise {groups['elementwise'] / max(busy, 1e-30):.1%} of the kernels' time")
     if not runs[max(LONO_BATCHES)][0]["ns_gram"] < runs[1][0]["ns_gram"]:
         raise AssertionError("9c: the largest batch made no fewer ns_gram launches than batch=1")
     peaks = [runs[batch][2] for batch in sorted(LONO_BATCHES)]
@@ -4194,6 +4406,9 @@ def main():
     tic = time.perf_counter()
     log(f"6e estep_project / estep_step against their plain versions [{card}]:")
     es_out = check_estep(device, seeded(), fits[3][6])
+    el_err, _, _ = check_estep_long(device, seeded())
+    em_out = check_estep_members(device, seeded())
+    es_out["err"] = max(es_out["err"], el_err)
     log(f"6e: {time.perf_counter() - tic:.1f} s")
     tr_launches = run_transform(fits[3][6])[0]
     n_solve = run_spd_solve(device, seeded())
@@ -4323,10 +4538,11 @@ def main():
             ("flagship", f"Z{ZDIM} S2000 T50 Y{YDIM} R40", default[0]),
             ("final", f"Z{ZDIM} S{NTRIAL} T{LENGTH} Y{YDIM} R50, transform's inference",
              tr_launches)):
-        for name, source_line, (ms, pms, b_ms, b_by) in zip(
-                ("estep_project", "estep_step"), ("202", "206"), es_out[key]):
+        for name, source_line, path, (ms, pms, b_ms, b_by) in zip(
+                ("estep_project", "estep_step"), ("202", "206"), es_out[key + " paths"],
+                es_out[key]):
             kernels.append(
-                {"name": f"{name} ({shape})", "route": "cuda",
+                {"name": f"{name} ({path} path, {shape})", "route": "cuda",
                  "source": "vlgp_tpu_torch/csrc/estep.cu",
                  "replaces": f"vlgp_tpu/models/vlgp.py:{source_line}",
                  "launches": launched[name], "max_abs_err": es_out["err"], "ms": ms[0],
@@ -4334,6 +4550,17 @@ def main():
     # the kernels at the shapes of a leave_one_neuron_out chunk, launches of
     # 9c's run at the default batch
     lono_launches = lono[max(LONO_BATCHES)][0]
+    (kp, pl_p, bp, bp_by), (ks, pl_s, bs, bs_by), (pp, sp) = em_out["chunk"]
+    for name, source_line, path, ms, pms, b_ms, b_by in (
+            ("estep_project", "202", pp, kp, pl_p, bp, bp_by),
+            ("estep_step", "206", sp, ks, pl_s, bs, bs_by)):
+        kernels.append(
+            {"name": f"{name} ({path} path, 9c chunk: B{ESTEP_MEMBER_CASES[0][6]} members on "
+                     f"Z{ZDIM} S{NTRIAL} T{LENGTH} Y{YDIM} R50)", "route": "cuda",
+             "source": "vlgp_tpu_torch/csrc/estep.cu",
+             "replaces": f"vlgp_tpu/models/vlgp.py:{source_line}",
+             "launches": lono_launches[name], "max_abs_err": em_out["err"], "ms": ms[0],
+             "plain_ms": pms[0], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     for mode in ("warm+v", "probe+v"):
         row = next(r for r in g_rows_l if r[0] == mode)
         b_ms, b_by = ns_gram_bound(ZDIM, lono_S, LENGTH, 50, mode)

@@ -259,22 +259,27 @@ def test_launch_plans_fit_cover_every_row_and_segment_once_and_refuse_nothing(sh
     oe._check_sizes("estep_step", S, T, Y, Z, R)
     pp, sp = oe.project_plan(S, T, Y, Z, dtype), oe.step_plan(S, T, Y, Z, R, dtype)
     for plan in (pp, sp) + tuple(oe.block_plans(S, T, Y, Z, R, dtype)):
-        assert plan.path in ("stream", "block")
+        assert plan.path in ("stream", "cluster", "block")
         assert 0 < plan.smem <= oe.SMEM_MAX == 232_448
         assert 1 <= plan.grid and plan.threads % 32 == 0 and plan.threads <= 1024
     bp, bs = oe.block_plans(S, T, Y, Z, R, dtype)
     for plan in (pp, bp):
         seen = np.zeros(S * T, dtype=np.int64)
         for block in oe.project_walk(plan, S * T):
-            for first, n in block:
+            for first, n, _ in block:
                 assert n >= 1
                 seen[first:first + n] += 1
         assert (seen == 1).all()
     for plan in (sp, bs):
         seen = np.zeros(S, dtype=np.int64)
-        for block in oe.step_walk(plan, S):
+        walk = oe.step_walk(plan, S)
+        if plan.path == "cluster":  # a cluster's blocks share its segments
+            assert all(walk[b] == walk[b - b % plan.units] for b in range(plan.grid))
+            walk = walk[::plan.units]
+        for block in walk:
             groups = [g for _, g in block]
-            assert groups == [k % max(plan.units, 1) for k in range(len(block))]
+            assert groups == [0 if plan.path == "cluster" else k % max(plan.units, 1)
+                              for k in range(len(block))]
             for seg, _ in block:
                 seen[seg] += 1
         assert (seen == 1).all()
@@ -287,5 +292,5 @@ def test_launch_plans_fit_cover_every_row_and_segment_once_and_refuse_nothing(sh
     if shape == "flagship" and dtype == torch.float32:
         assert (pp.path, pp.units, pp.stages, sp.path, sp.units, sp.stages) == \
             ("stream", 60, 4, "stream", 2, 3)
-    if shape == "final_T1000":
-        assert sp.path == "block"  # G alone is 1 MB
+    if shape == "final_T1000":  # G alone is 1 MB: a cluster of 16 blocks shares it in float32
+        assert sp.path == ("cluster" if dtype == torch.float32 else "block")

@@ -1,7 +1,9 @@
 """Time the CUDA kernels of one checkout of vlgp_tpu_torch on the card, so
 that two trees can be compared in turns within one machine:
 
-    python3 tools/torch_kernel_ab.py [ROOT] [--spd-only | --designs | --paths | --hstep]    # ROOT: a checkout (default: this one)
+    python3 tools/torch_kernel_ab.py [ROOT] [--spd-only | --designs | --paths | --hstep | --estep]
+
+ROOT: a checkout (default: this one).
 
 Builds ROOT's ``csrc/`` and prints one JSON line with the card's name and
 power limit and, per case, [median, min, max] ms over 10 calls, each
@@ -36,7 +38,9 @@ whether the two paths agree bit for bit: the measurements behind
 flagship's default fit and prints the SHA-256 of its params and posterior
 means (equal across two trees when their fits are equal bit for bit), then
 times the H-step's kernels on that fit's state as ``chip_smoke.py`` 6c and
-6d record it: ``hstep_search`` at the first refinement's C (Z5 T50, its x
+6d record it; ``--estep`` times the E-step's kernels at whole trials and
+leave-one-neuron-out (below).  ``--hstep``: ``hstep_search`` at the first
+refinement's C (Z5 T50, its x
 in hex), and on that refinement's settings at T150, T200 and T1000
 (``window=None``: the wide path, C from ``chip_smoke.gp_statistic``, its x
 in hex; 3 calls at T1000) with the plan it picks and, on a tree with the
@@ -44,7 +48,17 @@ wide path's plans, every plan of 8 or more blocks a cluster (3 calls
 each), ``hstep_stat`` at the fit's segments (Z5 S2000
 T50 R40) and at whole trials (Z5 S100 T1000 R50, ``chip_smoke.hstat_case``),
 each beside its plain version, and the SM clock and power (``nvidia-smi``)
-while the T1000 call runs back to back.  The inputs are made with
+while the T1000 call runs back to back.  ``--estep``: ``estep_project`` and
+``estep_step`` on the plans the checkout picks at Z5 T1000 Y100 R50 for S100
+(the final inference) and S2500 (a leave-one-neuron-out chunk's segment
+count, no members), inputs as ``chip_smoke.estep_case`` draws them, and,
+where the checkout's kernels take members (``cm``), at the chunk itself (25
+members on S100, ``chip_smoke.members_case``), each as replays of a
+captured call; then the flagship's default fit and
+``leave_one_neuron_out`` over its 100 neurons at batch 1, 25 and 7: wall,
+peak memory above the held state, launches, rounds and the scores' digest,
+and one traced call at batch 25 with its kernel time by kind
+(``chip_smoke.LONO_KERNEL_KINDS``).  The inputs are made with
 ``chip_smoke.py``'s helpers, from seed 0 (the sweep's from the seed of its
 draw).  Needs a CUDA device.
 """
@@ -61,6 +75,7 @@ SPD_ONLY = "--spd-only" in sys.argv[1:]
 DESIGNS = "--designs" in sys.argv[1:]
 HSTEP = "--hstep" in sys.argv[1:]
 PATHS = "--paths" in sys.argv[1:]
+ESTEP = "--estep" in sys.argv[1:]
 ROOT = pathlib.Path(ARGS[0]).resolve() if ARGS else HERE
 sys.path.insert(0, str(ROOT))
 
@@ -86,8 +101,9 @@ def main():
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     out = {"root": str(ROOT), "card": smi.splitlines()[0]}
-    if DESIGNS or HSTEP or PATHS:
-        (time_designs if DESIGNS else time_paths if PATHS else time_hstep)(device, gen, out)
+    if DESIGNS or HSTEP or PATHS or ESTEP:
+        (time_designs if DESIGNS else time_paths if PATHS else time_estep if ESTEP
+         else time_hstep)(device, gen, out)
         print(json.dumps(out))
         return
     if not SPD_ONLY:
@@ -255,6 +271,63 @@ def time_hstep(device, gen, out):
         torch.cuda.synchronize()
     smi.terminate()
     out["clocks.sm, power.draw during hstep_stat T1000"] = smi.communicate()[0].split("\n")[4:12]
+
+
+def time_estep(device, gen, out):
+    """The E-step's kernels at whole trials and leave-one-neuron-out's walls
+    (``--estep``)."""
+    import collections
+    import hashlib
+    import inspect
+
+    from vlgp_tpu_torch import model_selection as ms
+    from vlgp_tpu_torch.ops import control, spd
+    from vlgp_tpu_torch.ops import estep as oe
+
+    Z, T, Y, R = cs.ZDIM, cs.LENGTH, cs.YDIM, 50
+    for S in (cs.NTRIAL, 25 * cs.NTRIAL):
+        project, step = cs.estep_case(S, T, Y, Z, R, 1, torch.float32, device,
+                                      gen.manual_seed(0))
+        project = [t.contiguous() for t in project]
+        step = [step[0], oe._estep_project_plain(*project)] + list(step[2:])
+        out[f"estep_project Z{Z} S{S} T{T} Y{Y}"] = cs.graph_ms(lambda: oe.estep_project(*project))
+        out[f"estep_step Z{Z} S{S} T{T} Y{Y} R{R}"] = cs.graph_ms(lambda: oe.estep_step(*step))
+        out[f"estep_step Z{Z} S{S} T{T} Y{Y} R{R} path"] = oe.step_plan(S, T, Y, Z, R).path
+        del project, step
+    if "cm" in inspect.signature(oe.estep_project).parameters:
+        project, step, cm = cs.members_case(cs.NTRIAL, T, Y, Z, R, 25, torch.float32, device,
+                                            gen.manual_seed(0))
+        step = [step[0], oe.estep_project(*project, cm)] + list(step[2:])
+        tag = f"B25 S{cs.NTRIAL} T{T} Y{Y} Z{Z} R{R}"
+        out[f"estep_project {tag}"] = cs.graph_ms(lambda: oe.estep_project(*project, cm))
+        out[f"estep_step {tag}"] = cs.graph_ms(lambda: oe.estep_step(*step, cm))
+        del project, step, cm
+    torch.cuda.empty_cache()
+    result = cs.run_fit(False)[6]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    for batch in (1, 25, 7):
+        spd.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        scores = ms.leave_one_neuron_out(result, batch=batch)
+        wall = time.perf_counter() - tic
+        digest = hashlib.sha256(json.dumps([float.hex(float(scores[n]))
+                                            for n in sorted(scores)]).encode()).hexdigest()
+        out[f"9c batch {batch}"] = {
+            "wall_s": wall,
+            "peak_above_held_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+            "launches": {k: spd.KERNEL_LAUNCHES[k] for k in ("ns_gram", "ns_packed",
+                                                             "estep_project", "estep_step")},
+            "rounds": control.TRIPS["lono_rounds"], "scores_sha256": digest,
+            "scores": [float(scores[n]) for n in sorted(scores)]}
+    wall, busy, by_name = cs.trace_kernels(lambda: ms.leave_one_neuron_out(result, batch=25))
+    kinds = collections.Counter()
+    for name, t in by_name.items():
+        kinds[next((k for k, keys in cs.LONO_KERNEL_KINDS if any(x in name for x in keys)),
+                   "other")] += t
+    out["9c batch 25 traced"] = {"wall_s": wall, "kernels_s": busy, "by_kind_s": dict(kinds)}
 
 
 def time_sweep(device, gen):

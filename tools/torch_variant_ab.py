@@ -31,8 +31,11 @@ largest |value|; for the plain version's float32 output too).  Cases:
     draws them;
   * ``estep``: ``estep_project`` and ``estep_step`` (from the plain s) at
     the flagship's segments (Z5 S2000 T50 Y100 R40) and the final
-    inference's trials (Z5 S100 T1000 Y100 R50), Poisson channels, inputs
-    as chip_smoke's 6e draws them (``estep_case``), contiguous; each timed
+    inference's trials (Z5 S100 T1000 Y100 R50), or at ``--estep-shapes``
+    (SxTxR, or BxSxTxR for B members on S segments, chip_smoke's
+    ``members_case``, which a variant without the member axis refuses),
+    Poisson channels, inputs as chip_smoke's 6e draws them
+    (``estep_case``), contiguous; each timed
     as replays of a captured call (``chip_smoke.graph_ms``: the device
     time without the host's launch cost, which a call as short as these
     can exceed).
@@ -168,16 +171,46 @@ PLANLESS_ESTEP = {"estep_project": ([_p] * 9 + [_i] * 4 + [_p], _i),
 
 def estep_call(kind, args):
     """``estep_project`` or ``estep_step`` (``kind``) through the current
-    variant: the package's wrapper where the variant takes a launch plan,
-    else the planless prototype on contiguous inputs."""
+    variant: the package's wrapper where the variant has the member axis
+    and the cluster path (``estep_cluster_resident``), a launch plan
+    without them (the older prototypes: the streaming path where it fits,
+    else the block path) or the planless prototype, on contiguous inputs.
+    ``args`` ends with cm (B, Y) for members, which only the first takes."""
     from vlgp_tpu_torch.ops import _build
     from vlgp_tpu_torch.ops import estep as oe
     from vlgp_tpu_torch.ops.spd import _ptr
 
     lib = _build._libs["estep"]
-    if lib.with_plan:
+    if hasattr(lib, "estep_cluster_resident"):
         return oe.estep_project(*args) if kind == "project" else oe.estep_step(*args)
+    if len(args) > (8 if kind == "project" else 12):
+        raise RuntimeError("this variant has no member axis")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if lib.with_plan:
+        if kind == "project":
+            y, xb, mask, a, mu, v, pois, noise = args
+            (S, T, Y), Z = y.shape, a.shape[0]
+            plan = oe.project_plan(S, T, Y, Z, y.dtype)
+            s = torch.empty((Z, S, T), dtype=y.dtype, device=y.device)
+            rc = lib.estep_project(*[_ptr(t) for t in (y, xb, mask, a, mu, v, pois, noise, s)],
+                                   S * T, Y, Z, int(y.dtype == torch.float64),
+                                   plan.units if plan.path == "stream" else 0, plan.stages,
+                                   plan.grid, stream)
+            outs = s
+        else:
+            G, s, mu, w, X, mask, a, xb, v, pois, noise, bound = args
+            (Z, T, R), S, Y = G.shape, xb.shape[0], xb.shape[2]
+            plan = oe.step_plan(S, T, Y, Z, R, G.dtype)
+            stream_path = plan.path == "stream"
+            outs = [torch.empty_like(mu) for _ in range(3)]
+            rc = lib.estep_step(*[_ptr(t) for t in (G, s, mu, w, X, mask, a, xb, v, pois, noise,
+                                                    *outs)],
+                                S, T, Y, Z, R, float(bound), int(G.dtype == torch.float64),
+                                plan.units if stream_path else 0, plan.stages if stream_path else 0,
+                                plan.grid if stream_path else 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"estep_{kind} failed: {lib.ns_error_string(rc).decode()}")
+        return outs
     if kind == "project":
         y, xb, mask, a, mu, v, pois, noise = args
         S, T, Y = y.shape
@@ -239,8 +272,11 @@ def stamp_summary(fetch, nb, last, run):
             "phase_us_mean": [float(x) / 1e3 for x in np.diff(t, axis=1).mean(0)]}
 
 
-CYCLE_SLOTS = ("consumer", "consumer_wait", "producer", "producer_wait", "items", "A", "B", "C",
-               "D", "E", "refresh_and_stores", "G_copy")
+# slots 2 and 3 hold the producer's loop and waits, or on estep_step's
+# cluster path the consumer's cluster barriers and its sums of the chunks
+CYCLE_SLOTS = ("consumer", "consumer_wait", "producer|cluster_barriers",
+               "producer_wait|chunk_sums", "items", "A", "B", "C", "D", "E", "refresh_and_stores",
+               "G_copy")
 
 
 def cycle_summary(lib, which, run):
@@ -319,7 +355,7 @@ def rel(got, ref):
     return max(cs._rel(g.double(), r.double())[0] for g, r in zip(got, ref))
 
 
-def cases(source, device, gen):
+def cases(source, device, gen, estep_shapes=((2000, 50, 40), (100, 1000, 50))):
     """[(tag, timed: () -> None, run: () -> outputs, plain64: () -> float64
     outputs, plain: () -> float32 outputs)] of the source's cases; ``timed``
     is the main path's call (mstep_stats' pass alone, its partial sums)."""
@@ -371,13 +407,21 @@ def cases(source, device, gen):
             return [t.double() if torch.is_tensor(t) and t.is_floating_point() else t
                     for t in args]
 
-        for S, T, R in ((2000, 50, 40), (100, 1000, 50)):
-            proj, step = cs.estep_case(S, T, 100, 5, R, 1, torch.float32, device,
-                                       gen.manual_seed(0))
+        for shape in estep_shapes:
+            if len(shape) == 4:  # B members on S base segments
+                B, S, T, R = shape
+                proj, step, cm = cs.members_case(S, T, 100, 5, R, B, torch.float32, device,
+                                                 gen.manual_seed(0))
+                proj, step = proj + [cm], step + [cm]
+            else:
+                (S, T, R), B = shape, 1
+                proj, step = cs.estep_case(S, T, 100, 5, R, 1, torch.float32, device,
+                                           gen.manual_seed(0))
             proj = [t.contiguous() for t in proj]
             step = [step[0], oe._estep_project_plain(*proj)] + step[2:]
             step = [t.contiguous() if torch.is_tensor(t) else t for t in step]
             p64, s64 = up(proj), up(step)
+            S = f"B{B} S{S}" if B > 1 else S
             out.append((f"estep_project Z5 S{S} T{T} Y100",
                         lambda a=proj: estep_call("project", a),
                         lambda a=proj: [estep_call("project", a)],
@@ -414,6 +458,9 @@ def main():
     ap.add_argument("out")
     ap.add_argument("--source", choices=tuple(LIBRARY), required=True)
     ap.add_argument("--variant", action="append", required=True)
+    ap.add_argument("--estep-shapes", default="2000x50x40,100x1000x50",
+                    help="SxTxR (or BxSxTxR: B members) of the estep cases, comma-separated "
+                         "(Z5 Y100)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("torch_variant_ab.py needs a CUDA device")
@@ -444,10 +491,12 @@ def main():
             lib.ns_gram_attrs(at)
             result.setdefault("attrs", {})[n] = {
                 "ns_gram_kernel R40": dict(zip(("registers", "local_bytes", "blocks_per_sm"), at))}
+    shapes = [tuple(int(x) for x in c.split("x")) for c in opts.estep_shapes.split(",")]
     key = LIBRARY[opts.source]
     real = _build._libs[key]
     try:
-        for tag, timed, run, plain64, plain, timer, dev_us in cases(opts.source, device, gen):
+        for tag, timed, run, plain64, plain, timer, dev_us in cases(opts.source, device, gen,
+                                                                    shapes):
             ref64 = plain64()
             entry = {"plain_float32_vs_float64": rel(plain(), ref64),
                      "plain_ms": [timer(plain)]}

@@ -29,9 +29,8 @@ import torch.distributed as tdist
 from ..config import Config, Params
 from ..data import TrialSet
 from ..ops import control
-from ..ops.estep import _eta, _rates, _safe_noise, _woodbury_delta, estep_project, estep_step
+from ..ops.estep import _eta, _member_weights, _rates, _safe_noise, estep_project, estep_step
 from ..ops.linalg import svd_loading
-from ..ops.math import trunc_exp
 from ..ops.mstep import _solve, moving, mstep_stats, mstep_update, squared_norms
 from ..ops.spd import FALLBACKS, _ok, inv_one_plus_gram, inv_one_plus_psd
 from ..ops.sweep import sweep as fused_sweep
@@ -129,11 +128,6 @@ def _zminor(x):
 def _xb(x, b):
     """Regressor contribution (core.py:66)."""
     return torch.einsum("stxy,xy->sty", x, b)
-
-
-def _residual(y, eta, r, params: Params):
-    """GLM working residual (core.py:82-83)."""
-    return torch.where(params.poisson, y - r, (y - eta) / _safe_noise(params.noise))
 
 
 def _weights(U, a, dist: Dist):
@@ -283,25 +277,6 @@ def update_v(data: TrialSet, params: Params, G, config: Config, dist: Dist = Dis
 # ---------------------------------------------------------------------------
 
 
-def _eta_rates_members(muz, vz, a, xb):
-    """eta and the Poisson rates (B, S, T, Y) of B members whose latent-major
-    mu and v are (Z, B*S, T), member-major (segment b*S + s is member b's
-    segment s); xb (S, T, Y) broadcasts over the members.  The einsums and
-    adds of ``_eta`` and ``_rates``."""
-    shape = (-1,) + tuple(xb.shape)
-    eta = torch.einsum("zst,zy->sty", muz, a).reshape(shape) + xb
-    r = trunc_exp(eta + torch.einsum("zst,zy->sty", vz, 0.5 * a * a).reshape(shape))
-    return eta, r
-
-
-def _member_weights(muz, vz, params: Params, xb, cm, maskz):
-    """The weights (Z, B*S, T) of every member under its channel weights
-    ``cm`` (B, 1, 1, Y)."""
-    _, r = _eta_rates_members(muz, vz, params.a, xb)
-    U = torch.where(params.poisson, r, 1.0 / _safe_noise(params.noise)) * cm
-    return _weights(U.reshape(-1, *U.shape[-2:]), params.a, Dist()) * maskz
-
-
 def estep_members(data: TrialSet, params: Params, G: torch.Tensor, config: Config,
                   cmask: torch.Tensor, state: Tuple[torch.Tensor, ...],
                   niter: Optional[int] = None):
@@ -314,7 +289,10 @@ def estep_members(data: TrialSet, params: Params, G: torch.Tensor, config: Confi
 
     A zero channel weight multiplies that channel's residual and weight,
     which is all a zero loading column changes in the posterior
-    (``vlgp_tpu/model_selection.py:150-155``).  With ``estep_tol > 0`` each
+    (``vlgp_tpu/model_selection.py:150-155``).  Each round is one
+    ``estep_project`` and one ``estep_step`` over the B*S segments (their
+    member axis: y, xb and the mask shared, ``cmask`` the channel weights),
+    then the inverse route.  With ``estep_tol > 0`` each
     member stops on its own norms, |dmu|^2 <= tol^2 |mu|^2 after at least 2
     sweeps, as ``vmap`` of ``vlgp_tpu``'s while loop does: a stopped
     member's state is kept while the others sweep on, and the loop ends when
@@ -325,22 +303,16 @@ def estep_members(data: TrialSet, params: Params, G: torch.Tensor, config: Confi
     """
     niter = config.Eniter if niter is None else niter
     B = cmask.shape[0]
-    T, Y = data.y.shape[1:]
-    y, a = data.y, params.a
+    y, a, mask = data.y, params.a, data.mask
+    poisson, noise = params.poisson, params.noise
     xb = _xb(data.x, params.b)
     vb = config.method == "VB"
-    m = data.mask[..., None]
-    cm = cmask[:, None, None, :]
-    maskz = data.mask.repeat(B, 1)[None]
+    maskz = mask.repeat(B, 1)[None]
 
     def sweep(muz, wz, vz, X):
-        eta, r = _eta_rates_members(muz, vz, a, xb)
-        residual = _residual(y, eta, r, params) * m * cm
-        s = torch.einsum("sty,zy->zst", residual.reshape(-1, T, Y), a)
-        delta = _woodbury_delta(G, s, muz, wz * maskz, X)
-        delta = torch.clamp(delta, -config.dmu_bound, config.dmu_bound) * maskz
-        muz = muz + delta
-        wz = _member_weights(muz, vz, params, xb, cm, maskz)
+        s = estep_project(y, xb, mask, a, muz, vz, poisson, noise, cmask)
+        muz, delta, wz = estep_step(G, s, muz, wz, X, mask, a, xb, vz, poisson, noise,
+                                    config.dmu_bound, cmask)
         if vb:
             X, vz = inv_one_plus_gram(G, wz, iters=config.ns_iters, warm=X,
                                       warm_iters=config.ns_warm_iters, want_v=True)
@@ -395,8 +367,8 @@ def infer_members(data: TrialSet, params: Params, G: torch.Tensor, config: Confi
     S, T = data.mask.shape
     maskz = data.mask.repeat(B, 1)[None]
     zeros = data.y.new_zeros((params.zdim, B * S, T))
-    wz = _member_weights(zeros, zeros, params, _xb(data.x, params.b),
-                         cmask[:, None, None, :], maskz)
+    wz = _member_weights(zeros, zeros, params.a, _xb(data.x, params.b), params.poisson,
+                         params.noise, cmask[:, None, None, :], maskz)
     vz = zeros
     if config.method == "VB":
         vz = _marginal_variance(G, wz, iters=config.ns_iters) * maskz

@@ -76,9 +76,10 @@ _SIGNATURES = {
         "hstep_stat": ([_p] * 8 + [_i] * 5 + [_p], _i),
     },
     "estep": {
-        "estep_project": ([_p] * 9 + [_i] * 7 + [_p], _i),
-        "estep_step": ([_p] * 14 + [_i] * 5 + [_d] + [_i] * 4 + [_p], _i),
-        "estep_smem": ([_i] * 8, _i),
+        "estep_project": ([_p] * 10 + [_i] * 8 + [_p], _i),
+        "estep_step": ([_p] * 15 + [_i] * 6 + [_d] + [_i] * 5 + [_p], _i),
+        "estep_smem": ([_i] * 9, _i),
+        "estep_cluster_resident": ([_i] * 7, _i),
         "estep_cycles": ([_i, _p, _i], _i),
     },
 }
