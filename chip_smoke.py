@@ -38,6 +38,14 @@ Phases, each of which raises on failure:
    inv_one_plus_gram at Z5 S100 T1000 R50 (the long-T design) and at Z5
    S2000 T50 R40 (the streaming path) captured in a CUDA graph and replayed
    from a good and a NaN carry, equal to the eager call bit for bit;
+   ns_gram's long-T design with both GEMMs forced onto the streaming GEMM
+   (ops/spd.py:pairs_stream_plan) bit for bit with the tiled GEMMs
+   (TILED_PLAN) in cold+v, warm+v, probe+v and iters = 0 at the 9c chunk,
+   S100 T1000, S500 T200 and S131 at T 100, 101, 1023 by R 1, 17, 50, 127,
+   128 (and w unaligned at T100 R17), each plan's shared memory equal to
+   the kernel's layout, pairs_plan's choice logged, and each GEMM timed at
+   the chunk and at S100 (traces of warm 4 + v in turns, tiled, stream,
+   stream, tiled) beside torch.matmul on the same operands and the bound;
 5. sweep (the fused E-step) against its plain version at the flagship
    E-step shape (Z5 S2000 T50 Y100 R40, exit groups of 16) cold, from a
    real carry, from the zeros carry and with the adaptive exit (the mode
@@ -319,7 +327,7 @@ R2_SHARD_GAP = 0.004
 LONO_BATCHES = (1, 25, 7)
 LONO_TOL = 1e-5
 # 9c's trace: kernel names by kind (a name goes to the first kind it matches)
-LONO_KERNEL_KINDS = (("ns_gram", ("ns_gram",)), ("ns_packed", ("ns_packed_kernel",)),
+LONO_KERNEL_KINDS = (("ns_gram", ("ns_gram", "pairs_gemm")), ("ns_packed", ("ns_packed_kernel",)),
                      ("estep", ("estep_",)), ("mstep", ("mstep_",)),
                      ("hstep_search", ("hstep_search",)),
                      ("gemm", ("gemm", "Kernel2")), ("elementwise", ("elementwise", "reduce")))
@@ -944,6 +952,123 @@ def check_ns_gram_pairs_capture(device, gen):
         log(f"ns_gram Z={ZDIM} S={S} T={T} R={R} ({path}) in inv_one_plus_gram, captured "
             f"({captured} launches) and replayed from a good and a NaN carry: equal to the "
             f"eager call bit for bit")
+
+
+# ns_gram's long-T design, its streaming GEMM against the tiled GEMMs:
+# (Z, S, T, R) of a leave-one-neuron-out chunk, the final inference, a
+# 200-bin trial set, and the crossover's edges (T 100, 101 and 1023 with
+# S = CROSS_S: w's rows aligned or not, ragged tiles; R of CROSS_R: P odd,
+# even and the largest)
+PAIRS_SHAPES = ((ZDIM, 25 * NTRIAL, LENGTH, 50), (ZDIM, NTRIAL, LENGTH, 50), (ZDIM, 500, 200, 50),
+                *((2, CROSS_S, T, R) for T in (100, 101, 1023) for R in CROSS_R))
+# the GEMMs' kernels by name in a trace: (the streaming GEMM's, the tiled kernels')
+PAIRS_KERNELS = {"gram": ("pairs_gemm_kernel<0", "ns_gram_pairs_kernel"),
+                 "v": ("pairs_gemm_kernel<1", "ns_gram_v_kernel")}
+
+
+def pairs_gemm_ms(G, w, x0, plan, calls=10):
+    """Device ms a call of each GEMM of ns_gram's long-T design, warm 4 + v,
+    under `plan`: {"gram": ms, "v": ms} from a trace of `calls` calls."""
+    from vlgp_tpu_torch.ops import spd
+
+    spd._ns_gram_cuda(G, w, 4, x0=x0, want_v=True, plan=plan)
+    _, _, by_name = trace_kernels(lambda: [spd._ns_gram_cuda(G, w, 4, x0=x0, want_v=True,
+                                                             plan=plan) for _ in range(calls)])
+    col = 0 if plan.path == "stream" else 1
+    return {gemm: 1e3 * sum(t for name, t in by_name.items() if names[col] in name) / calls
+            for gemm, names in PAIRS_KERNELS.items()}
+
+
+def check_ns_gram_pairs_paths(device, gen):
+    """ns_gram's long-T design with both GEMMs on the streaming GEMM
+    (pairs_stream_plan, forced at every shape) against the tiled GEMMs
+    (TILED_PLAN) bit for bit, X, residual and v in cold+v, warm+v, probe+v
+    and iters = 0 with x0, at every shape of PAIRS_SHAPES, and once with w
+    at an address 4 bytes past a 16-byte word (the Gram's 4-byte copies);
+    each plan's shared memory equal to the kernel's layout (ns_pairs_smem);
+    the default plan (pairs_plan) logged at each shape.  Then each GEMM
+    timed at the chunk and at S100 from traces of warm 4 + v in turns
+    (tiled, stream, stream, tiled), beside torch.matmul on the same operands
+    (w @ K and Xp @ K', K the pairs' products, precomputed) and the plain
+    version's products (K formed, then the matmul).  Returns {shape tag:
+    {gemm: row}}."""
+    from vlgp_tpu_torch.ops import _build, spd
+
+    lib = _build.load_library("ns_inverse")
+    nsm = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = {}
+    for Z, S, T, R in PAIRS_SHAPES:
+        tag = f"Z{Z} S{S} T{T} R{R}"
+        plan = spd.pairs_stream_plan(Z, S, T, R, nsm)
+        for kind, gemm in ((0, plan.gram), (1, plan.v)):
+            got = lib.ns_pairs_smem(kind, gemm.shape, R, gemm.stages)
+            if got != gemm.smem:
+                raise AssertionError(f"ns_gram_pairs {tag} GEMM {kind}: the plan's "
+                                     f"{gemm.smem} bytes, the kernel's {got}")
+        if Z == ZDIM:
+            G = realistic_factor(Z, T, R, device)
+        else:
+            G = (torch.randn((Z, T, R), generator=gen, device=device) * 0.3).contiguous()
+        w0 = torch.rand((Z, S, T), generator=gen, device=device)
+        w = (w0 * (1e2 / max(lambda_max(G, w0), 1.0))).contiguous()
+        w_warm = (w * (1 + 0.02 * torch.rand(w.shape, generator=gen, device=device))).contiguous()
+        x0 = spd._ns_gram_plain(G, w, 16)[0].contiguous()
+        cases = [("", w, w_warm)]
+        if (Z, T, R) == (2, 100, 17):  # w 4 bytes past a 16-byte word
+            odd = torch.empty(w.numel() + w_warm.numel() + 2, device=device)
+            cases.append((" (w unaligned)", odd[1:1 + w.numel()].view_as(w).copy_(w),
+                          odd[2 + w.numel():].view_as(w_warm).copy_(w_warm)))
+        before = spd.KERNEL_LAUNCHES["ns_gram_pairs_stream"]
+        for note, ww, wwarm in cases:
+            calls = {"cold+v": lambda p: spd._ns_gram_cuda(G, ww, 16, want_v=True, plan=p),
+                     "warm+v": lambda p: spd._ns_gram_cuda(G, wwarm, 4, x0=x0, want_v=True, plan=p),
+                     "probe+v": lambda p: spd._ns_gram_cuda(G, ww, 0, x0=x0, resid_only=True,
+                                                            want_v=True, plan=p),
+                     "iters=0": lambda p: spd._ns_gram_cuda(G, ww, 0, x0=x0, want_v=True, plan=p)}
+            for mode, call in calls.items():
+                new, old = call(plan), call(spd.TILED_PLAN)
+                torch.cuda.synchronize()
+                if not same_gram(new, old):
+                    raise AssertionError(f"ns_gram_pairs {tag}{note} {mode}: the streaming GEMM "
+                                         f"differs from the tiled path ({plan})")
+        if spd.KERNEL_LAUNCHES["ns_gram_pairs_stream"] != before + 4 * len(cases):
+            raise AssertionError(f"ns_gram_pairs {tag}: the forced plan's calls did not all take "
+                                 f"the streaming GEMM")
+        default = spd.pairs_plan(Z, S, T, R, nsm)
+        log(f"ns_gram_pairs {tag}: by default "
+            + ", ".join(f"{name} on the {'streaming' if g else 'tiled'} GEMM"
+                        for name, g in (("Gram", default.gram), ("v", default.v))))
+        if (Z, T) != (ZDIM, LENGTH):
+            continue
+        i, j = torch.triu_indices(R, R, device=device)
+        K = (G[:, :, i] * G[:, :, j]).contiguous()
+        Xp = torch.randn((Z, S, R * (R + 1) // 2), generator=gen, device=device)
+        library = {"gram": time_ms(lambda: torch.matmul(w, K)),
+                   "v": time_ms(lambda: torch.matmul(Xp, K.mT))}
+        plain = {"gram": time_ms(lambda: w @ (G[:, :, i] * G[:, :, j])),
+                 "v": time_ms(lambda: Xp @ (G[:, :, i] * G[:, :, j]).mT)}
+        turns = [pairs_gemm_ms(G, w, x0, p) for p in (spd.TILED_PLAN, plan, plan, spd.TILED_PLAN)]
+        P = R * (R + 1) // 2
+        rows[tag] = {}
+        for name, gemm, N in (("gram", plan.gram, P), ("v", plan.v, T)):
+            b_ms, b_by = bound(Z * S * T * P, 4 * (Z * T * R + Z * S * (T + P)))
+            stream = [t[name] for t in turns[1:3]]
+            tiled = [turns[0][name], turns[3][name]]
+            rows[tag][name] = dict(ms=min(stream), tiled_ms=min(tiled), plain_ms=plain[name][0],
+                                   library_ms=library[name][0], bound_ms=b_ms, bound_by=b_by,
+                                   gemm=gemm)
+            log(f"ns_gram_pairs {tag} {name} GEMM (M {S}, N {N}, K {(T, P)[name == 'v']}): "
+                f"streaming {gemm.bm}x{gemm.bn} tiles, {gemm.grid} blocks, {gemm.stages} "
+                f"stages, {gemm.copy} copies {' / '.join(f'{t:.4f}' for t in stream)} ms; "
+                f"tiled {' / '.join(f'{t:.4f}' for t in tiled)} ms (in turns, warm 4 + v, "
+                f"device time a call); torch.matmul {fmt_ms(library[name])}; plain (K formed, "
+                f"then matmul) {fmt_ms(plain[name])}; bound {b_ms:.4f} ms ({b_by})")
+    log(f"ns_gram_pairs: the streaming GEMM bit for bit with the tiled path (X, residual, v) "
+        f"in cold+v/warm+v/probe+v/iters=0 at {len(PAIRS_SHAPES)} shapes "
+        f"({', '.join(f'Z{z} S{s} T{t} R{r}' for z, s, t, r in PAIRS_SHAPES[:3])}, and S"
+        f"{CROSS_S} at T 100/101/1023 by R {CROSS_R}; w unaligned at T100 R17); each plan's "
+        f"bytes equal to the kernel's")
+    return rows
 
 
 def sweep_inputs(Z, S, T, Y, R, device, gen, ragged=False):
@@ -3136,6 +3261,10 @@ def run_leave_one_neuron_out(result, card):
         for name in ("ns_gram", "ns_packed"):
             if launches[name] == 0:
                 raise AssertionError(f"9c batch={batch}: never launched {name}")
+        # the chunk's GEMMs (Z5 S2500 T1000 R50) take the streaming GEMM
+        if batch == max(LONO_BATCHES) and launches["ns_gram_pairs_stream"] == 0:
+            raise AssertionError(f"9c batch={batch}: ns_gram's long-T GEMMs never took the "
+                                 f"streaming GEMM")
         # every round of every chunk is one launch of each E-step kernel
         rounds = control.TRIPS["lono_rounds"]
         if not launches["estep_project"] == launches["estep_step"] == rounds > 0:
@@ -4369,6 +4498,8 @@ def main():
     c_err = check_ns_gram_crossover(device, seeded())
     check_ns_gram_invariance(device, seeded())
     check_ns_gram_pairs_capture(device, seeded())
+    log(f"ns_gram's long-T design: the streaming GEMM against the tiled GEMMs [{card}]:")
+    pairs_rows = check_ns_gram_pairs_paths(device, seeded())
     sw_err, sw_ms, sw_pms, sw_bms, sw_by = check_sweep(device, seeded())
     si_err, si_ms, si_pms, si_lms, si_bms, si_by = check_spd_inverse(device, seeded())
     ps_err, ps_ms, ps_pms, ps_lms, ps_bms, ps_by = check_probe_skip(device, seeded())
@@ -4571,6 +4702,23 @@ def main():
              "replaces": "vlgp_tpu/ops/spd.py:796", "launches": lono_launches["ns_gram"],
              "max_abs_err": g_err_l, "ms": row[3][0], "plain_ms": row[4][0],
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    # the long-T design's two GEMMs on the streaming GEMM (phase 4), launches
+    # of 9c's run at the default batch (the chunk: pairs_plan streams both;
+    # at S100 it keeps the tiled kernels, so the S100 times stand in the log)
+    for (tag, launched, where) in ((f"Z{ZDIM} S{lono_S} T{LENGTH} R50", lono_launches,
+                                    "9c chunk"),):
+        for name, what in (("gram", "Gram"), ("v", "v")):
+            r = pairs_rows[tag][name]
+            g = r["gemm"]
+            kernels.append(
+                {"name": f"ns_gram_pairs {what} GEMM (streaming GEMM, {g.bm}x{g.bn} tiles, "
+                         f"{g.grid} blocks, {g.stages} stages, {where}, {tag}; tiled path "
+                         f"{r['tiled_ms']:.4f} ms in turns)",
+                 "route": "cuda", "source": "vlgp_tpu_torch/csrc/ns_inverse.cu",
+                 "replaces": "vlgp_tpu/ops/spd.py:796", "launches": launched["ns_gram_pairs_stream"],
+                 "max_abs_err": g_err_l, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"]})
     row = next(r for r in p_rows_l if r[0] == "cold")
     BL = ZDIM * lono_S
     b_ms, b_by = bound(BL * 33 * RP ** 3, 4 * (2 * BL * RP * RP + BL))

@@ -25,7 +25,7 @@ one pair of events; and on draw 0 with every group live (``tol=0``) for
 niter = 0, 2, 4 and 6 sweeps, whose differences give the time of a fully
 live sweep.  ``--designs`` times instead both designs of ``ns_gram`` of
 this checkout (``_ns_gram_cuda(..., design=...)``) in those three modes at
-T = 50, 100, 200, 500 and 1000 with S = 100000 / T (100 trials of 1000
+T = 50, 99, 100, 200, 500 and 1000 with S = 100000 / T (100 trials of 1000
 bins cut into segments of T), R = 40 and 50, and at the chunk: the
 measurements behind ``ops/spd.py:_PAIRS_MIN_T``.  ``--paths`` times both
 paths of the per-matrix design (the streaming path forced by
@@ -182,7 +182,7 @@ def time_gram_yardstick(device, gen, out, S=25 * cs.NTRIAL, T=cs.LENGTH, R=50):
 def time_designs(device, gen, out):
     """Both ns_gram designs of this checkout, for its (T, R) rule."""
     for R in (40, 50):
-        for T in (50, 100, 200, 500, 1000):
+        for T in (50, 99, 100, 200, 500, 1000):
             S = 100000 // T
             for design in ("per_matrix", "pairs"):
                 gen.manual_seed(0)

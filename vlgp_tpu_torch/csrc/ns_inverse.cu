@@ -122,6 +122,17 @@
 // memory once per column of tiles (10 at P = 1275), consecutive blocks
 // sharing them through L2.
 //
+// ns_gram_pairs runs launch 1, 3 or both on one Hopper GEMM
+// core (pairs_gemm_kernel, "The streaming GEMM" below), under a plan from
+// ops/spd.py:pairs_plan, which streams a GEMM
+// where its 128 x 128 tiles give every SM four rounds (a leave-one-neuron-
+// out chunk) and keeps the tiled kernels above, with the same bits, where
+// they are faster (few tiles: the final inference).  The tiled kernels' register tile
+// issued FMAs at 47% and 43% of the FP32 rate at Z5 S2500 T1000 R50, behind
+// a block barrier every 8 k, the B tile formed and the A tile copied by the
+// same warps between products, and 3.03-3.79 waves of non-persistent
+// blocks (PERF.md, Findings).
+//
 // probe_skip takes two launches of one block per matrix, in stream order:
 // the probe (ns_packed_kernel in probe mode) writes every x0's residual to
 // r0 in device memory; then each block of the refine reads its group's
@@ -136,7 +147,12 @@
 // atomics: repeated runs give the same bits.  Each entry point returns
 // cudaGetLastError() of its launches.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include <climits>
+#include <cstdio>
+#include <cstring>
 
 #include "ns_common.cuh"
 
@@ -657,6 +673,500 @@ cudaError_t launch_v_pairs(const float* G, const float* Xp, float* v, int Z, int
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The streaming GEMM: launches 1 and 3 of the long-T design on Hopper
+//
+// C[z, m, n] = sum_k A[z, m, k] B_z[k, n] with kind 0, the Gram: A = w,
+// M = S, K = T, N = P, B_z[t, p] = G_z[t, i] G_z[t, j]; kind 1, v: A = Xp,
+// M = S, K = P, N = T, B_z[p, t] = G_z[t, i] G_z[t, j].  Persistent blocks
+// take the tiles tau = blockIdx.x, blockIdx.x + gridDim.x, ... of a list
+// ordered by latent, then by column of tiles, then by row of tiles, so the
+// blocks in flight share one latent's rows of A and columns of B in L2.  A
+// block is CW = WM WN consumer warps (a BM x BN = 64 WM x 32 WN tile) and
+// H helper warps around a ring of `stages` stages of PG_BK k each.
+//
+// A's rows.  A is read as a 2D tensor of Z S / 4 groups of four rows, each
+// group one row of 4 K floats: its stride, 16 K bytes, is 16-byte aligned
+// whatever K is (Xp's rows of P = 1275 floats are not), so the tensor
+// memory accelerator can copy it.  A tile's BM rows g0 .. g0 + BM - 1 (g =
+// z S + m) hold BM / 4 rows of each residue b = g mod 4: one box of BM / 4
+// groups, which lands at stage rows [b BM / 4, (b + 1) BM / 4) of PG_LDA
+// floats.  A box must start at a 16-byte word, so it starts at the word
+// below b K + k0 and spans 36 floats: residue b's k0 sits at a_off(b, K) =
+// (b K) mod 4 in its rows.  Helper h loads the boxes of residues b = h, h +
+// H, ... with one cp.async.bulk.tensor.2d each.  Where a box would read
+// what is not the tile's, the helper copies those rows by 4-byte cp.async
+// into the same places instead, zero past K: the stage holding k = K - 1
+// when K % 32 != 0, a tile with rows in the tensor's last, partial group,
+// and every stage when A's address is not 16-byte aligned (copy_tma 0).
+// Both complete on the stage's full mbarrier.
+//
+// B.  `stages` - 2 stages after its copies of A a helper forms its HC =
+// BN / H columns of the stage's B ([k][n]): kind 0 from the stage's rows
+// of G, which helper 0 stages when it copies A (gfull: one bulk copy where
+// the rows' span is 16-byte aligned, else stage_spans),
+// through each lane's pair (i, j); kind 1 from its columns of G for the
+// tile's t (the panel, rows of R | 1 floats, loaded as it forms the tile's
+// first stage), through the pair of each k.  k past K and n past N form 0.
+// Each lane loads PG_FB k of B before it stores them (a shared store would
+// otherwise hold back the next load).  Then the helper arrives on full.
+//
+// Consumers.  Warp (wm, wn), lane 4 lm + ln, owns stage rows 64 wm + lm +
+// 8 i and columns 32 wn + 4 ln + j and 32 wn + 16 + 4 ln + j (i < 8, j <
+// 4): per k eight 4-byte loads of A (eight consecutive rows a load, at 36
+// floats a row and offsets below 4: eight distinct banks; for even K, whose
+// offsets are even, eight 8-byte loads per two k) and two 16-byte loads of
+// B, against 64 FMAs.  It releases the stage (empty)
+// once read, and stores its 8 x 8 sums, each at its stage row's (z, m),
+// after a tile's last stage while the helpers fill the next tile's stages.
+//
+// No block barrier after the start.  Each output is one fmaf chain over k
+// in increasing order from 0, k past K adding 0 * 0, and each B element is
+// __fmul_rn(G[t, i], G[t, j]): the tiled kernels' bits at every tile shape, stage
+// count, grid and copy path.  What bounds it: the FP32 FMA rate (T P FMAs
+// a matrix a GEMM); a lane's 8 x 8 sums load 16 floats from shared memory
+// a k against 64 FMAs, so at full FMA rate the consumers alone would keep
+// shared memory busy every cycle.  -DPG_DIAG_CYCLES builds a copy that
+// prints block 0's cycle split (first consumer and first helper).
+// ---------------------------------------------------------------------------
+
+constexpr int PG_BK = 32;                            // k a stage
+constexpr int PG_LDA = PG_BK + 4;                    // floats a row of an A stage (a box row)
+constexpr int PG_STAGES_MIN = 3, PG_STAGES_MAX = 4;  // the ring's depth
+constexpr int PG_ALIGN = 128;       // the A stages' alignment (a box's destination)
+constexpr int PG_BAR_BYTES = 3 * 8 * PG_STAGES_MAX;  // full, empty, gfull a stage
+constexpr int PG_UNROLL = 4;        // k steps of a consumer's loop body
+constexpr int PG_FB = 8;            // k of B a helper lane loads before it stores them
+
+// the tile shapes the plan may name, (WM, WN, H) by shape: 0: 128 x 128, 8
+// consumer warps and 4 helpers; 1: 64 x 128, 4 + 2; 2: 64 x 64, 2 + 2
+constexpr int PG_SHAPES = 3;
+__host__ __device__ inline int pairs_bm(int shape) { return shape == 0 ? 128 : 64; }
+__host__ __device__ inline int pairs_bn(int shape) { return shape == 2 ? 64 : 128; }
+
+__host__ __device__ inline int pairs_rs(int R) { return R | 1; }
+
+// A block's shared memory, in bytes from the first 128-byte boundary of the
+// dynamic shared memory (PG_ALIGN bytes of slack at most before it):
+// `stages` A stages (BM rows of PG_LDA floats), `stages` B stages (PG_BK rows
+// of BN), then for kind 0 `stages` slots of G rows (PG_BK R floats, at
+// their address mod 16) or for kind 1 the panel (BN rows of R | 1), then
+// the mbarriers.  ops/spd.py:_pairs_smem is its copy; ns_pairs_smem
+// reports it.
+struct PairsLayout {
+  size_t b, g, gslot, bars, total;
+  __host__ __device__ PairsLayout(int kind, int BM, int BN, int R, int stages) {
+    b = sizeof(float) * (size_t)stages * BM * PG_LDA;
+    g = b + sizeof(float) * (size_t)stages * PG_BK * BN;
+    gslot = span_slot<float>((long long)PG_BK * R);
+    bars = g + (kind == 0 ? (size_t)stages * gslot : sizeof(float) * (size_t)BN * pairs_rs(R));
+    total = PG_ALIGN + bars + PG_BAR_BYTES;
+  }
+};
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// acc[i][j] += A[row i, k] B[k, col j] for one k: A from av[i] (.x, or .y
+// with second), B's 8 columns of the lane from the stage's row k
+__device__ __forceinline__ void fma_k(float (&acc)[8][8], const float2 (&av)[8],
+                                      const float* Bk, int second) {
+  const float4 b0 = *reinterpret_cast<const float4*>(Bk);
+  const float4 b1 = *reinterpret_cast<const float4*>(Bk + 16);
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float a = second ? av[i].y : av[i].x;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+  }
+}
+
+// where residue b's k0 lands in its stage rows: its box starts at the
+// 16-byte word below b K + k0 (k0 a multiple of 32)
+__host__ __device__ __forceinline__ int a_off(int b, int K) { return (b * K) & 3; }
+
+#ifdef PG_DIAG_CYCLES
+#define PG_STAMP(acc, t0) ((acc) += clock64() - (t0), (t0) = clock64())
+#else
+#define PG_STAMP(acc, t0) ((void)0)
+#endif
+
+template <int KIND, int WM, int WN, int H>
+__global__ void __launch_bounds__(32 * (WM * WN + H), 384 / (32 * (WM * WN + H)))
+pairs_gemm_kernel(const __grid_constant__ CUtensorMap amap, const float* __restrict__ G,
+                  const float* __restrict__ A, float* __restrict__ C, int Z, int S, int T,
+                  int R, int stages, int copy_tma) {
+  constexpr int BM = 64 * WM, BN = 32 * WN, CW = WM * WN, HC = BN / H, BOX = BM / 4;
+  static_assert(HC % 32 == 0 && 4 % H == 0, "a helper lane owns whole columns, whole boxes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const PairsLayout L(KIND, BM, BN, R, stages);
+  unsigned char* base = smem_raw + ((PG_ALIGN - (smem_u32(smem_raw) & (PG_ALIGN - 1))) &
+                                    (PG_ALIGN - 1));
+  float* As0 = reinterpret_cast<float*>(base);
+  float* Bs0 = reinterpret_cast<float*>(base + L.b);
+  unsigned char* gbase = base + L.g;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(base + L.bars);
+  unsigned long long* empty = full + PG_STAGES_MAX;
+  unsigned long long* gfull = empty + PG_STAGES_MAX;
+  const int P = num_pairs(R);
+  const int M = S, N = KIND ? T : P, K = KIND ? P : T;
+  const int ntm = (M + BM - 1) / BM, ntn = (N + BN - 1) / BN;
+  const long long per_z = (long long)ntm * ntn, tiles = per_z * Z;
+  const long long rows = (long long)Z * S, full_rows = rows / 4 * 4;  // rows a box may read
+  const int nk = (K + PG_BK - 1) / PG_BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      bar_init(full + s, 33 * H);  // each helper lane its copies of A, each helper its B
+      bar_init(empty + s, CW);
+      bar_init(gfull + s, 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+#ifdef PG_DIAG_CYCLES
+  long long c0 = 0, c1 = 0, c2 = 0, c3 = 0, c4 = 0, tc = clock64();
+#endif
+  if (warp < CW) {  // a consumer
+    const int wm = warp / WN, wn = warp - wm * WN, lm = lane >> 2, ln = lane & 3;
+    // stage row r holds residue b = r / BOX at offset (b K) mod 4 (a_off)
+    int arow0[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 64 * wm + lm + 8 * i;
+      arow0[i] = r * PG_LDA + a_off(r / BOX, K);
+    }
+    const bool even_k = (K & 1) == 0;  // a_off even: 8-byte aligned pairs of k
+    int s = 0;
+    unsigned pass = 0;
+    for (long long tau = blockIdx.x; tau < tiles; tau += gridDim.x) {
+      const int z = (int)(tau / per_z);
+      const int rem = (int)(tau - z * per_z), nt = rem / ntm, mt = rem - nt * ntm;
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int kt = 0; kt < nk; ++kt) {
+        PG_STAMP(c2, tc);
+        bar_wait(full + s, pass & 1);
+        PG_STAMP(c0, tc);
+        const float* As = As0 + (size_t)s * BM * PG_LDA;
+        const float* Bs = Bs0 + (size_t)s * PG_BK * BN + 32 * wn + 4 * ln;
+        const float* arow[8];  // row 64 wm + lm + 8 i, from its first k
+#pragma unroll
+        for (int i = 0; i < 8; ++i) arow[i] = As + arow0[i];
+        if (even_k) {  // every offset even: A two k at a time by 8-byte loads
+#pragma unroll PG_UNROLL
+          for (int k = 0; k < PG_BK; k += 2) {
+            float2 av[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) av[i] = *reinterpret_cast<const float2*>(arow[i] + k);
+            fma_k(acc, av, Bs + k * BN, 0);
+            fma_k(acc, av, Bs + (k + 1) * BN, 1);
+          }
+        } else {
+#pragma unroll PG_UNROLL
+          for (int k = 0; k < PG_BK; ++k) {
+            float2 av[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) av[i].x = arow[i][k];
+            fma_k(acc, av, Bs + k * BN, 0);
+          }
+        }
+        __syncwarp();  // the warp's reads of the stage are done
+        if (lane == 0) bar_arrive(empty + s);
+        if (++s == stages) s = 0, ++pass;
+        PG_STAMP(c1, tc);
+      }
+      // stage row r holds tile row (g - g0) = ((b - g0) mod 4) + 4 a, b = r / BOX, a = r % BOX
+      const long long g0 = (long long)z * S + (long long)mt * BM;
+      const int nb = nt * BN + 32 * wn + 4 * ln;
+      float* Cz = C + (size_t)z * M * N;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 64 * wm + lm + 8 * i, b = r / BOX;
+        const int m = mt * BM + (int)((b - g0) & 3) + 4 * (r - b * BOX);
+        if (m >= M) continue;
+        float* row = Cz + (size_t)m * N;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = nb + (j < 4 ? j : 12 + j);
+          if (n < N) row[n] = acc[i][j];
+        }
+      }
+      PG_STAMP(c3, tc);
+    }
+#ifdef PG_DIAG_CYCLES
+    if (blockIdx.x == 0 && warp == 0 && lane == 0)
+      printf("PG_CYCLES kind %d consumer: wait full %lld, products %lld, loop %lld, store %lld\n",
+             KIND, c0, c1, c2, c3);
+#endif
+    return;
+  }
+
+  // a helper: issue(g), stage g's copies of A (and, helper 0, its rows of
+  // G), runs `lag` stages ahead of form(g), its columns of B, so that a
+  // copy's latency overlaps the stages formed meanwhile
+  const int h = warp - CW, RS = pairs_rs(R), lag = stages - 2;
+  const long long total = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * nk;
+  float* panel = reinterpret_cast<float*>(gbase);  // kind 1
+  long long ti = blockIdx.x, tf = blockIdx.x;     // the issue and the form cursor's tiles
+  int ki = 0, kf = 0, si = 0, sf = 0;              // their k stage and ring slot
+  unsigned passi = 0, passf = 0;                   // their passes of the ring
+  long long gi0 = 0;                               // the issue cursor's first row z S + m0
+  bool boxes = false;                              // the issue cursor's tile by boxes
+  int zi = 0, zf = 0, nf0 = 0;
+  int pi[HC / 32], pj[HC / 32];                    // kind 0: the pair of each of the lane's columns
+  int ci = 0, cj = 0;                              // kind 1: the pair of the next k
+  for (long long g = 0; g < total + lag; ++g) {
+    PG_STAMP(c4, tc);
+    if (g < total) {  // issue(g)
+      if (ki == 0) {
+        zi = (int)(ti / per_z);
+        const int rem = (int)(ti - zi * per_z), nt = rem / ntm;
+        gi0 = (long long)zi * S + (long long)(rem - nt * ntm) * BM;
+        boxes = copy_tma && gi0 + BM <= full_rows;
+      }
+      PG_STAMP(c4, tc);
+      if (passi > 0) bar_wait(empty + si, (passi - 1) & 1);
+      PG_STAMP(c0, tc);
+      const int k0 = ki * PG_BK, kn = min(PG_BK, K - k0);
+      float* As = As0 + (size_t)si * BM * PG_LDA;
+      if (KIND == 0 && h == 0) {  // the stage's rows of G, for every helper
+        const float* gsrc = G + ((size_t)zi * T + k0) * R;
+        unsigned char* slot = gbase + si * L.gslot;
+        const unsigned gbytes = 4u * kn * R;
+        if ((reinterpret_cast<uintptr_t>(gsrc) & 15) == 0 && (gbytes & 15) == 0) {
+          // one bulk copy (no ragged ends to load first)
+          bar_arrive(gfull + si, lane == 0 ? gbytes : 0u);
+          if (lane == 0) bulk_copy(slot, gsrc, gbytes, gfull + si);
+        } else {
+          stage_spans<float>(
+              1,
+              [&](int, unsigned char*& sl, const float*& sr, long long& n) {
+                sl = slot;
+                sr = gsrc;
+                n = (long long)kn * R;
+              },
+              gfull + si, lane);
+        }
+      }
+      if (boxes && kn == PG_BK) {  // a box a residue b = h, h + H, ...
+        if (lane == 0) {
+          bar_arrive(full + si, (4 / H) * BOX * PG_LDA * sizeof(float));
+          for (int b = h; b < 4; b += H) {
+            const long long gb = gi0 + ((b - gi0) & 3);
+            tma_load_2d(As + b * BOX * PG_LDA, &amap, b * K + k0 - a_off(b, K), (int)(gb >> 2),
+                        full + si);
+          }
+        } else {
+          bar_arrive(full + si);
+        }
+      } else {  // 4-byte copies, a lane a k, zero-filled past K and the tensor
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // boxes wrote this slot
+        const bool kok = lane < kn;
+        for (int b = h; b < 4; b += H) {
+          const long long gb = gi0 + ((b - gi0) & 3);
+          float* dst = As + b * BOX * PG_LDA + a_off(b, K) + lane;
+          for (int a = 0; a < BOX; ++a) {
+            const long long gr = gb + 4 * a;
+            const bool ok = kok && gr < rows;
+            const float* src = ok ? A + gr * K + k0 + lane : A;
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                             smem_u32(dst + a * PG_LDA)),
+                         "l"(src), "r"(ok ? 4 : 0)
+                         : "memory");
+          }
+        }
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                         smem_u32(full + si))
+                     : "memory");
+      }
+      PG_STAMP(c1, tc);
+      if (++si == stages) si = 0, ++passi;
+      if (++ki == nk) ki = 0, ti += gridDim.x;
+    }
+    if (g >= lag) {  // form(g - lag)
+      if (kf == 0) {
+        zf = (int)(tf / per_z);
+        const int rem = (int)(tf - zf * per_z);
+        nf0 = rem / ntm * BN;
+        if (KIND == 0) {
+#pragma unroll
+          for (int q = 0; q < HC / 32; ++q) {
+            const int p = nf0 + h * HC + lane + 32 * q;
+            int i = 0, r = p < P ? p : P;  // past P: i = R, never read
+            while (i < R && r >= R - i) r -= R - i++;
+            pi[q] = i;
+            pj[q] = i + r;
+          }
+        } else {  // the panel: G_z[n0 + c, r] at c RS + r for the helper's columns, 0 past T
+          const int c0 = h * HC, lim = max(0, min(HC, T - (nf0 + c0))) * R;
+          const float* src = G + ((size_t)zf * T + nf0 + c0) * R;
+          int c = lane / R, r = lane - c * R;
+          for (int e0 = 0; e0 < HC * R; e0 += 32 * 8) {
+            float val[8];
+            int cc[8], rr[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              const int e = e0 + lane + 32 * u;
+              val[u] = e < lim ? __ldg(src + e) : 0.f;
+              cc[u] = c;
+              rr[u] = r;
+              for (r += 32; r >= R; r -= R) ++c;
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (e0 + lane + 32 * u < HC * R) panel[(c0 + cc[u]) * RS + rr[u]] = val[u];
+          }
+          __syncwarp();
+          ci = cj = 0;
+        }
+      }
+      PG_STAMP(c4, tc);
+      const int k0 = kf * PG_BK, kn = min(PG_BK, K - k0);
+      float* Bs = Bs0 + (size_t)sf * PG_BK * BN;
+      if (KIND == 0) {
+        bar_wait(gfull + sf, passf & 1);
+        PG_STAMP(c2, tc);
+        const float* gv = in_slot(gbase + sf * L.gslot, G + ((size_t)zf * T + k0) * R);
+#pragma unroll
+        for (int q = 0; q < HC / 32; ++q) {
+          const int c = h * HC + lane + 32 * q;
+          const bool live = pi[q] < R;
+          const float* g1 = gv + pi[q];
+          const float* g2 = gv + pj[q];
+#pragma unroll
+          for (int kb = 0; kb < PG_BK; kb += PG_FB) {
+            float x[PG_FB], y[PG_FB];
+#pragma unroll
+            for (int u = 0; u < PG_FB; ++u) {
+              const bool ok = live && kb + u < kn;
+              x[u] = ok ? g1[(kb + u) * R] : 0.f;
+              y[u] = ok ? g2[(kb + u) * R] : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < PG_FB; ++u) Bs[(kb + u) * BN + c] = __fmul_rn(x[u], y[u]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kb = 0; kb < PG_BK; kb += PG_FB) {
+          int ia[PG_FB], ja[PG_FB];  // the pairs of the batch's k (past P: i = R, never read)
+#pragma unroll
+          for (int u = 0; u < PG_FB; ++u) {
+            ia[u] = ci;
+            ja[u] = cj;
+            if (++cj == R) cj = ++ci;
+          }
+#pragma unroll
+          for (int q = 0; q < HC / 32; ++q) {
+            const float* col = panel + (h * HC + lane + 32 * q) * RS;
+            float x[PG_FB], y[PG_FB];
+#pragma unroll
+            for (int u = 0; u < PG_FB; ++u) {
+              const bool ok = kb + u < kn;
+              x[u] = ok ? col[ia[u]] : 0.f;
+              y[u] = ok ? col[ja[u]] : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < PG_FB; ++u)
+              Bs[(kb + u) * BN + h * HC + lane + 32 * q] = __fmul_rn(x[u], y[u]);
+          }
+        }
+      }
+      __syncwarp();  // the warp's B is written
+      if (lane == 0) bar_arrive(full + sf);
+      PG_STAMP(c3, tc);
+      if (++sf == stages) sf = 0, ++passf;
+      if (++kf == nk) kf = 0, tf += gridDim.x;
+    }
+  }
+#ifdef PG_DIAG_CYCLES
+  if (blockIdx.x == 0 && h == 0 && lane == 0)
+    printf("PG_CYCLES kind %d helper: wait empty %lld, copy A %lld, wait G %lld, form B %lld, "
+           "other %lld\n", KIND, c0, c1, c2, c3, c4);
+#endif
+}
+
+// cuTensorMapEncodeTiled, libcuda's, found through the runtime (no link
+// against libcuda)
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A (Z S rows of K floats) as groups of four rows: a 2D tensor of Z S / 4
+// rows of 4 K floats, boxes of `box` rows x PG_LDA floats (a box starts at
+// a 16-byte word), no swizzle, zero fill.  false where A's address is not 16-byte aligned, the tensor
+// has no full group, or the encoder refuses.
+bool rows_map(CUtensorMap* map, const float* A, int K, long long rows, int box) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(A) % 16 != 0 || rows < 4) return false;
+  const cuuint64_t dim[2] = {(cuuint64_t)4 * K, (cuuint64_t)(rows / 4)};
+  const cuuint64_t stride[1] = {(cuuint64_t)16 * K};
+  const cuuint32_t boxdim[2] = {PG_LDA, (cuuint32_t)box};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(A), dim, stride,
+                boxdim, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int KIND, int WM, int WN, int H>
+cudaError_t launch_pairs_gemm(const float* G, const float* A, float* C, int Z, int S, int T,
+                              int R, int grid, int stages, int copy_tma, cudaStream_t st) {
+  const size_t smem = PairsLayout(KIND, 64 * WM, 32 * WN, R, stages).total;
+  const int K = KIND ? num_pairs(R) : T;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (copy_tma && !rows_map(&map, A, K, (long long)Z * S, 16 * WM)) copy_tma = 0;
+  cudaError_t err = cudaFuncSetAttribute(pairs_gemm_kernel<KIND, WM, WN, H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  pairs_gemm_kernel<KIND, WM, WN, H><<<grid, 32 * (WM * WN + H), smem, st>>>(
+      map, G, A, C, Z, S, T, R, stages, copy_tma);
+  return cudaGetLastError();
+}
+
+// One GEMM of the long-T design on the streaming GEMM: kind 0 the Gram
+// (A = w), 1 v (A = Xp), at a tile shape, grid and stage count of the plan;
+// copy_tma asks for A by boxes (4-byte copies where the tensor map cannot
+// be made).  Refuses what the kernel cannot run: an unknown shape, stages
+// outside [PG_STAGES_MIN, PG_STAGES_MAX], more than 232,448 bytes.
+cudaError_t launch_pairs(int kind, int shape, const float* G, const float* A, float* C, int Z,
+                         int S, int T, int R, int grid, int stages, int copy_tma,
+                         cudaStream_t st) {
+  if (shape < 0 || shape >= PG_SHAPES || stages < PG_STAGES_MIN || stages > PG_STAGES_MAX ||
+      grid < 1 || PairsLayout(kind, pairs_bm(shape), pairs_bn(shape), R, stages).total > GS_SMEM_MAX)
+    return cudaErrorInvalidValue;
+  switch (PG_SHAPES * kind + shape) {
+    case 0: return launch_pairs_gemm<0, 2, 4, 4>(G, A, C, Z, S, T, R, grid, stages, copy_tma, st);
+    case 1: return launch_pairs_gemm<0, 1, 4, 2>(G, A, C, Z, S, T, R, grid, stages, copy_tma, st);
+    case 2: return launch_pairs_gemm<0, 1, 2, 2>(G, A, C, Z, S, T, R, grid, stages, copy_tma, st);
+    case 3: return launch_pairs_gemm<1, 2, 4, 4>(G, A, C, Z, S, T, R, grid, stages, copy_tma, st);
+    case 4: return launch_pairs_gemm<1, 1, 4, 2>(G, A, C, Z, S, T, R, grid, stages, copy_tma, st);
+    default: return launch_pairs_gemm<1, 1, 2, 2>(G, A, C, Z, S, T, R, grid, stages, copy_tma, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -685,22 +1195,31 @@ int ns_gram(const float* G, const float* w, const float* x0, float* X, float* re
 
 // ns_gram's long-T design, with ns_gram's arguments, `pairs` (Z,S,P)
 // float32 scratch, P = R (R + 1) / 2: the Gram's pairs, overwritten in place
-// by Xp when want_v, and the card's SM count `nsm` for the tile shape.
-// Three launches on `stream`: the Gram as a GEMM, the Newton-Schulz solve,
-// and with want_v the product for v.
+// by Xp when want_v.  Three launches on `stream`: the Gram as a GEMM, the
+// Newton-Schulz solve, and with want_v the product for v.  Each GEMM under
+// the plan of ops/spd.py:pairs_plan: for the Gram (g_*) and for v (v_*) the
+// streaming GEMM's tile shape (0: 128 x 128, 1: 64 x 128, 2: 64 x 64; -1:
+// the tiled kernel, the rest unread), the grid, the stages and whether
+// A's rows go by tensor-memory-accelerator boxes (tma; a GEMM whose A is
+// not 16-byte aligned takes 4-byte copies whatever it says); `nsm` the
+// card's SM count for the tiled kernel's tile shape.
 int ns_gram_pairs(const float* G, const float* w, const float* x0, float* X, float* resid,
                   float* v, float* pairs, int Z, int S, int T, int R, int iters, int use_x0,
-                  int resid_only, int want_v, int nsm, void* stream) {
-  if (R < 1 || R > RMAX || T < 1 || Z < 1 || Z > 65535 || S < 1 || iters < 0 || nsm < 1 ||
-      pairs == nullptr || (resid_only && !use_x0) || (!resid_only && X == nullptr) ||
+                  int resid_only, int want_v, int g_shape, int g_grid, int g_stages, int g_tma,
+                  int v_shape, int v_grid, int v_stages, int v_tma, int nsm, void* stream) {
+  const bool tiled = g_shape < 0 || (want_v && v_shape < 0);  // Z in the tiled grid's y
+  if (R < 1 || R > RMAX || T < 1 || Z < 1 || (tiled && Z > 65535) || S < 1 || iters < 0 ||
+      pairs == nullptr || nsm < 1 || (resid_only && !use_x0) || (!resid_only && X == nullptr) ||
       (want_v && v == nullptr))
     return (int)cudaErrorInvalidValue;
   if (!use_x0) x0 = nullptr;
   if (resid_only) X = nullptr;
   cudaStream_t st = (cudaStream_t)stream;
   const int P = num_pairs(R);
-  cudaError_t err = wide_tiles(Z, S, P, nsm) ? launch_gram_pairs<128, 128>(G, w, pairs, Z, S, T, R, st)
-                                        : launch_gram_pairs<128, 64>(G, w, pairs, Z, S, T, R, st);
+  cudaError_t err =
+      g_shape >= 0 ? launch_pairs(0, g_shape, G, w, pairs, Z, S, T, R, g_grid, g_stages, g_tma, st)
+      : wide_tiles(Z, S, P, nsm) ? launch_gram_pairs<128, 128>(G, w, pairs, Z, S, T, R, st)
+                                 : launch_gram_pairs<128, 64>(G, w, pairs, Z, S, T, R, st);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = packed_smem(R);
   err = cudaFuncSetAttribute(ns_gram_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -710,9 +1229,18 @@ int ns_gram_pairs(const float* G, const float* w, const float* x0, float* X, flo
                                                               resid_only, want_v);
   err = cudaGetLastError();
   if (err != cudaSuccess || !want_v) return (int)err;
-  err = wide_tiles(Z, S, T, nsm) ? launch_v_pairs<128, 128>(G, pairs, v, Z, S, T, R, st)
-                            : launch_v_pairs<128, 64>(G, pairs, v, Z, S, T, R, st);
-  return (int)err;
+  if (v_shape >= 0)
+    return (int)launch_pairs(1, v_shape, G, pairs, v, Z, S, T, R, v_grid, v_stages, v_tma, st);
+  return (int)(wide_tiles(Z, S, T, nsm) ? launch_v_pairs<128, 128>(G, pairs, v, Z, S, T, R, st)
+                                        : launch_v_pairs<128, 64>(G, pairs, v, Z, S, T, R, st));
+}
+
+// The streaming GEMM's shared memory in bytes as the kernel lays it out
+// (kind 0 the Gram, 1 v); ops/spd.py plans with its own copy, and
+// chip_smoke.py holds the two equal.
+int ns_pairs_smem(int kind, int shape, int R, int stages) {
+  const size_t bytes = PairsLayout(kind, pairs_bm(shape), pairs_bn(shape), R, stages).total;
+  return bytes < (size_t)INT_MAX ? (int)bytes : INT_MAX;
 }
 
 // ns_gram's streaming path, with ns_gram's arguments and the launch plan

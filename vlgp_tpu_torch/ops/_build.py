@@ -35,7 +35,8 @@ _p, _i, _f, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "ns_inverse": {
         "ns_gram": ([_p] * 6 + [_i] * 8 + [_p], _i),
-        "ns_gram_pairs": ([_p] * 7 + [_i] * 9 + [_p], _i),
+        "ns_gram_pairs": ([_p] * 7 + [_i] * 17 + [_p], _i),
+        "ns_pairs_smem": ([_i] * 4, _i),
         "ns_gram_stream": ([_p] * 6 + [_i] * 10 + [_p], _i),
         "ns_gram_smem": ([_i] * 3, _i),
         "ns_packed": ([_p] * 4 + [_i] * 5 + [_p], _i),

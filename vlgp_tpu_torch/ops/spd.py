@@ -53,7 +53,8 @@ from . import control
 
 __all__ = ["inv_one_plus_psd", "inv_one_plus_gram", "ns_gram", "ns_packed",
            "spd_inverse", "spd_solve", "gram_plan", "stream_plan", "gram_walk", "GramPlan",
-           "BLOCK_PLAN",
+           "BLOCK_PLAN", "pairs_plan", "pairs_stream_plan", "pairs_walk", "PairsPlan",
+           "PairsGemm", "TILED_PLAN",
            "KERNEL_LAUNCHES", "FALLBACKS", "ROUTE_CALLS", "reset_counters"]
 
 # Convergence threshold on max|(I+A)X - I| for Newton-Schulz results; also
@@ -185,6 +186,175 @@ def gram_walk(plan: GramPlan, Z: int, S: int):
             for z in range(Z) for j in range(per)]
 
 
+# The long-T design's two GEMMs (csrc/ns_inverse.cu, "The streaming GEMM"):
+# persistent blocks of consumer warps (a 64 x 32 warp tile, 8 x 8 sums a
+# lane) and helper warps that copy A by tensor-memory-accelerator boxes and
+# form B, around a ring of stages of 32 k.  The tile shapes by index: (BM,
+# BN, consumer warps, helper warps).  The kernel's constants: the stage
+# depth, the A stages' alignment and the mbarriers' bytes, an SM's shared
+# memory (each block takes 1,024 bytes more), and the threads
+# whose registers an SM holds under the kernels' launch bounds (384: one
+# block of 384 threads, two of 192, three of 128).
+_PAIRS_SHAPES = ((128, 128, 8, 4), (64, 128, 4, 2), (64, 64, 2, 2))
+_PG_BK = 32
+_PG_LDA = _PG_BK + 4
+_PG_STAGES = (4, 3)
+_PG_ALIGN = 128
+_PG_BAR_BYTES = 96
+_SM_SMEM = 233_472
+_PG_BOUND_THREADS = 384
+
+
+class PairsGemm(NamedTuple):
+    """One GEMM of a long-T launch: ``shape`` an index of ``_PAIRS_SHAPES``
+    (a ``bm`` x ``bn`` tile, ``threads`` a block), ``stages`` of the ring,
+    ``grid`` persistent blocks, ``copy`` "tma" (A's rows by boxes of the
+    tensor memory accelerator, 4-byte copies at the ends; the kernel takes
+    4-byte copies throughout where A's address is not 16-byte aligned) or
+    "async4" (4-byte copies throughout), ``smem`` bytes of dynamic shared
+    memory a block."""
+    shape: int
+    bm: int
+    bn: int
+    threads: int
+    stages: int
+    grid: int
+    copy: str
+    smem: int
+
+
+class PairsPlan(NamedTuple):
+    """A launch of the long-T design: ``path`` "stream" (``gram`` and ``v``
+    each a PairsGemm on the streaming GEMM, or None for that GEMM on the
+    register-tiled kernel) or "tiled" (both GEMMs on the tiled kernels, which
+    pick their own tiles; ``gram`` and ``v`` None)."""
+    path: str
+    gram: Optional[PairsGemm]
+    v: Optional[PairsGemm]
+
+
+# the tiled kernels, whatever the shape (the first design, which the
+# streaming GEMM is held to bit for bit)
+TILED_PLAN = PairsPlan("tiled", None, None)
+
+
+def _pairs_smem(kind: int, bm: int, bn: int, R: int, stages: int) -> int:
+    """``PairsLayout`` (csrc/ns_inverse.cu): 128 bytes of slack to align the
+    A stages (bm rows of 36 floats), the B stages (32 rows of bn), then
+    for the Gram (kind 0) a slot of 32 rows of G a stage (its bytes rounded
+    up to 16 and 16 more) or for v (kind 1) the panel of bn rows of R | 1
+    floats, then the mbarriers."""
+    a = 4 * stages * bm * _PG_LDA
+    b = 4 * stages * _PG_BK * bn
+    g = stages * ((4 * _PG_BK * R + 15) // 16 * 16 + 16) if kind == 0 else 4 * bn * (R | 1)
+    return _PG_ALIGN + a + b + g + _PG_BAR_BYTES
+
+
+def _pairs_fit(kind: int, shape: int, R: int):
+    """(stages, blocks an SM) of a tile shape: the blocks an SM holds with
+    3 stages (by shared memory, threads and registers), then 4 stages where
+    they hold as many; None where 3 stages pass 232,448 bytes."""
+    bm, bn, cw, hw = _PAIRS_SHAPES[shape]
+    threads = 32 * (cw + hw)
+    cap = _PG_BOUND_THREADS // threads
+
+    def blocks(stages):
+        smem = _pairs_smem(kind, bm, bn, R, stages)
+        return 0 if smem > SMEM_MAX else min(cap, _SM_SMEM // (smem + 1024))
+
+    least = blocks(_PG_STAGES[-1])
+    if least == 0:
+        return None
+    return next((st, least) for st in _PG_STAGES if blocks(st) == least)
+
+
+def _pairs_candidate(kind: int, shape: int, Z: int, M: int, N: int, K: int, R: int,
+                     nsm: int):
+    """One GEMM (M x N x K a latent) at a tile shape: (modelled µs,
+    PairsGemm), or None where the shape does not fit.  Each persistent block
+    takes tiles in turn (rounds = tiles / grid, up), each tile its ceil(K /
+    32) stages and about one more to start; a stage of a round takes
+    max(3.2, 2.64 + 0.16 w) µs with w consumer warps on the SM (a warp's
+    own chain of 32 k, then the SM's shared issue and shared-memory loads),
+    as the streaming GEMM ran on an NVIDIA H100 80GB HBM3 at 700 W
+    (tools/torch_ns_gram_pieces.py, every shape in turns: PERF.md,
+    Findings).  A grid of at most one block an SM takes 4 stages where they
+    fit, so its helpers copy two stages ahead."""
+    fit = _pairs_fit(kind, shape, R)
+    if fit is None:
+        return None
+    bm, bn, cw, hw = _PAIRS_SHAPES[shape]
+    stages, per_sm = fit
+    tiles = Z * -(-M // bm) * -(-N // bn)
+    grid = min(tiles, nsm * per_sm)
+    rounds, resident = -(-tiles // grid), -(-grid // nsm)
+    if resident == 1 and _pairs_smem(kind, bm, bn, R, 4) <= SMEM_MAX:
+        stages = 4
+    stage_us = max(3.2, 2.64 + 0.16 * resident * cw)
+    cost = rounds * (-(-K // _PG_BK) + 1) * stage_us
+    return cost, PairsGemm(shape, bm, bn, 32 * (cw + hw), stages, grid, "tma",
+                           _pairs_smem(kind, bm, bn, R, stages))
+
+
+def _pairs_gemm(kind: int, Z: int, M: int, N: int, K: int, R: int, nsm: int) -> PairsGemm:
+    """The tile shape, stages and grid of one GEMM: the candidate of least
+    modelled cost (``_pairs_candidate``); ties go to the larger tile."""
+    found = [c for shape in range(len(_PAIRS_SHAPES))
+             if (c := _pairs_candidate(kind, shape, Z, M, N, K, R, nsm)) is not None]
+    return min(found, key=lambda c: round(c[0], 9))[1]
+
+
+@functools.lru_cache(maxsize=256)
+def pairs_stream_plan(Z: int, S: int, T: int, R: int, nsm: int = SMS) -> PairsPlan:
+    """Both GEMMs of the long-T design on the streaming GEMM, each with the
+    tile shape, stages and grid of ``_pairs_gemm`` (the Gram: M = S, N =
+    R (R + 1) / 2, K = T; v: M = S, N = T, K = R (R + 1) / 2).  Shape,
+    stages and grid change no bit of any output."""
+    P = R * (R + 1) // 2
+    return PairsPlan("stream", _pairs_gemm(0, Z, S, P, T, R, nsm),
+                     _pairs_gemm(1, Z, S, T, P, R, nsm))
+
+
+# A GEMM of the long-T design takes the streaming GEMM where its 128 x 128
+# tiles give every SM four rounds or more, else the tiled kernel: on an
+# NVIDIA H100 80GB HBM3 at 700 W the streaming GEMM took 0.98 and 0.93x the
+# tiled kernel's time at Z5 S2500 T1000 R50 (1,000 and 800 tiles), but
+# 1.22x (the Gram) and 1.03x (v) at S100 T1000 (50 and 40 tiles) and 1.10
+# to 1.22x for the Gram at S500 T200 (200 tiles), where a block's chain of k
+# and its helpers' latency are not hidden (tools/torch_ns_gram_pieces.py;
+# PERF.md, Findings).
+_PAIRS_STREAM_ROUNDS = 4
+
+
+@functools.lru_cache(maxsize=256)
+def pairs_plan(Z: int, S: int, T: int, R: int, nsm: int = SMS) -> PairsPlan:
+    """The long-T design's launch at one shape: each GEMM on the streaming
+    GEMM (``pairs_stream_plan``) where Z ceil(M / 128) ceil(N / 128) >=
+    ``_PAIRS_STREAM_ROUNDS`` nsm, else on the tiled kernel;
+    ``TILED_PLAN`` where neither streams.  By shape alone; no choice changes
+    a bit."""
+    P = R * (R + 1) // 2
+    full = pairs_stream_plan(Z, S, T, R, nsm)
+    big = lambda N: Z * -(-S // 128) * -(-N // 128) >= _PAIRS_STREAM_ROUNDS * nsm  # noqa: E731
+    gram, v = (full.gram if big(P) else None), (full.v if big(T) else None)
+    return TILED_PLAN if gram is None and v is None else PairsPlan("stream", gram, v)
+
+
+def pairs_walk(gemm: PairsGemm, Z: int, M: int, N: int):
+    """The tiles each block of a streaming GEMM takes, in its order, as
+    (z, m0, n0): block b takes tiles b, b + grid, ... of the list ordered by
+    latent, then by column of tiles, then by row of tiles."""
+    ntm, ntn = -(-M // gemm.bm), -(-N // gemm.bn)
+    per_z = ntm * ntn
+
+    def tile(tau):
+        z, rem = divmod(tau, per_z)
+        nt, mt = divmod(rem, ntm)
+        return z, mt * gemm.bm, nt * gemm.bn
+
+    return [[tile(tau) for tau in range(b, Z * per_z, gemm.grid)] for b in range(gemm.grid)]
+
+
 # Warm-start probe architecture of the Newton-Schulz route: "0" (default) =
 # probe launch + host-synced check + refine launch; "1" = the fused
 # probe_skip kernel, one launch that refines only the groups whose carry
@@ -199,8 +369,11 @@ _FUSED_PROBE = os.environ.get("VLGP_FUSED_PROBE", "0") == "1"
 # integers: under a CUDA graph capture they count the capture, not the
 # replays (ops/control.py).
 # ``ns_gram`` counts every call of its kernels (either design or path),
-# ``ns_gram_stream`` the calls that took the streaming path.
-KERNEL_LAUNCHES = {"ns_gram": 0, "ns_gram_stream": 0, "ns_packed": 0, "probe_skip": 0,
+# ``ns_gram_stream`` the calls that took the per-matrix streaming path,
+# ``ns_gram_pairs_stream`` those of the long-T design with a GEMM on the
+# streaming GEMM.
+KERNEL_LAUNCHES = {"ns_gram": 0, "ns_gram_stream": 0, "ns_gram_pairs_stream": 0,
+                   "ns_packed": 0, "probe_skip": 0,
                    "spd_inverse": 0, "sweep": 0, "svd_loading": 0, "lorenz": 0,
                    "mstep_stats": 0, "mstep_update": 0, "hstep_search": 0,
                    "hstep_stat": 0, "estep_project": 0, "estep_step": 0}
@@ -472,14 +645,38 @@ def _check_gram_plan(plan: GramPlan, T: int, R: int) -> None:
                          f"({smem} bytes; R <= {_GS_R_MAX})")
 
 
+def _check_pairs_plan(plan: PairsPlan, Z: int, S: int, T: int, R: int) -> None:
+    """Refuse a long-T plan the kernels would refuse: an unknown path or
+    tile shape, stages outside 3-4, no blocks, a layout other than the
+    kernel's or past 232,448 bytes, or an unknown copy path."""
+    if plan.path == "tiled":
+        return
+    if plan.path != "stream":
+        raise ValueError(f"unknown ns_gram_pairs path {plan.path!r}")
+    for kind, gemm in ((0, plan.gram), (1, plan.v)):
+        if gemm is None:  # this GEMM on the tiled kernel
+            continue
+        ok = 0 <= gemm.shape < len(_PAIRS_SHAPES)
+        if ok:
+            bm, bn, cw, hw = _PAIRS_SHAPES[gemm.shape]
+            smem = _pairs_smem(kind, bm, bn, R, gemm.stages)
+            ok = ((gemm.bm, gemm.bn, gemm.threads) == (bm, bn, 32 * (cw + hw))
+                  and gemm.stages in _PG_STAGES and gemm.grid >= 1
+                  and gemm.smem == smem <= SMEM_MAX
+                  and gemm.copy in ("tma", "async4"))
+        if not ok:
+            raise ValueError(f"ns_gram_pairs plan {plan} does not fit Z={Z} S={S} T={T} R={R}")
+
+
 def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
-                  want_v: bool = False, design: Optional[str] = None,
-                  plan: Optional[GramPlan] = None):
+                  want_v: bool = False, design: Optional[str] = None, plan=None):
     """Launch ``ns_gram`` in ``design`` (default ``_ns_gram_design(T, R)``):
-    ``"per_matrix"``, under ``plan`` (default ``gram_plan``'s: the
-    streaming path or a thread block per matrix), or ``"pairs"``, the Gram
-    GEMM, the Newton-Schulz launch and the v GEMM on a (Z, S, R (R + 1) /
-    2) scratch (counted as one launch)."""
+    ``"per_matrix"``, under ``plan`` (a ``GramPlan``, default
+    ``gram_plan``'s: the streaming path or a thread block per matrix), or
+    ``"pairs"``, the Gram GEMM, the Newton-Schulz launch and the v GEMM on a
+    (Z, S, R (R + 1) / 2) scratch (counted as one launch), under ``plan`` (a
+    ``PairsPlan``, default ``pairs_plan``'s; ``TILED_PLAN`` runs the
+    register-tiled GEMMs)."""
     from ._build import load_library
 
     Z, T, R = G.shape
@@ -494,9 +691,13 @@ def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
     if resid_only and x0 is None:
         raise ValueError("resid_only needs x0")
     if plan is not None:
+        if isinstance(plan, PairsPlan) != (design == "pairs"):
+            raise ValueError("a GramPlan is the per-matrix design's, a PairsPlan the "
+                             "long-T design's")
         if design == "pairs":
-            raise ValueError("a launch plan is the per-matrix design's")
-        _check_gram_plan(plan, T, R)
+            _check_pairs_plan(plan, Z, S, T, R)
+        else:
+            _check_gram_plan(plan, T, R)
     _check_cuda("G", G, (Z, T, R))
     _check_cuda("w", w, (Z, S, T))
     if x0 is not None:
@@ -516,8 +717,14 @@ def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
         if design == "pairs":
             pairs = torch.empty((Z, S, R * (R + 1) // 2), dtype=torch.float32,
                                 device=G.device)
-            rc = lib.ns_gram_pairs(_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid), _ptr(v),
-                                   _ptr(pairs), *flags, nsm, stream)
+            if plan is None:
+                plan = pairs_plan(Z, S, T, R, nsm)
+            args = (_ptr(G), _ptr(w), _ptr(x0), _ptr(X), _ptr(resid), _ptr(v), _ptr(pairs),
+                    *flags)
+            # shape -1: that GEMM on the tiled kernel (both, TILED_PLAN)
+            gemms = [(g.shape, g.grid, g.stages, int(g.copy == "tma")) if g else (-1, 0, 0, 0)
+                     for g in (plan.gram, plan.v)]
+            rc = lib.ns_gram_pairs(*args, *gemms[0], *gemms[1], nsm, stream)
         else:
             if plan is None:
                 plan = gram_plan(T, R, Z, nsm)
@@ -530,7 +737,10 @@ def _ns_gram_cuda(G, w, iters: int = 16, x0=None, resid_only: bool = False,
                                  *flags, stream)
     _raise_on(rc, lib, "ns_gram")
     KERNEL_LAUNCHES["ns_gram"] += 1
-    if plan is not None and plan.path == "stream":
+    if design == "pairs":
+        if plan.path == "stream" and (plan.gram is not None or plan.v is not None):
+            KERNEL_LAUNCHES["ns_gram_pairs_stream"] += 1
+    elif plan is not None and plan.path == "stream":
         KERNEL_LAUNCHES["ns_gram_stream"] += 1
     return X, resid, v
 
